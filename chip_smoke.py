@@ -8,11 +8,12 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
   1. device   the card's name, device count, name and power limit;
   2. build    nvcc builds the conflict kernels from csrc/, and the
               compiler's -Xptxas -v lines are printed;
-  3. kernels  each kernel (K1-K4) on seeded inputs at the resolver's
+  3. kernels  each kernel (K1-K5) on seeded inputs at the resolver's
               full-width shapes, held against its plain torch version on
               the same CUDA tensors (exact: integer functions), timed with
               L2 cold and warm, and set against the least time the bytes
-              and operations its inputs need would take the card;
+              and operations its inputs need would take the card; K5 also
+              against K1 with no history bit set;
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
               + 16 timed batches, GC from the 10th batch) through
@@ -21,12 +22,27 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               and every kernel launched by the cuda run.  Then a few more
               batches, timed plain and profiled on a twin set (device
               busy share, the ops that take the time);
-  5. oracle   a reduced stream (variable-length keys with shared prefixes,
+  6. best-known  the same stream through bench.py's BEST_KNOWN layout
+              (lsm=True, search_impl="bucket") on "cpu" once and on
+              "cuda" in three modes (`drive`): synchronous resolve_batch,
+              resolve_deferred waited one behind, and a PipelinedPacker
+              with BatchStager feeding resolve_arrays(sync=False).  Every
+              mode's verdicts equal phase 4's and the cpu run's batch by
+              batch, its final state the cpu run's; checks/s, latency,
+              pack/h2d time, host syncs and (profiled) device-busy share
+              per mode.  K5 referees K1 on one batch of the live state;
+  7. recovery a deep 16-bit-prefix bucket through resolve_deferred on the
+              card: the deferred check fails, the window recovers, and the
+              verdicts equal the oracle's;
+  8. oracle   a reduced stream (variable-length keys with shared prefixes,
               main capacity small enough to regrow) on "cuda" against the
               port's OracleConflictSet: identical verdicts.
 
-Prints the kernels' JSON line, then the card's name and power limit, then
-as its last line {"ok": true, "device": {...}}.  Any failure raises and
+Each path is driven with the launch counts set to 0 just before it and read
+just after.  Prints the kernels' JSON line (`launches`: K1-K4 on phase 4's
+stream, K5 in its referee role; `launches_by_path` for every path), then
+the card's name and power limit, then as its last line
+{"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
 script, it exits non-zero before printing any result.
 """
@@ -69,12 +85,26 @@ FLUSH_BYTES = 256 << 20  # written before a cold launch: 5x the 50 MB L2
 SPIN_CYCLES = 200_000    # ~0.1 ms of device spin ahead of a timed launch
 
 SOURCE = "foundationdb_tpu_torch/csrc/conflict_kernels.cu"
-KERNELS = (  # (counter name, TPU kernel it replaces)
-    ("probe_fused", "foundationdb_tpu/conflict/pallas_kernel.py:189"),
-    ("intra_query", "foundationdb_tpu/conflict/pallas_kernel.py:353"),
-    ("compact_ranks", "foundationdb_tpu/conflict/pallas_kernel.py:474"),
-    ("run_to_step", "foundationdb_tpu/conflict/pallas_kernel.py:416"),
+KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
+    ("probe_fused", "foundationdb_tpu/conflict/pallas_kernel.py:189",
+     "probe_kernel<true>"),
+    ("intra_query", "foundationdb_tpu/conflict/pallas_kernel.py:353",
+     "intra_query_kernel"),
+    ("compact_ranks", "foundationdb_tpu/conflict/pallas_kernel.py:474",
+     "compact_ranks_kernel"),
+    ("run_to_step", "foundationdb_tpu/conflict/pallas_kernel.py:416",
+     "run_to_step_kernel"),
+    ("probe", "foundationdb_tpu/conflict/pallas_kernel.py:165",
+     "probe_kernel<false>"),
 )
+SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
+MAIN_PATH = ("probe_fused", "intra_query", "compact_ranks", "run_to_step")
+# bench.py's BEST_KNOWN layout, run in three modes over the same stream
+BEST_KNOWN = dict(lsm=True, search_impl="bucket")
+MODES = ("sync", "deferred", "packer")
+# each mode twice, in turns, so that drift over the call (the shared host's
+# load) falls on every mode alike
+TURNS = MODES + MODES[::-1]
 
 
 def log(*parts) -> None:
@@ -140,7 +170,14 @@ def launch_ms(torch, fn, reps: int, flush=None) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
-def device_ms(torch, fn, kernel_name: str, reps: int) -> float:
+def _is_kernel(key: str, symbol: str) -> bool:
+    """Whether a profiler record names the CUDA kernel `symbol` (a
+    template argument may print as `true` or as `(bool)1`)."""
+    return symbol in key or symbol.replace("<true>", "<(bool)1>").replace(
+        "<false>", "<(bool)0>") in key
+
+
+def device_ms(torch, fn, symbol: str, reps: int) -> float:
     """The kernel's own duration per launch, from the profiler's device
     records (CUPTI), over `reps` launches."""
     from torch.profiler import ProfilerActivity, profile
@@ -149,7 +186,8 @@ def device_ms(torch, fn, kernel_name: str, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages() if kernel_name in e.key]
+    mine = [e for e in prof.key_averages() if _is_kernel(e.key, symbol)]
+    require(mine, f"the profiler recorded no launch of {symbol}")
     return sum(_device_us(e) for e in mine) / 1e3 / reps
 
 
@@ -217,13 +255,19 @@ def trace_search(torch, table, qq, qid):
         hi[a] = torch.where(less, hi[a], mid)
 
 
-def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, hist):
+def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver,
+                     hist=None):
     """K1: a thread reads hist; when clear, r_ok; when set, snap, and for
     each run newer than snap (until its first conflict) searches the run's
     begins with its read end and, on rank > 0, compares its read begin with
-    ends[rank - 1].  Returns (bytes, operations, the kernel's output)."""
+    ends[rank - 1].  With hist None, K5: the same without the history
+    input (every thread reads r_ok).  Returns (bytes, operations, the
+    kernel's output)."""
     R, W = rb.shape
     K, cap, _ = runs_b.shape
+    fused = hist is not None
+    if not fused:
+        hist = torch.zeros_like(r_ok)
     live = ~hist & r_ok
     conflict = torch.zeros_like(hist)
     el = {"rb": [], "re": [], "runs_b": [], "runs_e": []}
@@ -243,7 +287,7 @@ def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, hist)
         el["runs_e"].append(_lanes_upto(torch, k * cap + rank - 1, first, W))
         lanes += int((first + 1).sum())
         conflict[a] = less
-    n_bytes = (2 * R + SECTOR  # hist, out; runs_ver
+    n_bytes = ((2 if fused else 1) * R + SECTOR  # hist, out; runs_ver
                + SECTOR * _sectors(torch, (~hist).nonzero()[:, 0], 1)
                + SECTOR * _sectors(torch, live.nonzero()[:, 0])
                + SECTOR * sum(_sectors(torch, torch.cat(v)) for v in el.values() if v))
@@ -350,7 +394,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
                 f"{name}: the replay that counts its work disagrees with it")
         warm_ms = launch_ms(torch, fn, reps)
         cold_ms = launch_ms(torch, fn, reps, flush)
-        own_ms = device_ms(torch, fn, f"{name}_kernel", reps)
+        own_ms = device_ms(torch, fn, SYMBOLS[name], reps)
         back_to_back = call_ms(torch, fn, reps)
         plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
         bound_ms, bound_by = bound(n_bytes, n_ops)
@@ -401,6 +445,18 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           [kernels.probe_fused_plain(*k1)], probe_fused_work(torch, *k1),
           fn=lambda: kernels.probe_fused(*k1),
           plain_fn=lambda: kernels.probe_fused_plain(*k1), reps=50, cold=True)
+
+    # K5: K1's inputs without the history bits; it must also equal K1 run
+    # with no history bit set
+    k5 = k1[:7]
+    no_hist = torch.zeros_like(k1[7])
+    k5_out = kernels.run_conflicts(*k5)
+    require(torch.equal(k5_out, kernels.probe_fused(*k5, no_hist)),
+            "K5 disagrees with K1 run without history bits")
+    check("probe", [k5_out], [kernels.run_conflicts_plain(*k5)],
+          probe_fused_work(torch, *k5),
+          fn=lambda: kernels.run_conflicts(*k5),
+          plain_fn=lambda: kernels.run_conflicts_plain(*k5), reps=50, cold=True)
 
     # K2: the first fixpoint iteration's tables of a real stream batch
     rb, re_, r_tx, wb, we, w_tx, _snap, _act = tdev.stage_batch(dev, *first_batch[:8])
@@ -473,6 +529,9 @@ def stream_batches(TxInfo, rng, pool, succ, n_batches, txns=TXNS):
 
 
 def stream_phase(torch, fdb, batches, power):
+    """Phase 4: the flat layout (the reference constructor's default)
+    through resolve_batch on "cuda" and on "cpu".  Returns (launches, the
+    cuda set, the verdicts per batch)."""
     tdev, kernels, Verdict = fdb["device"], fdb["kernels"], fdb["Verdict"]
     on_gpu = tdev.DeviceConflictSet(**SET_ARGS, device="cuda")
     on_cpu = tdev.DeviceConflictSet(**SET_ARGS, device="cpu")
@@ -495,10 +554,7 @@ def stream_phase(torch, fdb, batches, power):
         if i >= GC_FROM_BATCH:
             on_cpu.remove_before(version - GC_LAG)
     cpu_s = time.perf_counter() - t_cpu
-    a, b = on_gpu.export_state(), on_cpu.export_state()
-    for k in a:
-        require(np.array_equal(np.asarray(a[k]), np.asarray(b[k])),
-                f"final state {k!r} differs between cuda and cpu")
+    same_state(on_gpu, on_cpu, "flat stream")
     counts = {v: sum(1 for vs in verdicts for x in vs if x == v) for v in Verdict}
     timed = gpu_ms[PREFILL_BATCHES:]
     checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
@@ -509,13 +565,14 @@ def stream_phase(torch, fdb, batches, power):
         f"cap={on_gpu.capacity}")
     log(f"stream: resolve_batch ms on cuda ({power}), timed batches: "
         f"p50={float(np.percentile(timed, 50)):.3f} "
-        f"p99={float(np.percentile(timed, 99)):.3f} max={max(timed):.3f}; "
-        f"checks/s={checks / (sum(timed) / 1e3):.1f}")
+        f"p99={float(np.percentile(timed, 99)):.3f} max={max(timed):.3f} "
+        f"(n={len(timed)}); checks/s={checks / (sum(timed) / 1e3):.1f}")
     log(f"stream: all batches: pack_ms={stats['pack_ms']:.3f} "
         f"h2d_ms={stats['h2d_ms']:.3f} resolve_ms={stats['resolve_ms']:.3f} "
         f"compact_ms={stats['phase']['compact_ms']:.3f} "
         f"resolve_arrays p50={stats['resolve_ms_p50']:.3f} "
-        f"p99={stats['resolve_ms_p99']:.3f}")
+        f"p99={stats['resolve_ms_p99']:.3f}; host syncs per batch "
+        f"{on_gpu.host_syncs / len(batches):.2f}")
     log(f"stream: per-batch ms on cuda: {[round(x, 3) for x in gpu_ms]}")
     log(f"stream: cpu cross-check took {cpu_s:.1f} s")
     log(f"stream: launches {json.dumps(launches)}")
@@ -524,12 +581,28 @@ def stream_phase(torch, fdb, batches, power):
     for name, n in need.items():
         require(launches[name] >= n, f"{name} launched {launches[name]} < {n} times")
     require(counts[Verdict.TOO_OLD] > 0, "the GC clamp never made a txn TOO_OLD")
-    return launches, on_gpu
+    return launches, on_gpu, verdicts
+
+
+def same_state(a, b, where: str) -> None:
+    """The two sets' exported states are equal, key by key."""
+    sa, sb = a.export_state(), b.export_state()
+    require(sa.keys() == sb.keys(), f"{where}: the state keys differ")
+    for k in sa:
+        require(np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])),
+                f"{where}: final state {k!r} differs")
 
 
 def _device_us(event) -> float:
     return getattr(event, "self_device_time_total",
                    getattr(event, "self_cuda_time_total", 0))
+
+
+def busy_ms(torch, events) -> float:
+    """Device time of a profile: the device-side records (the kernels)
+    only, since an op's own record repeats the time of its kernels."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(_device_us(e) for e in events if e.device_type == cuda) / 1e3
 
 
 def profile_phase(torch, fdb, on_gpu, batches, power):
@@ -555,19 +628,262 @@ def profile_phase(torch, fdb, on_gpu, batches, power):
         torch.cuda.synchronize()
     require(traced == plain, "the profiled twin's verdicts differ")
     events = prof.key_averages()
-    busy_ms = sum(_device_us(e) for e in events) / 1e3
+    busy = busy_ms(torch, events)
     wall_ms = sum(walls)
     log(f"profile: {len(batches)} batches (the first compacts 8 runs), wall "
-        f"{[round(w, 3) for w in walls]} ms, device busy {busy_ms:.3f} ms = "
-        f"{100 * busy_ms / wall_ms:.1f}% of {wall_ms:.3f} ms on {power}")
-    ours = {name: sum(_device_us(e) for e in events if f"{name}_kernel" in e.key) / 1e3
-            for name, _ in KERNELS}
-    log(f"profile: the four kernels' device ms {json.dumps(ours)} = "
-        f"{100 * sum(ours.values()) / max(busy_ms, 1e-9):.1f}% of device busy")
+        f"{[round(w, 3) for w in walls]} ms, device busy {busy:.3f} ms = "
+        f"{100 * busy / wall_ms:.1f}% of {wall_ms:.3f} ms on {power}")
+    ours = {name: sum(_device_us(e) for e in events if _is_kernel(e.key, symbol)) / 1e3
+            for name, _where, symbol in KERNELS}
+    log(f"profile: the hand kernels' device ms {json.dumps(ours)} = "
+        f"{100 * sum(ours.values()) / max(busy, 1e-9):.1f}% of device busy")
     for e in sorted(events, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls={e.count:6d}  {e.key[:70]}")
     for e in sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:10]:
         log(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls={e.count:6d}  {e.key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the best-known layout (bench.py's BEST_KNOWN) in three modes
+
+
+def gc_floor(index: int, version: int):
+    """The stream's GC schedule: after batch `index` (1-based) the set
+    drops versions below commit - GC_LAG, from GC_FROM_BATCH on."""
+    return version - GC_LAG if index >= GC_FROM_BATCH else None
+
+
+def drive(torch, fdb, mode: str, cs, batches, first: int):
+    """Runs `batches` (numbered from `first` for the GC schedule) through
+    `cs` in one mode and returns (verdicts per batch, wall ms per batch):
+
+      sync      resolve_batch, the wall of each call ending in the verdicts;
+      deferred  resolve_deferred, each handle waited one batch behind, as
+                the resolver role's split-phase path does; a batch's wall
+                is its iteration (dispatch it, wait the one before, GC);
+      packer    a PipelinedPacker packs and stages (BatchStager, pinned
+                memory, a side stream) up to two batches ahead on its
+                thread, as bench.py's resolver-e2e stream does; each
+                staged batch goes to resolve_arrays(sync=False), verdicts
+                are read two batches behind, and one check_pipelined()
+                ends the stream.  Packing needs the MVCC floor the set
+                will have at dispatch, which the GC schedule gives.
+    The last wait (and the check) is added to the last batch's wall."""
+    tdev, pipeline, Verdict = fdb["device"], fdb["pipeline"], fdb["Verdict"]
+    walls, out = [], []
+    torch.cuda.synchronize()
+    if mode == "sync":
+        for i, (version, txns) in enumerate(batches, start=first):
+            t0 = time.perf_counter()
+            out.append(cs.resolve_batch(version, txns))
+            walls.append((time.perf_counter() - t0) * 1e3)
+            floor = gc_floor(i, version)
+            if floor is not None:
+                cs.remove_before(floor)
+        return out, walls
+    if mode == "deferred":
+        prev = None
+        for i, (version, txns) in enumerate(batches, start=first):
+            t0 = time.perf_counter()
+            h = cs.resolve_deferred(version, txns)
+            if prev is not None:
+                out.append(prev.wait())
+            floor = gc_floor(i, version)
+            if floor is not None:
+                cs.remove_before(floor)
+            prev = h
+            walls.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        out.append(prev.wait())
+        walls[-1] += (time.perf_counter() - t0) * 1e3
+        return out, walls
+    require(mode == "packer", f"unknown mode {mode}")
+    floors, floor = [], cs.oldest_version
+    for i, (version, _txns) in enumerate(batches, start=first):
+        floors.append(floor)
+        nxt = gc_floor(i, version)
+        floor = floor if nxt is None else nxt
+    arena = pipeline.PackArena(depth=6)
+
+    def pack(item):
+        txns, floor = item
+        return tdev.pack_batch(txns, floor, lambda v: max(v - floor, 0),
+                               SET_ARGS["max_key_bytes"], arena=arena,
+                               stats=cs.stats)
+
+    packer = pipeline.PipelinedPacker(pack, depth=2, stage=tdev.BatchStager("cuda"),
+                                      stats=cs.stats)
+    pending, submitted = [], 0
+
+    def read(entry):
+        verdict, n = entry
+        codes = verdict[:n].cpu().numpy()
+        out.append([Verdict(int(c)) for c in codes])
+
+    try:
+        for i, (version, txns) in enumerate(batches, start=first):
+            t0 = time.perf_counter()
+            while submitted < len(batches) and submitted <= i - first + 1:
+                packer.submit((batches[submitted][1], floors[submitted]))
+                submitted += 1
+            staged = packer.get()
+            require(cs._base == floors[i - first], "packed against a stale floor")
+            pending.append((cs.resolve_arrays(version, *staged.take(), sync=False),
+                            len(txns)))
+            if len(pending) > 2:
+                read(pending.pop(0))
+            floor = gc_floor(i, version)
+            if floor is not None:
+                cs.remove_before(floor)
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        packer.close()
+    t0 = time.perf_counter()
+    for entry in pending:
+        read(entry)
+    cs.check_pipelined()
+    walls[-1] += (time.perf_counter() - t0) * 1e3
+    return out, walls
+
+
+def best_known_phase(torch, fdb, batches, flat_verdicts, power):
+    """Phase 6: the stream through DeviceConflictSet(lsm=True,
+    search_impl="bucket") on "cpu" once, then on "cuda" in each mode of
+    `drive`, twice, in TURNS, each turn on a fresh set: verdicts equal the
+    flat run's and the cpu run's batch by batch, the final state (ks, vs,
+    tab, bidx, runs) equals the cpu run's, no search fell back, and every
+    kernel of the path launched.  Returns {mode: (the first turn's set,
+    its launches, {"turns": [metrics per turn]})}."""
+    tdev, kernels = fdb["device"], fdb["kernels"]
+    t = time.perf_counter()
+    on_cpu = tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cpu")
+    cpu_verdicts = []
+    for i, (version, txns) in enumerate(batches, start=1):
+        cpu_verdicts.append(on_cpu.resolve_batch(version, txns))
+        floor = gc_floor(i, version)
+        if floor is not None:
+            on_cpu.remove_before(floor)
+    require(cpu_verdicts == flat_verdicts, "best-known cpu run differs from the flat run")
+    log(f"best-known: cpu reference run took {time.perf_counter() - t:.1f} s")
+    checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
+    runs = {}
+    for turn, mode in enumerate(TURNS, start=1):
+        cs = tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda")
+        kernels.reset_launches()
+        got, walls = drive(torch, fdb, mode, cs, batches, 1)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
+            require(a == b, f"best-known {mode}: batch {i} differs from the flat run")
+        require(len(got) == len(batches), f"best-known {mode}: verdicts missing")
+        same_state(cs, on_cpu, f"best-known {mode}")
+        require(cs.search_fallbacks == 0, f"best-known {mode}: a search fell back")
+        for name in MAIN_PATH:
+            require(launches[name] > 0, f"best-known {mode}: {name} never launched")
+        timed = walls[PREFILL_BATCHES:]
+        stats = cs.kernel_stats()
+        reads = len(batches) if mode == "packer" else 0  # the caller's own
+        m = dict(checks_per_s=checks / (sum(timed) / 1e3),
+                 p50_ms=float(np.percentile(timed, 50)),
+                 p99_ms=float(np.percentile(timed, 99)), n=len(timed),
+                 pack_ms=stats["pack_ms"],
+                 encode_pad_ms=stats["encode_ms"] + stats["pad_ms"],
+                 h2d_ms=stats["h2d_ms"],
+                 syncs_per_batch=(cs.host_syncs + reads) / len(batches))
+        runs.setdefault(mode, (cs, launches, {"turns": []}))[2]["turns"].append(m)
+        log(f"best-known {mode} (turn {turn}): {len(batches)} batches identical to the flat "
+            f"run and the cpu run, final state equal; checks/s="
+            f"{m['checks_per_s']:.1f} timed-batch ms p50={m['p50_ms']:.3f} "
+            f"p99={m['p99_ms']:.3f} (n={m['n']}); all batches: pack_ms="
+            f"{m['pack_ms']:.3f} encode+pad_ms={m['encode_pad_ms']:.3f} "
+            f"h2d_ms={m['h2d_ms']:.3f} host syncs per batch="
+            f"{m['syncs_per_batch']:.2f}; compactions={cs.stats.compactions} on {power}")
+        log(f"best-known {mode} (turn {turn}): per-batch ms {[round(w, 3) for w in walls]}")
+        log(f"best-known {mode} (turn {turn}): launches {json.dumps(launches)}")
+    return runs
+
+
+def best_known_profile(torch, fdb, runs, batches, first: int, power):
+    """Each mode's device-busy share: the few batches past the stream run
+    in that mode on the mode's set with nothing attached (the wall), and
+    on a twin loaded from its state under torch.profiler (device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for mode, (cs, _launches, m) in runs.items():
+        twin = fdb["device"].DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda")
+        twin.load_state(cs.export_state())
+        plain, walls = drive(torch, fdb, mode, cs, batches, first)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            traced, _ = drive(torch, fdb, mode, twin, batches, first)
+            torch.cuda.synchronize()
+        require(traced == plain, f"best-known {mode}: the profiled twin differs")
+        events = prof.key_averages()
+        busy = busy_ms(torch, events)
+        m["busy_share"] = busy / sum(walls)
+        syncs = sum(e.count for e in events if "Synchronize" in e.key)
+        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        m["launches_per_batch"] = launches / len(batches)
+        log(f"best-known {mode} profile: {len(batches)} batches, wall "
+            f"{[round(w, 3) for w in walls]} ms, device busy {busy:.3f} ms = "
+            f"{100 * m['busy_share']:.1f}% on {power}; the profiler saw "
+            f"{syncs} synchronize calls and {launches} cudaLaunchKernel")
+
+
+def referee_phase(torch, fdb, cs, version, txns):
+    """K5 in its role: K1's unfused referee, on one batch against the live
+    state of a best-known set (its runs, its cached table).  Nothing is
+    written to the set.  Returns K5's launches in this phase."""
+    tdev, kernels = fdb["device"], fdb["kernels"]
+    packed = tdev.pack_batch(txns, cs.oldest_version, cs._offset,
+                             SET_ARGS["max_key_bytes"])
+    rb, re_, r_tx, _wb, _we, _w_tx, snap, _active = tdev.stage_batch(cs.device, *packed[:8])
+    kernels.reset_launches()
+    g_lo, g_hi, conv = tdev.inc_search(cs._ks, cs._bidx, cs._count, rb, re_, r_tx)
+    require(bool(conv), "referee batch: the bucketed search did not converge")
+    r_ok = r_tx >= 0
+    snap_r = snap[torch.clamp(r_tx, 0, snap.shape[0] - 1).long()]
+    read_max = fdb["rmq"].query_sparse_table(cs._tab, g_lo, g_hi, torch.maximum, 0)
+    hist_r = r_ok & (read_max > snap_r)
+    runs = (cs._runs_b, cs._runs_e, cs._runs_ver)
+    fused = kernels.probe_fused(rb, re_, snap_r, r_ok, *runs, hist_r)
+    unfused = kernels.run_conflicts(rb, re_, snap_r, r_ok, *runs) | hist_r
+    torch.cuda.synchronize()
+    launches = kernels.launches["probe"]
+    require(torch.equal(fused, unfused), "K5 | history disagrees with K1 on live state")
+    require(launches > 0, "the referee never launched K5")
+    log(f"referee: K5 | history == K1 on a live batch ({int(fused.sum())} of "
+        f"{int(r_ok.sum())} live reads conflict; {cs._n_runs} live runs); "
+        f"K5 launches {launches}")
+    return launches
+
+
+def recovery_drill(fdb):
+    """A deep 16-bit-prefix bucket on the card: 3000 point writes under
+    "ZZ", benign batches until a compaction folds them into main, then
+    probes whose bucketed search cannot converge — all through
+    resolve_deferred.  The window must recover (the coverage site
+    kernel.pipeline_recover) and match OracleConflictSet."""
+    tdev, TxInfo = fdb["device"], fdb["TxInfo"]
+    zz = [b"ZZ%04d" % i for i in range(3000)]
+    stream = [(10, [TxInfo(0, [], [(k, k + b"\x00")]) for k in zz])]
+    for v in (20, 30, 40):
+        stream.append((v, [TxInfo(v - 5, [(b"b%d" % v, b"c")], [(b"d%d" % v, b"e")])]))
+    probes = [(b"ZZ%04d" % i, b"ZZ%04d" % (i + 1)) for i in range(7, 3000, 97)]
+    stream.append((50, [TxInfo(45, probes, [(b"q", b"q\x00")]),
+                        TxInfo(45, [(b"ZZ0001", b"ZZ2999")], [])]))
+    oracle = fdb["oracle"].OracleConflictSet()
+    cs = tdev.DeviceConflictSet(**BEST_KNOWN, max_key_bytes=16, capacity=1 << 14,
+                                run_slots=2, device="cuda")
+    before = fdb["coverage"].hits("kernel.pipeline_recover")
+    handles = [cs.resolve_deferred(v, t) for v, t in stream]
+    for (v, t), h in zip(stream, handles):
+        require(h.wait() == oracle.resolve_batch(v, t), f"recovery drill: batch {v} differs")
+    recovered = fdb["coverage"].hits("kernel.pipeline_recover") - before
+    require(recovered == 1, f"recovery drill: {recovered} recoveries, expected 1")
+    require(cs.search_fallbacks >= 1, "recovery drill: the replay never fell back")
+    log(f"recovery: deep bucket (3000 keys under one prefix) recovered once, "
+        f"search_fallbacks={cs.search_fallbacks}, verdicts equal to the oracle")
 
 
 def oracle_batches(TxInfo, rng, n_batches=24, txns=512):
@@ -627,12 +943,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from foundationdb_tpu_torch import keys
-    from foundationdb_tpu_torch.conflict import _build, device, kernels, oracle
+    from foundationdb_tpu_torch.conflict import _build, device, kernels, oracle, pipeline
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
     from foundationdb_tpu_torch.ops import rmq
+    from foundationdb_tpu_torch.runtime import coverage
 
     fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
-               rmq=rmq, Verdict=Verdict)
+               pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
+               Verdict=Verdict)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -653,6 +971,7 @@ def main() -> int:
     t = time.perf_counter()
     n_stream = PREFILL_BATCHES + TIMED_BATCHES
     batches = stream_batches(TxInfo, rng, pool, succ, n_stream + PROFILED_BATCHES)
+    stream, extra = batches[:n_stream], batches[n_stream:]
     log(f"stream data: {time.perf_counter() - t:.1f} s")
     first = device.pack_batch(batches[0][1], 0, lambda v: v,
                               SET_ARGS["max_key_bytes"])
@@ -662,22 +981,35 @@ def main() -> int:
     log(f"kernels phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    launches, on_gpu = stream_phase(torch, fdb, batches[:n_stream], power)
+    launches, on_gpu, flat_verdicts = stream_phase(torch, fdb, stream, power)
     log(f"stream phase: {time.perf_counter() - t:.1f} s")
-    profile_phase(torch, fdb, on_gpu, batches[n_stream:], power)
+    profile_phase(torch, fdb, on_gpu, extra, power)
 
     t = time.perf_counter()
+    runs = best_known_phase(torch, fdb, stream, flat_verdicts, power)
+    referee_launches = referee_phase(torch, fdb, runs["sync"][0], *extra[0])
+    best_known_profile(torch, fdb, runs, extra, n_stream + 1, power)
+    log(f"best-known phase: {time.perf_counter() - t:.1f} s")
+    log("best-known summary " + json.dumps(
+        {mode: m for mode, (_cs, _l, m) in runs.items()}))
+
+    t = time.perf_counter()
+    recovery_drill(fdb)
     oracle_phase(fdb, oracle_batches(TxInfo, np.random.default_rng(SEED + 1)))
-    log(f"oracle phase: {time.perf_counter() - t:.1f} s")
+    log(f"recovery + oracle phases: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
+    by_path = {"flat": launches, "referee": {"probe": referee_launches}}
+    by_path.update({f"best_{mode}": l for mode, (_cs, l, _m) in runs.items()})
+    path_launches = dict(launches, probe=referee_launches)
     timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
              "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCE, replaces=where,
-             launches=launches[k], max_abs_err=results[k]["max_abs_err"],
-             **{key: results[k][key] for key in timed}, library_ms=None)
-        for k, where in KERNELS
+             launches=path_launches[k], max_abs_err=results[k]["max_abs_err"],
+             **{key: results[k][key] for key in timed}, library_ms=None,
+             launches_by_path={p: n.get(k, 0) for p, n in by_path.items()})
+        for k, where, _symbol in KERNELS
     ]}))
     print(power)
     print(json.dumps({"ok": True, "device": {

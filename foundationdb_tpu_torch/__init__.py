@@ -2,8 +2,8 @@
 
 The JAX package `foundationdb_tpu` stays the reference; this package mirrors
 its module names (keys, ops/search, ops/rmq, conflict/api, conflict/oracle,
-conflict/device, runtime/coverage, runtime/metrics) so each counterpart is
-easy to find, and replaces the Pallas kernels of
+conflict/device, conflict/pipeline, runtime/coverage, runtime/metrics) so
+each counterpart is easy to find, and replaces the Pallas kernels of
 `foundationdb_tpu/conflict/pallas_kernel.py` with hand-written CUDA for
 Hopper (`csrc/conflict_kernels.cu`, bound by `conflict/kernels.py`).
 

@@ -1,29 +1,50 @@
 """Device (PyTorch/CUDA) ConflictSet — the resolver's batched OCC check.
 
-Port of the flat incremental layout of foundationdb_tpu/conflict/device.py
-(the reference constructor's default: incremental=True, lsm=False,
-merge_impl="scatter", search_impl="sort").  The committed-write history is
-a step function over key space, held in fixed-capacity tensors:
+Port of the incremental layouts of foundationdb_tpu/conflict/device.py.
+The committed-write history is a step function over key space, held in
+fixed-capacity tensors:
 
   main   ks    int32[CAP, W]       sorted boundary keys (keys.py flipped
                                    lanes; sentinel-padded past `count`)
          vs    int32[CAP]          version offset of gap [ks[i], ks[i+1])
+         bidx  int32[2**16 + 1]    word0-prefix bucket index of ks
+         tab   int32[L, CAP]       range-max sparse table of vs (LSM only)
   runs   runs_b/runs_e int32[K, RUN_CAP, W]   one sorted, disjoint interval
                                    run per batch since the last compaction
          runs_ver int32[K]         commit offset per run (0 = dead)
 
-Per batch (`resolve_core_inc`):
-  search   `phase_search_sort`: every read ranked against main with ONE
-           multi-key sort;
-  check    `inc_check`: sparse-table range-max of main's versions over each
-           read (history), the run probe (kernel K1, fused with history),
-           then the intra-batch fixpoint (`phase_intra`, kernel K2 in every
-           iteration);
+Two layouts, chosen by the constructor's keywords (the reference's, with
+its defaults): `lsm=False, search_impl="sort"` is the reference
+constructor's default; `lsm=True, search_impl="bucket"` is bench.py's
+BEST_KNOWN, the configuration the repo measures.
+
+Per batch (`resolve_core_inc`, or `resolve_core_inc_lsm`):
+  search   `inc_search`: every read ranked against main, either with ONE
+           multi-key sort (`phase_search_sort`) or by a binary search
+           inside each read's 16-bit-prefix bucket (`phase_search`, a fixed
+           FAST_SEARCH_ITERS rounds; a bucket deeper than that does not
+           converge, and the batch is replayed at full depth);
+  check    `inc_check`: range-max of main's versions over each read
+           (history; from a table built per batch out of vs, or from the
+           LSM layout's table cached between compactions), the run probe
+           (kernel K1, fused with history), then the intra-batch fixpoint
+           (`phase_intra`, kernel K2 in every iteration);
   append   `inc_append`: the committed writes' canonical union becomes the
            next run.
 Every K batches `_compact_runs` folds the runs into main: each run becomes
 a step function (kernel K4), and the scatter fold max-composes it into
-main from cross ranks (kernel K3).  `remove_before` rebases versions.
+main from cross ranks (kernel K3); bidx and tab are rebuilt there only.
+`remove_before` rebases versions (and clamps tab: the clamp commutes with
+range-max).
+
+Pipelining (conflict/pipeline.py): `resolve_arrays(..., sync=False)`
+dispatches a batch and returns its verdicts as a device tensor without
+waiting; the search's convergence folds into a device flag that
+`check_pipelined()` reads.  `resolve_deferred` builds the split-phase
+resolve on it, with snapshot/replay recovery.  So that a snapshot can be a
+dict of references, every update of the state REBINDS a new tensor and
+never writes one in place.  `BatchStager` runs `stage_batch` for
+`PipelinedPacker` on a side stream and records an event after it.
 
 All-integer and deterministic: on the CPU (`device="cpu"`) the kernels'
 plain torch versions run, and verdicts and state are bit-identical to the
@@ -31,11 +52,13 @@ reference package's DeviceConflictSet batch by batch.  JAX's `mode="drop"`
 scatters become writes into one spare slot past the end that is then
 sliced off; `.at[].min` becomes `scatter_reduce_(..., "amin")`, `.at[].add`
 `index_add_`, and `lax.while_loop` a Python loop (one host sync per
-fixpoint iteration).  The port updates its state tensors in place.
+fixpoint iteration, counted in `host_syncs` with every other read of a
+device value on the host).
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from itertools import chain
 from operator import attrgetter
@@ -48,16 +71,23 @@ from .. import keys as keymod
 from ..keys import SENT_LANE, to_lanes, from_lanes, with_last_lane_inc
 from ..ops.rmq import (
     I32_MAX,
+    _levels,
     build_sparse_table,
     query_sparse_table,
     range_update_point_query,
 )
-from ..ops.search import lexsort
+from ..ops.search import lex_less, lexsort
 from ..runtime.coverage import testcov
 from . import kernels
 from .api import ConflictSet, KernelStats, TxInfo, Verdict, validate_batch
+from .pipeline import PipelinedConflictMixin
 
 _SENT_WORD = np.uint32(0xFFFFFFFF)  # numpy (uint32) layout of the sentinel
+
+BUCKET_BITS = 16
+N_BUCKETS = 1 << BUCKET_BITS
+FAST_SEARCH_ITERS = 11  # converges windows up to 1024 boundaries (2**(n-1))
+SEARCH_IMPLS = ("sort", "bucket")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -71,6 +101,9 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        # the index the tensors made on it will carry
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -152,6 +185,87 @@ def phase_search_sort(ks, count: int, rb, re_):
     ranks = torch.zeros(nq + 1, dtype=torch.int32, device=ks.device)
     ranks.index_copy_(0, torch.where(is_q > 0, sidx, nq).long(), state_rank)
     return ranks[:R] - 1, ranks[R:nq]
+
+
+def host_bucket_index(ks_rows: np.ndarray) -> np.ndarray:
+    """word0-prefix bucket index of sorted boundary rows, host-side, in the
+    uint32 layout (sentinels land in the last bucket): bucket_idx[h] =
+    lower_bound of prefix h, bucket_idx[-1] = cap."""
+    h = (np.asarray(ks_rows)[:, 0] >> BUCKET_BITS).astype(np.int64)
+    return np.cumsum(np.bincount(h + 1, minlength=N_BUCKETS + 1))[
+        : N_BUCKETS + 1
+    ].astype(np.int32)
+
+
+def _bucket_of(lane0: torch.Tensor) -> torch.Tensor:
+    """The 16-bit prefix u >> 16 of a flipped lane (u ^ 0x80000000 held as
+    int32): (lane >> 16) + 32768 with an arithmetic shift; the sentinel
+    lane lands in bucket 65535."""
+    return (lane0 >> BUCKET_BITS) + (1 << (31 - BUCKET_BITS))
+
+
+def _rebuild_buckets(new_ks: torch.Tensor) -> torch.Tensor:
+    """host_bucket_index on the device (the reference's phase 3d)."""
+    h = _bucket_of(new_ks[:, 0])
+    hist_b = torch.zeros(N_BUCKETS + 1, dtype=torch.int32, device=new_ks.device)
+    hist_b.index_add_(0, (h + 1).long(), torch.ones_like(h))
+    return _cumsum32(hist_b)
+
+
+def _bucketed_lower_bound(ks, bucket_idx, count: int, q, iters: int):
+    """lower_bound of q rows into ks, binary-searching only inside each
+    query's 16-bit-prefix bucket window (exact: every boundary outside the
+    window is strictly below or above q), clamped to the live prefix
+    [0, count).  At full depth (iters >= _levels(n)) the search runs over
+    [0, n) instead.  Returns (ranks, converged_mask)."""
+    n = ks.shape[0]
+    if iters >= _levels(n):
+        lo = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+        hi = torch.full((q.shape[0],), n, dtype=torch.int32, device=q.device)
+    else:
+        h = _bucket_of(q[:, 0]).long()
+        lo = torch.clamp(bucket_idx[h], max=count)
+        hi = torch.clamp(bucket_idx[h + 1], max=count)
+    for _ in range(iters):
+        active = lo < hi
+        mid = torch.clamp(torch.div(lo + hi, 2, rounding_mode="floor"), 0, n - 1)
+        right = lex_less(ks[mid.long()], q)
+        lo = torch.where(active & right, mid + 1, lo)
+        hi = torch.where(active & ~right, mid, hi)
+    return lo, lo >= hi
+
+
+def phase_search(ks, bucket_idx, count: int, rb, re_, wb, we, r_ok, w_ok,
+                 search_iters: int):
+    """The ONE bucketed state search: every query class concatenated into
+    a single lower_bound (read begins as upper bounds via the (words,
+    len+1) trick).  Returns (g_lo, g_hi, wb_rank, we_rank, converged), the
+    last a device bool: every live query's window converged."""
+    R, Wn = rb.shape[0], wb.shape[0]
+    queries = torch.cat([with_last_lane_inc(rb), re_, wb, we], dim=0)
+    q_live = torch.cat([r_ok, r_ok, w_ok, w_ok])
+    ranks, conv = _bucketed_lower_bound(ks, bucket_idx, count, queries,
+                                        search_iters)
+    converged = ~torch.any(q_live & ~conv)
+    return (ranks[:R] - 1, ranks[R:2 * R], ranks[2 * R:2 * R + Wn],
+            ranks[2 * R + Wn:], converged)
+
+
+def inc_search(ks, bucket_idx, count: int, rb, re_, r_tx, *,
+               search_iters: int = FAST_SEARCH_ITERS,
+               search_impl: str = "bucket"):
+    """Phase "sort": rank the READ queries against main (the incremental
+    path never needs write ranks).  Returns (g_lo, g_hi, converged);
+    converged is None for the sort search, which is exact at any depth."""
+    if search_impl == "sort":
+        g_lo, g_hi = phase_search_sort(ks, count, rb, re_)
+        return g_lo, g_hi, None
+    r_ok = r_tx >= 0
+    g_lo, g_hi, _wr, _wer, conv = phase_search(
+        ks, bucket_idx, count, rb, re_, rb[:0], re_[:0], r_ok, r_ok[:0],
+        search_iters,
+    )
+    return g_lo, g_hi, conv
 
 
 def _intra_setup(rb, re_, wb, we):
@@ -240,17 +354,20 @@ def phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
 # the per-batch check and the run append
 
 
-def inc_check(vs, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
-              runs_b, runs_e, runs_ver, *, n_txn: int):
-    """Phase "scan": main-level history bits, the run probe fused with them
-    (kernel K1), the intra-batch fixpoint.  Returns (verdict int32[B],
-    w_ins bool[Wn]) — w_ins marks the live writes of committed txns."""
+def inc_check(hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap,
+              active, runs_b, runs_e, runs_ver, *, n_txn: int,
+              from_table: bool = False):
+    """Phase "scan": main-level history bits (from a range-max table built
+    here out of the gap versions `hist_base`, or, `from_table`, from the
+    LSM layout's cached table), the run probe fused with them (kernel K1),
+    the intra-batch fixpoint.  Returns (verdict int32[B], w_ins bool[Wn],
+    fixpoint iterations) — w_ins marks the live writes of committed txns."""
     B = n_txn
     r_ok = r_tx >= 0
     r_idx = torch.clamp(r_tx, 0, B - 1).long()
     w_ok = (w_tx >= 0) & ~_is_sentinel(wb)
     w_idx = torch.clamp(w_tx, 0, B - 1).long()
-    tab = build_sparse_table(vs, torch.maximum, 0)
+    tab = hist_base if from_table else build_sparse_table(hist_base, torch.maximum, 0)
     read_max = query_sparse_table(tab, g_lo, g_hi, torch.maximum, 0)
     snap_r = snap[r_idx]
     hist_r = r_ok & (read_max > snap_r)
@@ -260,7 +377,7 @@ def inc_check(vs, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
     hist = torch.zeros(B, dtype=torch.int32, device=rb.device).index_add_(
         0, r_idx, (r_ok & conf_r).to(torch.int32)
     ) > 0
-    intra, _n_iters = phase_intra(
+    intra, n_iters = phase_intra(
         rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active, hist, B
     )
     committed = active & ~hist & ~intra
@@ -269,7 +386,7 @@ def inc_check(vs, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
         torch.where(committed, int(Verdict.COMMITTED), int(Verdict.CONFLICT)),
         int(Verdict.TOO_OLD),
     ).to(torch.int32)
-    return verdict, w_ok & committed[w_idx]
+    return verdict, w_ok & committed[w_idx], n_iters
 
 
 def _union_intervals(wb, we, w_ins, *, run_cap: int):
@@ -309,28 +426,46 @@ def _union_intervals(wb, we, w_ins, *, run_cap: int):
 
 
 def inc_append(runs_b, runs_e, runs_ver, slot: int, wb, we, w_ins,
-               commit_off: int, *, run_cap: int) -> None:
-    """Phase "merge": write this batch's canonical committed union as run
-    `slot`, in place (O(run_cap) rows, not a state rewrite)."""
+               commit_off: int, *, run_cap: int):
+    """Phase "merge": this batch's canonical committed union becomes run
+    `slot`.  Returns new (runs_b, runs_e, runs_ver) and never writes its
+    inputs: a pipelined window's recovery snapshot may hold them."""
     u_b, u_e = _union_intervals(wb, we, w_ins, run_cap=run_cap)
-    runs_b[slot] = u_b
-    runs_e[slot] = u_e
-    runs_ver[slot] = commit_off
+    new_b, new_e, new_ver = runs_b.clone(), runs_e.clone(), runs_ver.clone()
+    new_b[slot] = u_b
+    new_e[slot] = u_e
+    new_ver[slot] = commit_off
+    return new_b, new_e, new_ver
 
 
-def resolve_core_inc(ks, vs, count: int, runs_b, runs_e, runs_ver, slot: int,
-                     rb, re_, r_tx, wb, we, w_tx, snap, active,
-                     commit_off: int, *, n_txn: int, run_cap: int):
-    """One incremental resolve: main is read-only, committed writes append
-    as run `slot` (runs_* updated in place).  Returns verdict int32[B]."""
-    g_lo, g_hi = phase_search_sort(ks, count, rb, re_)
-    verdict, w_ins = inc_check(
-        vs, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
-        runs_b, runs_e, runs_ver, n_txn=n_txn,
+def resolve_core_inc(ks, hist_base, bidx, count: int, runs_b, runs_e,
+                     runs_ver, slot: int, rb, re_, r_tx, wb, we, w_tx, snap,
+                     active, commit_off: int, *, n_txn: int, run_cap: int,
+                     search_iters: int = FAST_SEARCH_ITERS,
+                     search_impl: str = "bucket", from_table: bool = False):
+    """One incremental resolve: main is read-only (searched for history
+    only), committed writes append as run `slot`.  `hist_base` is main's
+    gap versions, or its cached sparse table when `from_table`.  Returns
+    (verdict int32[B], runs_b', runs_e', runs_ver', converged, fixpoint
+    iterations); converged is a device bool (None for the sort search)."""
+    g_lo, g_hi, conv = inc_search(
+        ks, bidx, count, rb, re_, r_tx,
+        search_iters=search_iters, search_impl=search_impl,
     )
-    inc_append(runs_b, runs_e, runs_ver, slot, wb, we, w_ins, commit_off,
-               run_cap=run_cap)
-    return verdict
+    verdict, w_ins, n_iters = inc_check(
+        hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
+        runs_b, runs_e, runs_ver, n_txn=n_txn, from_table=from_table,
+    )
+    new_b, new_e, new_ver = inc_append(
+        runs_b, runs_e, runs_ver, slot, wb, we, w_ins, commit_off,
+        run_cap=run_cap,
+    )
+    return verdict, new_b, new_e, new_ver, conv, n_iters
+
+
+# the LSM twin: main's history from the sparse table cached between
+# compactions (the reference's resolve_core_inc_lsm)
+resolve_core_inc_lsm = functools.partial(resolve_core_inc, from_table=True)
 
 
 # ---------------------------------------------------------------------------
@@ -475,15 +610,18 @@ def _np_rows_less(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 
 
 def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
-               stats=None, offset_array=None):
+               arena=None, stats=None, offset_array=None):
     """Marshal a TxInfo batch into padded lane arrays — the BULK path, the
     same arrays as pack_batch_loop without per-range Python loops: ONE
     flatten of every conflict-range endpoint, ONE keys.encode_concat, and
     the b < e liveness filter as a vectorized lane compare.  `offset_array`
-    is the vectorized twin of `offset`.  Batches with a key longer than
-    max_key_bytes go to pack_batch_loop (its raise-vs-drop semantics need
-    byte compares).  Returns (rbv, rev, rtv, wbv, wev, wtv, snap, active,
-    bucketed_B)."""
+    is the vectorized twin of `offset`.  With `arena` (pipeline.PackArena)
+    the padded outputs fill its rotating staging slots, read and write rows
+    from separate pools, instead of fresh arrays; only the previously-live
+    pad region of a reused slot is re-sentinelled.  Batches with a key
+    longer than max_key_bytes go to pack_batch_loop (its raise-vs-drop
+    semantics need byte compares).  Returns (rbv, rev, rtv, wbv, wev, wtv,
+    snap, active, bucketed_B)."""
     B = len(txns)
     if B == 0:
         return pack_batch_loop(txns, oldest, offset, max_key_bytes, stats=stats)
@@ -549,11 +687,21 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
             count=nA,
         )
 
-    def fill_rows(n_rows: int, enc3, idx, tx_all):
+    def fill_rows(kind: str, n_rows: int, enc3, idx, tx_all):
         n = enc3.shape[0] if all_live else len(idx)
-        out_b = np.full((n_rows, W), _SENT_WORD, dtype=np.uint32)
-        out_e = np.full((n_rows, W), _SENT_WORD, dtype=np.uint32)
-        out_t = np.full(n_rows, -1, dtype=np.int32)
+        if arena is not None:
+            slot = arena.rows(kind, n_rows, W, _SENT_WORD)
+            hi = slot.live
+            if hi > n:  # re-sentinel only the previously-live pad region
+                slot.b[n:hi] = _SENT_WORD
+                slot.e[n:hi] = _SENT_WORD
+                slot.t[n:hi] = -1
+            slot.live = n
+            out_b, out_e, out_t = slot.b, slot.e, slot.t
+        else:
+            out_b = np.full((n_rows, W), _SENT_WORD, dtype=np.uint32)
+            out_e = np.full((n_rows, W), _SENT_WORD, dtype=np.uint32)
+            out_t = np.full(n_rows, -1, dtype=np.int32)
         if n:
             if all_live:
                 out_b[:n] = enc3[:, 0]
@@ -565,13 +713,23 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
                 out_t[:n] = tx_all[idx]
         return out_b, out_e, out_t
 
-    rbv, rev, rtv = fill_rows(R, renc, r_idx, r_tx_all)
-    wbv, wev, wtv = fill_rows(Wn, wenc, w_idx, w_tx_all)
-    snap_p = np.zeros(Bp, dtype=np.int32)
-    active_p = np.zeros(Bp, dtype=bool)
+    rbv, rev, rtv = fill_rows("r", R, renc, r_idx, r_tx_all)
+    wbv, wev, wtv = fill_rows("w", Wn, wenc, w_idx, w_tx_all)
+    if arena is not None:
+        ts = arena.txns(Bp)
+        hi = ts.live
+        if hi > B:
+            ts.snap[B:hi] = 0
+            ts.active[B:hi] = False
+        ts.live = B
+        snap_p, active_p = ts.snap, ts.active
+    else:
+        snap_p = np.zeros(Bp, dtype=np.int32)
+        active_p = np.zeros(Bp, dtype=bool)
     if nA == B:
         snap_p[:B] = snap_vals
     else:
+        snap_p[:B] = 0
         snap_p[act_ids] = snap_vals
     active_p[:B] = active
     if stats is not None:
@@ -580,11 +738,9 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
     return rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p, Bp
 
 
-def stage_batch(device, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p):
-    """Packed numpy batch -> device tensors with ONE conversion to lanes
-    and ONE host-to-device copy: everything goes into one int32 host
-    buffer, crosses once, and is split into views on the device.  Returns
-    (rb, re_, r_tx, wb, we, w_tx, snap, active)."""
+def _flatten_batch(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p):
+    """A packed numpy batch as the parts of ONE int32 buffer (keys flipped
+    to lanes) and how to split it again: (parts, n_elems, (R, W, Wn, Bp))."""
     R, W = rbv.shape
     Wn, Bp = wbv.shape[0], snap_p.shape[0]
     parts = [
@@ -597,26 +753,112 @@ def stage_batch(device, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p):
         np.asarray(snap_p, np.int32),
         np.asarray(active_p).astype(np.int32),
     ]
-    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    return parts, 2 * R * W + R + 2 * Wn * W + Wn + 2 * Bp, (R, W, Wn, Bp)
+
+
+def _split_batch(buf: torch.Tensor, R: int, W: int, Wn: int, Bp: int):
+    """The staged buffer as (rb, re_, r_tx, wb, we, w_tx, snap, active)."""
     sizes = [R * W, R * W, R, Wn * W, Wn * W, Wn, Bp, Bp]
     rb, re_, r_tx, wb, we, w_tx, snap, active = torch.split(buf, sizes)
     return (rb.view(R, W), re_.view(R, W), r_tx, wb.view(Wn, W),
             we.view(Wn, W), w_tx, snap, active.bool())
 
 
+def stage_batch(device, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p):
+    """Packed numpy batch -> device tensors with ONE conversion to lanes
+    and ONE host-to-device copy: everything goes into one int32 host
+    buffer, crosses once, and is split into views on the device.  For a
+    CUDA device the buffer is pinned and the copy non_blocking, so staging
+    never waits on the stream (torch's pinned-memory cache holds the
+    buffer until the copy is done).  Returns (rb, re_, r_tx, wb, we, w_tx,
+    snap, active)."""
+    parts, n, shape = _flatten_batch(rbv, rev, rtv, wbv, wev, wtv, snap_p,
+                                     active_p)
+    if device.type == "cuda":
+        host = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        np.concatenate(parts, out=host.numpy())
+        buf = host.to(device, non_blocking=True)
+    else:
+        buf = torch.from_numpy(np.concatenate(parts)).to(device)
+    return _split_batch(buf, *shape)
+
+
+class StagedBatch:
+    """A batch that BatchStager put on the device: its staging may still be
+    in flight on the stager's stream.  `take()` hands out its tensors."""
+
+    __slots__ = ("_tensors", "_ready")
+
+    def __init__(self, tensors: tuple, ready) -> None:
+        self._tensors = tensors
+        self._ready = ready
+
+    def take(self) -> tuple:
+        """Make the caller's current stream wait for the staging, mark its
+        memory as used on that stream (so the allocator does not hand it to
+        the stager's stream while the caller still reads it), and return
+        (rb, re_, r_tx, wb, we, w_tx, snap, active)."""
+        if self._ready is not None:
+            stream = torch.cuda.current_stream(self._tensors[0].device)
+            stream.wait_event(self._ready)
+            # rb views the one copied buffer; active is the cast's own block
+            for t in (self._tensors[0], self._tensors[-1]):
+                t.record_stream(stream)
+        return self._tensors
+
+
+class BatchStager:
+    """`stage` for PipelinedPacker: runs on its worker thread and puts each
+    packed numpy batch on the device ahead of the consumer.  It runs
+    `stage_batch` (pinned buffer, one non_blocking copy, the cast of
+    `active`) on a side stream and records an event after all of it; the
+    consumer waits on that event through `StagedBatch.take()`.  torch's
+    pinned-memory cache reuses a pinned buffer only after its copy is done.
+    The device is CUDA unless the caller asks for the CPU, where a batch is
+    ready at once."""
+
+    def __init__(self, device=None) -> None:
+        self.device = resolve_device(device)
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+
+    def __call__(self, packed) -> StagedBatch:
+        if self._stream is None:
+            return StagedBatch(stage_batch(self.device, *packed[:8]), None)
+        with torch.cuda.stream(self._stream):
+            tensors = stage_batch(self.device, *packed[:8])
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        return StagedBatch(tensors, ready)
+
+
 # ---------------------------------------------------------------------------
 # the conflict set
 
 
-class DeviceConflictSet(ConflictSet):
-    """ConflictSet backed by the torch/CUDA check above — the flat
-    incremental layout of the reference's DeviceConflictSet, with the same
-    duck-typed surface the resolver role calls (resolve_batch,
+class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
+    """ConflictSet backed by the torch/CUDA check above — the incremental
+    layouts of the reference's DeviceConflictSet, with the same duck-typed
+    surface the resolver role calls (resolve_batch, resolve_deferred,
     remove_before, oldest_version, kernel_stats, ...).  `device=None` means
     CUDA and raises without one; the CPU tests pass `device="cpu"`.
 
-    Pipelining (resolve_deferred / sync=False) waits for a later slice:
-    `resolve_deferred` keeps the API default, which resolves synchronously."""
+    `lsm` and `search_impl` take the reference constructor's defaults
+    (flat, sort search); `lsm=True, search_impl="bucket"` is bench.py's
+    best-known layout.  The split-phase resolve (`resolve_deferred`,
+    conflict/pipeline.py) dispatches batch N+1 before batch N's verdicts
+    are read, with snapshot/replay recovery when a deferred check fails."""
+
+    # everything a dispatch, GC, regrow or compaction can move: the
+    # recovery snapshot of a pipelined window.  Safe as references because
+    # every update rebinds these attributes and never writes a tensor in
+    # place (conflict/pipeline.py says why).
+    _PIPELINE_SNAPSHOT_ATTRS = (
+        "_ks", "_vs", "_bidx", "_tab", "_count", "_cap", "_dev_ok",
+        "_pipelined_since_check", "_last_commit", "_base", "_oldest",
+        "_runs_b", "_runs_e", "_runs_ver", "_n_runs", "_run_rows_ub",
+        "_run_cap",
+    )
 
     def __init__(
         self,
@@ -624,11 +866,21 @@ class DeviceConflictSet(ConflictSet):
         *,
         max_key_bytes: int = keymod.DEFAULT_MAX_KEY_BYTES,
         capacity: int = 1 << 16,
+        search_impl: str = "sort",       # "sort" | "bucket"
+        lsm: bool = False,               # cache main's history table
         run_slots: int = 8,              # K: deferred-merge compaction threshold
         run_capacity: int = 1 << 12,     # per-run interval capacity (auto-grows)
         device=None,
     ) -> None:
+        if search_impl not in SEARCH_IMPLS:
+            raise ValueError(
+                f"unknown search_impl {search_impl!r}; choose one of {SEARCH_IMPLS}"
+            )
+        if lsm not in (True, False):
+            raise ValueError(f"lsm must be True or False, got {lsm!r}")
         self.device = resolve_device(device)
+        self._search_impl = search_impl
+        self._lsm = bool(lsm)
         self._K = run_slots
         self._max_key_bytes = max_key_bytes
         self._W = keymod.num_words(max_key_bytes)
@@ -637,6 +889,13 @@ class DeviceConflictSet(ConflictSet):
         self._last_commit = oldest_version
         self.stats = KernelStats(backend=self.device.type)
         self.stats.merge_impl = "scatter"
+        self.search_fallbacks = 0  # bucketed searches replayed at full depth
+        self.host_syncs = 0        # reads of a device value on the host
+        # the pipelined stream's validity: the AND of every sync=False
+        # dispatch's search convergence since the last check
+        self._dev_ok = torch.ones((), dtype=torch.bool, device=self.device)
+        self._pipelined_since_check = 0
+        self._pipeline_init()
         self._init_state(capacity)
         self._init_runs(run_capacity)
 
@@ -648,6 +907,13 @@ class DeviceConflictSet(ConflictSet):
         self._ks = to_lanes(nks, self.device)
         self._vs = torch.zeros(capacity, dtype=torch.int32, device=self.device)
         self._count = 1
+        self._bidx = torch.from_numpy(host_bucket_index(nks)).to(self.device)
+        self._tab = self._history_table()
+
+    def _history_table(self):
+        """The LSM layout's cached range-max table of main (None when flat:
+        the check then builds it from vs every batch)."""
+        return build_sparse_table(self._vs, torch.maximum, 0) if self._lsm else None
 
     def _init_runs(self, run_cap: int) -> None:
         run_cap = _bucket(run_cap)  # the reference's stride math wants 2**k
@@ -679,14 +945,18 @@ class DeviceConflictSet(ConflictSet):
         vs = torch.zeros(new_cap, dtype=torch.int32, device=self.device)
         vs[: self._cap] = self._vs
         self._cap, self._ks, self._vs = new_cap, ks, vs
+        self._bidx = _rebuild_buckets(ks)
+        self._tab = self._history_table()
 
     def export_state(self) -> dict:
         """The whole state as numpy, keys in the reference's uint32 layout
-        (what the reference set holds as _ks/_vs/_runs_*/... ).  Fresh
-        arrays: nothing aliases the live tensors."""
-        return {
+        (what the reference set holds as _ks/_vs/_bidx/_tab/_runs_*/... );
+        `tab` only for the LSM layout.  Fresh arrays: nothing aliases the
+        live tensors."""
+        out = {
             "ks": from_lanes(self._ks),
             "vs": self._vs.cpu().numpy().copy(),
+            "bidx": self._bidx.cpu().numpy().copy(),
             "runs_b": from_lanes(self._runs_b),
             "runs_e": from_lanes(self._runs_e),
             "runs_ver": self._runs_ver.cpu().numpy().copy(),
@@ -700,10 +970,15 @@ class DeviceConflictSet(ConflictSet):
             "last_commit": self._last_commit,
             "run_rows_ub": self._run_rows_ub,
         }
+        if self._lsm:
+            out["tab"] = self._tab.cpu().numpy().copy()
+        return out
 
     def load_state(self, d: dict) -> None:
         """Adopt a state exported by `export_state` — or built from the
-        reference set's attributes — and continue from it."""
+        reference set's attributes — and continue from it.  bidx and tab
+        are functions of ks and vs, and are rebuilt from them."""
+        self._drain_all()
         ks = np.asarray(d["ks"], dtype=np.uint32)
         runs_b = np.asarray(d["runs_b"], dtype=np.uint32)
         K, run_cap, W = runs_b.shape
@@ -719,6 +994,8 @@ class DeviceConflictSet(ConflictSet):
         self._run_cap = run_cap
         self._ks = to_lanes(ks, self.device)
         self._vs = torch.from_numpy(np.array(d["vs"], dtype=np.int32)).to(self.device)
+        self._bidx = _rebuild_buckets(self._ks)
+        self._tab = self._history_table()
         self._runs_b = to_lanes(runs_b, self.device)
         self._runs_e = to_lanes(d["runs_e"], self.device)
         self._runs_ver = torch.from_numpy(
@@ -747,6 +1024,18 @@ class DeviceConflictSet(ConflictSet):
         """One tiny host<->device round trip through the live state."""
         return int(self._vs[:1].sum()) >= 0
 
+    def _host_bool(self, t: torch.Tensor) -> bool:
+        self.host_syncs += 1
+        return bool(t)
+
+    def _host_int(self, t: torch.Tensor) -> int:
+        self.host_syncs += 1
+        return int(t)
+
+    def _host_numpy(self, t: torch.Tensor) -> np.ndarray:
+        self.host_syncs += 1
+        return t.cpu().numpy()
+
     def _offset(self, version: int) -> int:
         off = version - self._base
         if off >= 2**31 - 2**24:
@@ -767,6 +1056,7 @@ class DeviceConflictSet(ConflictSet):
 
     # -- resolve -------------------------------------------------------------
     def resolve_batch(self, commit_version: int, txns: Sequence[TxInfo]) -> list[Verdict]:
+        self._drain_all()  # settle any deferred window before sync work
         validate_batch(commit_version, txns, self._oldest)
         if commit_version <= self._last_commit:
             raise ValueError(
@@ -779,7 +1069,8 @@ class DeviceConflictSet(ConflictSet):
         t_pack = time.perf_counter()
         packed = pack_batch(
             txns, self._oldest, self._offset, self._max_key_bytes,
-            stats=self.stats, offset_array=self._offset_array,
+            arena=self._arena, stats=self.stats,
+            offset_array=self._offset_array,
         )
         self.stats.pack_s += time.perf_counter() - t_pack
         codes = self.resolve_arrays(commit_version, *packed[:8])
@@ -788,14 +1079,29 @@ class DeviceConflictSet(ConflictSet):
     def resolve_arrays(
         self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p,
         sync: bool = True,
-    ) -> np.ndarray:
-        """Packed fast path: numpy arrays in pack_batch's layout (snap_p
-        already offset against this set's base).  Returns int32 verdicts of
-        the padded batch as numpy."""
-        if not sync:
-            raise NotImplementedError(
-                "pipelined resolves (sync=False) are not ported yet"
-            )
+    ):
+        """Packed fast path.  The batch is numpy arrays in pack_batch's
+        layout (snap_p already offset against this set's base), or the
+        eight tensors that stage_batch or StagedBatch.take() give, already
+        on this set's device.
+
+        sync=True (default): returns the int32 verdicts of the padded batch
+        as numpy.  A bucketed search that did not converge (a 16-bit-prefix
+        bucket deeper than FAST_SEARCH_ITERS rounds reach) is replayed at
+        full depth, counted in `search_fallbacks`.
+
+        sync=False: PIPELINED — dispatches and returns the verdicts as a
+        device tensor without reading anything on the host but the intra
+        fixpoint's per-iteration flag (and a compaction's fold counts, on
+        the batch that compacts).  The search's convergence folds into a
+        device flag; `check_pipelined()` reads it, and raises if a batch
+        since the last check did not converge: its verdicts are wrong and
+        the stream must be replayed through sync=True (resolve_deferred
+        does that itself)."""
+        if sync and self._inflight:
+            # a deferred window is open: settle it first so the sync
+            # result (and any fallback replay) sees the final state
+            self._drain_all()
         if commit_version <= self._last_commit:
             raise ValueError(
                 f"commit_version {commit_version} not after last batch {self._last_commit}"
@@ -807,36 +1113,84 @@ class DeviceConflictSet(ConflictSet):
             self._grow_runs(_bucket(2 * Wn))
         if self._n_runs >= self._K:
             self._compact_runs()
-        t_h2d = time.perf_counter()
-        rb, re_, r_tx, wb, we, w_tx, snap, active = stage_batch(
-            self.device, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p
-        )
-        self.stats.h2d_s += time.perf_counter() - t_h2d
-        verdict = resolve_core_inc(
-            self._ks, self._vs, self._count,
-            self._runs_b, self._runs_e, self._runs_ver, self._n_runs,
-            rb, re_, r_tx, wb, we, w_tx, snap, active, commit_off,
-            n_txn=Bp, run_cap=self._run_cap,
-        )
+        host_batch = isinstance(rtv, np.ndarray)
+        if host_batch:
+            t_h2d = time.perf_counter()
+            batch = stage_batch(self.device, rbv, rev, rtv, wbv, wev, wtv,
+                                snap_p, active_p)
+            self.stats.h2d_s += time.perf_counter() - t_h2d
+        else:
+            batch = (rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p)
+            for t in batch:
+                if t.device != self.device:
+                    raise ValueError(
+                        f"a staged batch tensor is on {t.device}, the set on "
+                        f"{self.device}"
+                    )
+        core, hist_base = ((resolve_core_inc_lsm, self._tab) if self._lsm
+                           else (resolve_core_inc, self._vs))
+        iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
+        while True:
+            verdict, nb, ne, nv, conv, n_iters = core(
+                self._ks, hist_base, self._bidx, self._count,
+                self._runs_b, self._runs_e, self._runs_ver, self._n_runs,
+                *batch, commit_off, n_txn=Bp, run_cap=self._run_cap,
+                search_iters=iters, search_impl=self._search_impl,
+            )
+            self.host_syncs += n_iters  # one flag read per fixpoint iteration
+            if not sync or conv is None or self._host_bool(conv):
+                break
+            # a bucket deeper than 2**iters (shared-prefix keys): replay at
+            # full search depth — nothing was written, so the replay is exact
+            self.search_fallbacks += 1
+            self.stats.search_fallbacks += 1
+            testcov("kernel.search_fallback.inc")
+            iters = _levels(self._cap) + 1
+        self._runs_b, self._runs_e, self._runs_ver = nb, ne, nv
         self._n_runs += 1
         self._run_rows_ub += 2 * Wn
         self._last_commit = commit_version
         self.stats.runs_appended += 1
-        v_np = verdict.cpu().numpy()
-        self.stats.real_rows += int((rtv >= 0).sum()) + int((wtv >= 0).sum())
-        self.stats.padded_rows += R + Wn
-        active_np = np.asarray(active_p)
-        self.stats.note_batch(
-            int(active_np.sum()),
-            int(((v_np == int(Verdict.CONFLICT)) & active_np).sum()),
-            time.perf_counter() - t0,
-        )
+        if host_batch:  # counting rows of a staged batch would sync
+            self.stats.real_rows += int((rtv >= 0).sum()) + int((wtv >= 0).sum())
+            self.stats.padded_rows += R + Wn
+        if not sync:
+            if conv is not None:
+                # rebound, never updated in place: each deferred handle
+                # keeps the flag as it stood at its own dispatch
+                self._dev_ok = self._dev_ok & conv
+            self._pipelined_since_check += 1
+            self.stats.note_batch(0, 0, time.perf_counter() - t0)  # dispatch only
+            return verdict
+        v_np = self._host_numpy(verdict)
+        if host_batch:
+            active_np = np.asarray(active_p)
+            n_txn = int(active_np.sum())
+            aborted = int(((v_np == int(Verdict.CONFLICT)) & active_np).sum())
+        else:
+            n_txn = aborted = 0
+        self.stats.note_batch(n_txn, aborted, time.perf_counter() - t0)
         return v_np
+
+    def check_pipelined(self) -> None:
+        """Read the deferred validity of the sync=False resolves since the
+        last check: ONE device flag, folded across the stream.  Raises if
+        any of them did not converge; the stream must then be replayed
+        through sync=True resolves."""
+        if self._pipelined_since_check == 0:
+            return
+        n = self._pipelined_since_check
+        self._pipelined_since_check = 0
+        if not self._host_bool(self._dev_ok):
+            raise RuntimeError(
+                f"a pipelined batch among the last {n} failed its deferred"
+                " search-convergence check; replay through sync=True"
+            )
 
     def _compact_runs(self) -> None:
         """The deferred k-way merge: fold every appended run (a step
         function at one commit version) into main, regrowing main when a
-        fold's union outgrows it."""
+        fold's union outgrows it; then rebuild bidx (and the LSM table)."""
         if self._n_runs == 0:
             return
         t0 = time.perf_counter()
@@ -851,17 +1205,15 @@ class DeviceConflictSet(ConflictSet):
                 nk, nv, nc = compact_fold(
                     self._ks, self._vs, rows, vals, cap=self._cap
                 )
-                nc_i = int(nc)
+                nc_i = self._host_int(nc)
                 if nc_i <= self._cap:
                     break
                 self._grow_main(max(self._cap * 2, _bucket(nc_i)))
             self._ks, self._vs = nk, nv
         self._count = nc_i
-        self._runs_b.fill_(SENT_LANE)
-        self._runs_e.fill_(SENT_LANE)
-        self._runs_ver.zero_()
-        self._n_runs = 0
-        self._run_rows_ub = 0
+        self._bidx = _rebuild_buckets(self._ks)
+        self._tab = self._history_table()
+        self._init_runs(self._run_cap)
         self.stats.compactions += 1
         self.stats.rows_reclaimed += max(0, before - nc_i)
         dt = time.perf_counter() - t0
@@ -879,10 +1231,15 @@ class DeviceConflictSet(ConflictSet):
         off = version - self._base
         if off > 0:
             t0 = time.perf_counter()
-            self._vs.sub_(off).clamp_(min=0)
+            self._vs = torch.clamp(self._vs - off, min=0)
+            if self._lsm:
+                # range-max commutes with the monotone clamp: the cached
+                # table is clamped, not rebuilt
+                self._tab = torch.clamp(self._tab - off, min=0)
             # a run whose version falls out of the MVCC window clamps to 0
             # and can never conflict again (snapshots are >= 0)
-            self._runs_ver.sub_(off).clamp_(min=0)
+            self._runs_ver = torch.clamp(self._runs_ver - off, min=0)
             self._base = version
             self.stats.gc_calls += 1
             self.stats.merge_s += time.perf_counter() - t0
+            self._note_pipeline_gc(version)

@@ -13,10 +13,13 @@ that its main path went through the kernels.
   K2 intra_query     <- _intra_kernel        (pallas_kernel.py:353)
   K3 compact_ranks   <- _rank_count_kernel   (pallas_kernel.py:474)
   K4 run_to_step     <- _interleave_kernel   (pallas_kernel.py:416)
+  K5 run_conflicts   <- _probe_kernel        (pallas_kernel.py:165)
 
-The source note of each kernel (bound on the card, what the design does
-about it) is at the top of csrc/conflict_kernels.cu.  All four are integer
-functions: kernel and plain version agree exactly.
+K5 is K1 without the history input.  No system path calls it: like the
+reference's `run_conflicts`, it is K1's unfused referee.  The source note of
+each kernel (bound on the card, what the design does about it) is at the
+top of csrc/conflict_kernels.cu.  All five are integer functions: kernel
+and plain version agree exactly.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ launches: dict[str, int] = {
     "intra_query": 0,
     "compact_ranks": 0,
     "run_to_step": 0,
+    "probe": 0,
 }
 
 
@@ -47,11 +51,10 @@ def reset_launches() -> None:
 # plain torch versions (the CPU path, and the kernels' referees on the card)
 
 
-def probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
-    """bool[R] = hist_r | (r_ok & any over runs k of [runs_ver[k] > snap
-    and rank > 0 and rb < ends[rank-1]]), rank = #begins of run k < re —
-    the per-run lower bound of run_conflicts_xla (pallas_kernel.py:253)
-    plus the fused history OR."""
+def run_conflicts_plain(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver):
+    """bool[R] = r_ok & any over runs k of [runs_ver[k] > snap and rank > 0
+    and rb < ends[rank-1]], rank = #begins of run k < re — the per-run
+    lower bound of run_conflicts_xla (pallas_kernel.py:253)."""
     K, run_cap, _ = runs_b.shape
     conf = torch.zeros(rb.shape[0], dtype=torch.bool, device=rb.device)
     for k in range(K):
@@ -59,7 +62,14 @@ def probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
         e_last = runs_e[k][torch.clamp(rank - 1, 0, run_cap - 1).long()]
         intersects = (rank > 0) & lex_less(rb, e_last)
         conf = conf | (intersects & (runs_ver[k] > snap_r))
-    return hist_r | (r_ok & conf)
+    return r_ok & conf
+
+
+def probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
+    """bool[R] = hist_r | run_conflicts_plain(...): the run probe with the
+    main-level history bit fused in."""
+    return hist_r | run_conflicts_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
+                                        runs_ver)
 
 
 def intra_query_plain(beg_tab, stab, rb_r, re_r):
@@ -160,6 +170,32 @@ def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
     if R:
         _launch("fdb_probe_fused", dev, *ptrs, out.data_ptr(), R, K, run_cap, W)
         launches["probe_fused"] += 1
+    return out
+
+
+def run_conflicts(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver):
+    """K5: the run probe alone (K1 without the history input), the
+    contract of run_conflicts_xla (pallas_kernel.py:253).  Shapes as K1's.
+    Returns bool[R]."""
+    if _is_cpu(rb):
+        return run_conflicts_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
+                                   runs_ver)
+    R, W = rb.shape
+    K, run_cap, _ = runs_b.shape
+    dev = rb.device
+    ptrs = [
+        _check("rb", rb, _I32, (R, W), dev),
+        _check("re", re_, _I32, (R, W), dev),
+        _check("snap_r", snap_r, _I32, (R,), dev),
+        _check("r_ok", r_ok, _BOOL, (R,), dev),
+        _check("runs_b", runs_b, _I32, (K, run_cap, W), dev),
+        _check("runs_e", runs_e, _I32, (K, run_cap, W), dev),
+        _check("runs_ver", runs_ver, _I32, (K,), dev),
+    ]
+    out = torch.empty(R, dtype=_BOOL, device=dev)
+    if R:
+        _launch("fdb_probe", dev, *ptrs, out.data_ptr(), R, K, run_cap, W)
+        launches["probe"] += 1
     return out
 
 

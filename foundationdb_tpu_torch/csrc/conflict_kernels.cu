@@ -33,6 +33,20 @@
 //    whose version is not above the snapshot are skipped without a load,
 //    and a thread stops at its first conflicting run.
 //
+// K5 fdb_probe  replaces _probe_kernel (pallas_kernel.py:165, built by
+//    _build_probe :213, wrapper run_conflicts_pallas :240, dispatched by
+//    run_conflicts :271): K1 without the history input, i.e. bool[R] =
+//    r_ok & (some run newer than the read's snapshot intersects it).  No
+//    system path calls it; it is the unfused referee of K1 (the reference's
+//    tests hold run_conflicts | hist against run_conflicts_fused).  It shares
+//    K1's device code through the template parameter kFused of
+//    probe_kernel: the two must compute the same probe, and one body keeps
+//    the referee from drifting from what it referees, while K5 keeps its own
+//    entry point, launch counter and this note.  Bound: as K1 (bytes in
+//    principle, dependent-load latency in practice), less the R bytes of the
+//    history bits it does not read; every read with r_ok set probes every
+//    run newer than its snapshot up to its first conflict.
+//
 // K2 fdb_intra_query  replaces _intra_kernel (pallas_kernel.py:353, built by
 //    _build_intra :376, wrapper intra_query :395).  One thread per read:
 //    k = 31 - clz(len), two clamped lookups into the min-sparse-table
@@ -113,19 +127,21 @@ __device__ __forceinline__ int count_below(const int* __restrict__ rows, int n,
   return lo;
 }
 
-__global__ void probe_fused_kernel(const int* __restrict__ rb,
-                                   const int* __restrict__ re,
-                                   const int* __restrict__ snap,
-                                   const bool* __restrict__ r_ok,
-                                   const bool* __restrict__ hist,
-                                   const int* __restrict__ runs_b,
-                                   const int* __restrict__ runs_e,
-                                   const int* __restrict__ runs_ver,
-                                   bool* __restrict__ out, int R, int K,
-                                   int run_cap, int W) {
+// K1 (kFused: the history bit ORed in) and K5 (no history input)
+template <bool kFused>
+__global__ void probe_kernel(const int* __restrict__ rb,
+                             const int* __restrict__ re,
+                             const int* __restrict__ snap,
+                             const bool* __restrict__ r_ok,
+                             const bool* __restrict__ hist,
+                             const int* __restrict__ runs_b,
+                             const int* __restrict__ runs_e,
+                             const int* __restrict__ runs_ver,
+                             bool* __restrict__ out, int R, int K, int run_cap,
+                             int W) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  bool conflict = hist[i];
+  bool conflict = kFused ? hist[i] : false;
   if (!conflict && r_ok[i]) {
     const int* qb = rb + static_cast<size_t>(i) * W;
     const int* qe = re + static_cast<size_t>(i) * W;
@@ -214,13 +230,27 @@ int fdb_probe_fused(const void* rb, const void* re, const void* snap,
                     const void* r_ok, const void* hist, const void* runs_b,
                     const void* runs_e, const void* runs_ver, void* out, int R,
                     int K, int run_cap, int W, void* stream) {
-  probe_fused_kernel<<<blocks_for(R), kThreads, 0,
+  probe_kernel<true><<<blocks_for(R), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(rb), static_cast<const int*>(re),
       static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
       static_cast<const bool*>(hist), static_cast<const int*>(runs_b),
       static_cast<const int*>(runs_e), static_cast<const int*>(runs_ver),
       static_cast<bool*>(out), R, K, run_cap, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fdb_probe(const void* rb, const void* re, const void* snap,
+              const void* r_ok, const void* runs_b, const void* runs_e,
+              const void* runs_ver, void* out, int R, int K, int run_cap, int W,
+              void* stream) {
+  probe_kernel<false><<<blocks_for(R), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(rb), static_cast<const int*>(re),
+      static_cast<const int*>(snap), static_cast<const bool*>(r_ok), nullptr,
+      static_cast<const int*>(runs_b), static_cast<const int*>(runs_e),
+      static_cast<const int*>(runs_ver), static_cast<bool*>(out), R, K, run_cap,
+      W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -94,6 +94,41 @@ def test_probe_fused_work_skips_runs_no_read_probes():
 
 
 @pytest.mark.parametrize("seed", range(3))
+def test_probe_work_without_history_replays_k5(seed):
+    """K5's replay (no history input) computes run_conflicts and counts
+    what K1's counts with no history bit set, less the R bytes of the
+    history bits K5 does not read."""
+    args = _probe_inputs(seed)
+    rb, r_ok = args[0], args[3]
+    n_bytes, n_ops, out = chip_smoke.probe_fused_work(torch, *args[:7])
+    assert torch.equal(out, kernels.run_conflicts_plain(*args[:7]))
+    k1 = chip_smoke.probe_fused_work(torch, *args[:7], torch.zeros_like(r_ok))
+    assert (n_bytes, n_ops) == (k1[0] - rb.shape[0], k1[1])
+
+
+def test_kernel_symbols_match_profiler_names():
+    """The profiler prints a templated kernel's bool argument either way."""
+    key = "void (anonymous namespace)::probe_kernel<(bool)0>(int const*)"
+    assert chip_smoke._is_kernel(key, chip_smoke.SYMBOLS["probe"])
+    assert not chip_smoke._is_kernel(key, chip_smoke.SYMBOLS["probe_fused"])
+    assert chip_smoke._is_kernel("probe_kernel<true>(int const*)",
+                                 chip_smoke.SYMBOLS["probe_fused"])
+    assert [k for k, _w, _s in chip_smoke.KERNELS] == list(kernels.launches)
+
+
+def test_busy_counts_each_kernel_once():
+    """An op's profiler record repeats its kernels' device time; the busy
+    time sums the device-side records only."""
+    from types import SimpleNamespace
+
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = [SimpleNamespace(device_type=cpu, self_device_time_total=2000.0),
+              SimpleNamespace(device_type=cuda, self_device_time_total=2000.0),
+              SimpleNamespace(device_type=cuda, self_device_time_total=500.0)]
+    assert chip_smoke.busy_ms(torch, events) == 2.5
+
+
+@pytest.mark.parametrize("seed", range(3))
 def test_intra_query_work_replays_the_kernel(seed):
     rng = np.random.default_rng(seed)
     n, R = 300, 200

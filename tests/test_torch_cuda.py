@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each held against its plain torch
-version on the same CUDA tensors (exact: all four are integer functions),
-and the port's set on "cuda" against the same set on "cpu".
+version on the same CUDA tensors (exact: all five are integer functions),
+and the port's sets on "cuda" (the flat layout, and the best-known layout
+synchronous and pipelined) against the same sets on "cpu".
 
 Marked `gpu`: every test asks the `cuda` fixture, which skips when no CUDA
 device is present (decided at run time, never at import or collection).
@@ -19,7 +20,9 @@ import torch
 from foundationdb_tpu_torch import keys
 from foundationdb_tpu_torch.conflict import device as tdev
 from foundationdb_tpu_torch.conflict import kernels
+from foundationdb_tpu_torch.conflict import pipeline as tpipe
 from foundationdb_tpu_torch.conflict.api import TxInfo
+from foundationdb_tpu_torch.runtime import coverage
 from foundationdb_tpu_torch.ops import rmq
 
 pytestmark = pytest.mark.gpu
@@ -77,6 +80,26 @@ def test_k1_probe_fused_matches_plain(cuda):
     got = kernels.probe_fused(*args)
     assert kernels.launches["probe_fused"] == before + 1
     assert _same(got, kernels.probe_fused_plain(*args))
+
+
+def test_k5_run_conflicts_matches_plain_and_k1(cuda):
+    rng = np.random.default_rng(6)
+    K, run_cap, R = 4, 256, 300
+    runs = [_run(rng, run_cap) for _ in range(K)]
+    runs_b = keys.to_lanes(np.stack([r[0] for r in runs]), cuda)
+    runs_e = keys.to_lanes(np.stack([r[1] for r in runs]), cuda)
+    runs_ver = torch.tensor([0, 3, 9, 20], dtype=torch.int32, device=cuda)
+    q = _rows(rng, 2 * R)[rng.permutation(2 * R)]
+    rb = keys.to_lanes(np.minimum(q[:R], q[R:]), cuda)
+    re_ = keys.to_lanes(np.maximum(q[:R], q[R:]), cuda)
+    snap = torch.from_numpy(rng.integers(0, 25, R).astype(np.int32)).to(cuda)
+    r_ok = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
+    args = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver)
+    before = kernels.launches["probe"]
+    got = kernels.run_conflicts(*args)
+    assert kernels.launches["probe"] == before + 1
+    assert _same(got, kernels.run_conflicts_plain(*args))
+    assert _same(got, kernels.probe_fused(*args, torch.zeros_like(r_ok)))
 
 
 def test_k2_intra_query_matches_plain(cuda):
@@ -155,4 +178,141 @@ def test_set_on_cuda_matches_set_on_cpu(cuda):
     a, b = on_gpu.export_state(), on_cpu.export_state()
     for k in a:
         assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
-    assert all(n > 0 for n in kernels.launches.values()), kernels.launches
+    # K5 is off the set's path (K1's referee only)
+    assert all(kernels.launches[k] > 0 for k in kernels.launches if k != "probe"), \
+        kernels.launches
+
+
+def _best_known_stream(seed, n_batches=14):
+    rng = random.Random(seed)
+
+    def key():
+        return bytes(rng.choice(b"abcdefgh") for _ in range(rng.randrange(7)))
+
+    def rng_range():
+        k = key()
+        return (k, k + b"\x00") if rng.random() < 0.6 else (k, k + key() + b"\x00")
+
+    version, out = 0, []
+    for i in range(n_batches):
+        version += rng.randrange(1, 5)
+        txns = [TxInfo(max(version - rng.randrange(1, 12), 0),
+                       [rng_range() for _ in range(rng.randrange(4))],
+                       [rng_range() for _ in range(rng.randrange(3))])
+                for _ in range(rng.randrange(1, 40))]
+        out.append((version, txns, version - 6 if i % 4 == 3 else None))
+    return out
+
+
+BEST_SMALL = dict(lsm=True, search_impl="bucket", capacity=1 << 11,
+                  run_slots=3, run_capacity=64)
+
+
+def test_best_known_pipelined_on_cuda_matches_cpu(cuda):
+    """The best-known set on "cuda", through resolve_deferred (waited one
+    behind, GC between) and through PipelinedPacker + BatchStager feeding
+    resolve_arrays(sync=False): verdicts and final state equal the same
+    set's on "cpu", and the pipelined stream launched K1-K4."""
+    stream = _best_known_stream(8)
+    on_cpu = tdev.DeviceConflictSet(**BEST_SMALL, device="cpu")
+    wants = []
+    for version, txns, floor in stream:
+        wants.append(on_cpu.resolve_batch(version, txns))
+        if floor is not None:
+            on_cpu.remove_before(floor)
+    kernels.reset_launches()
+    deferred = tdev.DeviceConflictSet(**BEST_SMALL, device="cuda")
+    handles = []
+    for i, (version, txns, floor) in enumerate(stream):
+        handles.append(deferred.resolve_deferred(version, txns))
+        if i:
+            assert handles[i - 1].wait() == wants[i - 1]
+        if floor is not None:
+            deferred.remove_before(floor)
+    assert handles[-1].wait() == wants[-1]
+    assert all(kernels.launches[k] > 0 for k in
+               ("probe_fused", "intra_query", "compact_ranks", "run_to_step"))
+
+    staged_set = tdev.DeviceConflictSet(**BEST_SMALL, device="cuda")
+    floors = {}  # the MVCC floor each batch is packed against
+    floor = 0
+    for version, _txns, f in stream:
+        floors[version] = floor
+        floor = f if f is not None else floor
+    stager = tdev.BatchStager("cuda")
+    packer = tpipe.PipelinedPacker(
+        lambda item: tdev.pack_batch(item[1], floors[item[0]],
+                                     lambda v: max(v - floors[item[0]], 0), 32),
+        depth=2, stage=stager)
+    got, submitted = [], 0
+    try:
+        for i, (version, txns, f) in enumerate(stream):
+            while submitted < len(stream) and submitted <= i + 1:
+                packer.submit(stream[submitted][:2])
+                submitted += 1
+            assert staged_set._base == floors[version]
+            got.append(staged_set.resolve_arrays(version, *packer.get().take(),
+                                                 sync=False))
+            if f is not None:
+                staged_set.remove_before(f)
+    finally:
+        packer.close()
+    staged_set.check_pipelined()
+    for (version, txns, _f), want, verdict in zip(stream, wants, got):
+        assert [int(c) for c in verdict[: len(txns)].cpu()] == [int(w) for w in want]
+    for s in (deferred, staged_set):
+        a, b = s.export_state(), on_cpu.export_state()
+        for k in b:
+            assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+
+
+def test_stager_orders_staging_after_its_copy(cuda):
+    """Batches staged while the consumer's stream sits idle and the
+    stager's stream is held back before each copy: every tensor a batch
+    hands out, the active mask included, equals the CPU's staging of that
+    batch, and the active mask changes from one batch to the next."""
+    rng = np.random.default_rng(9)
+    R, W, Wn, Bp = 4096, 5, 2048, 1024
+    stager = tdev.BatchStager("cuda")
+    masks = []
+    for _ in range(6):
+        packed = (rng.integers(0, 1 << 32, (R, W), dtype=np.uint32),
+                  rng.integers(0, 1 << 32, (R, W), dtype=np.uint32),
+                  rng.integers(-1, Bp, R).astype(np.int32),
+                  rng.integers(0, 1 << 32, (Wn, W), dtype=np.uint32),
+                  rng.integers(0, 1 << 32, (Wn, W), dtype=np.uint32),
+                  rng.integers(-1, Bp, Wn).astype(np.int32),
+                  rng.integers(0, 1 << 20, Bp).astype(np.int32),
+                  rng.random(Bp) < 0.5)
+        masks.append(packed[7])
+        torch.cuda.current_stream().synchronize()  # the consumer sits idle
+        with torch.cuda.stream(stager._stream):
+            torch.cuda._sleep(50_000_000)  # the copy lands late
+        got = stager(packed).take()
+        want = tdev.stage_batch(torch.device("cpu"), *packed)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert all(not np.array_equal(a, b) for a, b in zip(masks, masks[1:]))
+
+
+def test_deferred_recovery_on_cuda(cuda):
+    """A deep 16-bit-prefix bucket compacted into main, then probed through
+    resolve_deferred: the deferred check fails on the card and the window
+    recovers to the oracle's verdicts."""
+    from foundationdb_tpu_torch.conflict.oracle import OracleConflictSet
+
+    zz = [b"ZZ%04d" % i for i in range(3000)]
+    stream = [(10, [TxInfo(0, [], [(k, k + b"\x00")]) for k in zz])]
+    for v in (20, 30, 40):
+        stream.append((v, [TxInfo(v - 5, [(b"b%d" % v, b"c")], [(b"d%d" % v, b"e")])]))
+    probes = [(b"ZZ%04d" % i, b"ZZ%04d" % (i + 1)) for i in range(7, 3000, 97)]
+    stream.append((50, [TxInfo(45, probes, [(b"q", b"q\x00")])]))
+    oracle = OracleConflictSet()
+    s = tdev.DeviceConflictSet(lsm=True, search_impl="bucket", capacity=1 << 14,
+                               run_slots=2, device="cuda")
+    recovers = coverage.hits("kernel.pipeline_recover")
+    handles = [s.resolve_deferred(v, t) for v, t in stream]
+    for (v, t), h in zip(stream, handles):
+        assert h.wait() == oracle.resolve_batch(v, t)
+    assert coverage.hits("kernel.pipeline_recover") == recovers + 1
+    assert s.search_fallbacks >= 1

@@ -28,8 +28,8 @@ from foundationdb_tpu_torch.conflict.api import Verdict as TVerdict
 
 REPO_ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(capacity=1 << 6, run_slots=3, run_capacity=64)
-STATE_KEYS = ("ks", "vs", "runs_b", "runs_e", "runs_ver", "count", "n_runs",
-              "cap", "run_cap", "K", "base", "oldest", "last_commit",
+STATE_KEYS = ("ks", "vs", "bidx", "runs_b", "runs_e", "runs_ver", "count",
+              "n_runs", "cap", "run_cap", "K", "base", "oldest", "last_commit",
               "run_rows_ub")
 
 
@@ -63,20 +63,24 @@ def _rand_batch(rng, version, oldest, n):
 
 
 def jax_state(d) -> dict:
-    """The reference set's state in the port's export_state() layout."""
-    return dict(
-        ks=np.asarray(d._ks), vs=np.asarray(d._vs),
+    """The reference set's state in the port's export_state() layout (the
+    cached history table `tab` only for the LSM layout)."""
+    out = dict(
+        ks=np.asarray(d._ks), vs=np.asarray(d._vs), bidx=np.asarray(d._bidx),
         runs_b=np.asarray(d._runs_b), runs_e=np.asarray(d._runs_e),
         runs_ver=np.asarray(d._runs_ver), count=d._count, n_runs=d._n_runs,
         cap=d._cap, run_cap=d._run_cap, K=d._K, base=d._base,
         oldest=d._oldest, last_commit=d._last_commit,
         run_rows_ub=d._run_rows_ub,
     )
+    if d._lsm:
+        out["tab"] = np.asarray(d._tab)
+    return out
 
 
 def assert_state_equal(want: dict, got: dict, where) -> None:
-    assert set(got) == set(STATE_KEYS)
-    for k in STATE_KEYS:
+    assert set(got) == set(want) >= set(STATE_KEYS)
+    for k in want:
         w, g = np.asarray(want[k]), np.asarray(got[k])
         assert w.dtype.kind == g.dtype.kind or w.ndim == 0, (where, k)
         assert np.array_equal(w, g), (where, k)
@@ -241,14 +245,22 @@ def test_resolve_arrays_packed_path_and_kernel_stats():
         codes = b.resolve_arrays(version, *packed[:8])
         assert codes.dtype == np.int32
         assert [TVerdict(int(c)) for c in codes[: len(txns)]] == want
-    with pytest.raises(NotImplementedError):
-        b.resolve_arrays(version + 1, *packed[:8], sync=False)
+    # the pipelined dispatch: verdicts as a tensor, read without a check
+    version, txns, _floor = next(_stream(4, 1))
+    version += batches[-1][0]
+    want = a.resolve_batch(version, txns)
+    packed = tdev.pack_batch(txns, b.oldest_version, b._offset, 32)
+    dev_codes = b.resolve_arrays(version, *packed[:8], sync=False)
+    assert isinstance(dev_codes, torch.Tensor) and dev_codes.dtype == torch.int32
+    assert [TVerdict(int(c)) for c in dev_codes[: len(txns)]] == want
+    b.check_pipelined()
+    assert b.export_state()["runs_ver"].tolist() == a.export_state()["runs_ver"].tolist()
     with pytest.raises(ValueError):
         b.resolve_batch(version, [])  # not after the last batch
     ks = b.kernel_stats()
     assert ks["backend"] == "cpu"
-    assert ks["batches"] == len(batches)
-    assert ks["runs_appended"] == len(batches)
+    assert ks["batches"] == len(batches) + 1
+    assert ks["runs_appended"] == len(batches) + 1
     assert ks["node_count"] == b.node_count > 0
     assert b.healthcheck()
 
@@ -302,6 +314,7 @@ def test_import_needs_neither_jax_nor_the_reference_package():
         "from foundationdb_tpu_torch import keys\n"
         "from foundationdb_tpu_torch.ops import rmq, search\n"
         "from foundationdb_tpu_torch.conflict import api, oracle, kernels, device, _build\n"
+        "from foundationdb_tpu_torch.conflict import pipeline\n"
         "from foundationdb_tpu_torch.runtime import coverage, metrics\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'foundationdb_tpu'))\n"

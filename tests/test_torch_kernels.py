@@ -1,4 +1,4 @@
-"""The plain torch versions of the port's four kernels (K1-K4 of
+"""The plain torch versions of the port's five kernels (K1-K5 of
 foundationdb_tpu_torch/conflict/kernels.py), and the device phases around
 them, held against the reference's Pallas kernels in interpret mode and its
 XLA paths, on seeded numpy inputs with sentinel and TOO_OLD rows.  All
@@ -79,6 +79,25 @@ def test_k1_probe_fused_plain_matches_pallas_and_xla(seed):
     assert got.dtype == torch.bool
     assert np.array_equal(want_int, got.numpy())
     assert np.array_equal(got.numpy(), kernels.probe_fused_plain(*map(_t, args)).numpy())
+    assert kernels.launches == before  # the CPU path launches no kernel
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_k5_run_conflicts_plain_matches_pallas_and_xla(seed):
+    """K5's plain version equals the reference's unfused probe in interpret
+    mode and its XLA lowering, and K1 with no history bit set."""
+    rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, _hist = _probe_inputs(seed)
+    args = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver)
+    want_int = np.asarray(pk.run_conflicts(*map(jnp.asarray, args), impl="interpret"))
+    want_xla = np.asarray(pk.run_conflicts(*map(jnp.asarray, args), impl="xla"))
+    assert np.array_equal(want_int, want_xla)
+    assert want_int.any() and not want_int.all()
+    before = dict(kernels.launches)
+    got = kernels.run_conflicts(*map(_t, args))
+    assert got.dtype == torch.bool
+    assert np.array_equal(want_int, got.numpy())
+    no_hist = torch.zeros(rb.shape[0], dtype=torch.bool)
+    assert torch.equal(got, kernels.probe_fused(*map(_t, args), no_hist))
     assert kernels.launches == before  # the CPU path launches no kernel
 
 
