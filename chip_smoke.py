@@ -7,13 +7,16 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
 
   1. device   the card's name, device count, name and power limit;
   2. build    nvcc builds the conflict kernels from csrc/, and the
-              compiler's -Xptxas -v lines are printed;
+              compiler's -Xptxas -v lines are printed, K1's and K3's with
+              the dynamic shared memory a block takes at phase 3's shapes;
   3. kernels  each kernel (K1-K5) on seeded inputs at the resolver's
               full-width shapes, held against its plain torch version on
               the same CUDA tensors (exact: integer functions), timed with
               L2 cold and warm, and set against the least time the bytes
               and operations its inputs need would take the card; K5 also
-              against K1 with no history bit set;
+              against K1 with no history bit set, and K5 | history against
+              K1; K5's cold time (the thread-per-read design K1 had before
+              its redesign) is printed beside K1's;
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
               + 16 timed batches, GC from the 10th batch) through
@@ -87,15 +90,15 @@ SPIN_CYCLES = 200_000    # ~0.1 ms of device spin ahead of a timed launch
 SOURCE = "foundationdb_tpu_torch/csrc/conflict_kernels.cu"
 KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
     ("probe_fused", "foundationdb_tpu/conflict/pallas_kernel.py:189",
-     "probe_kernel<true>"),
+     "probe_fused_kernel"),
     ("intra_query", "foundationdb_tpu/conflict/pallas_kernel.py:353",
      "intra_query_kernel"),
     ("compact_ranks", "foundationdb_tpu/conflict/pallas_kernel.py:474",
-     "compact_ranks_kernel"),
+     "compact_ranks_narrowed_kernel"),
     ("run_to_step", "foundationdb_tpu/conflict/pallas_kernel.py:416",
      "run_to_step_kernel"),
     ("probe", "foundationdb_tpu/conflict/pallas_kernel.py:165",
-     "probe_kernel<false>"),
+     "probe_kernel"),
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
 MAIN_PATH = ("probe_fused", "intra_query", "compact_ranks", "run_to_step")
@@ -171,10 +174,9 @@ def launch_ms(torch, fn, reps: int, flush=None) -> float:
 
 
 def _is_kernel(key: str, symbol: str) -> bool:
-    """Whether a profiler record names the CUDA kernel `symbol` (a
-    template argument may print as `true` or as `(bool)1`)."""
-    return symbol in key or symbol.replace("<true>", "<(bool)1>").replace(
-        "<false>", "<(bool)0>") in key
+    """Whether a profiler record names the CUDA kernel `symbol` (no
+    kernel's name is a part of another's)."""
+    return symbol in key
 
 
 def device_ms(torch, fn, symbol: str, reps: int) -> float:
@@ -447,16 +449,22 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           plain_fn=lambda: kernels.probe_fused_plain(*k1), reps=50, cold=True)
 
     # K5: K1's inputs without the history bits; it must also equal K1 run
-    # with no history bit set
+    # with no history bit set, and ORed with the history bits equal K1
     k5 = k1[:7]
     no_hist = torch.zeros_like(k1[7])
     k5_out = kernels.run_conflicts(*k5)
     require(torch.equal(k5_out, kernels.probe_fused(*k5, no_hist)),
             "K5 disagrees with K1 run without history bits")
+    require(torch.equal(k5_out | k1[7], kernels.probe_fused(*k1)),
+            "K5 | history disagrees with K1")
     check("probe", [k5_out], [kernels.run_conflicts_plain(*k5)],
           probe_fused_work(torch, *k5),
           fn=lambda: kernels.run_conflicts(*k5),
           plain_fn=lambda: kernels.run_conflicts_plain(*k5), reps=50, cold=True)
+    k1_ms, k5_ms = results["probe_fused"]["cold_ms"], results["probe"]["cold_ms"]
+    log(f"kernel probe_fused vs probe, cold, same inputs (K5 without history "
+        f"bits): K1 {k1_ms:.6f} ms, K5 (the thread-per-read design) "
+        f"{k5_ms:.6f} ms, K5 / K1 = {k5_ms / k1_ms:.2f}")
 
     # K2: the first fixpoint iteration's tables of a real stream batch
     rb, re_, r_tx, wb, we, w_tx, _snap, _act = tdev.stage_batch(dev, *first_batch[:8])
@@ -962,9 +970,18 @@ def main() -> int:
     t = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t:.1f} s")
+    W = keys.num_words(SET_ARGS["max_key_bytes"])
+    smem = {SYMBOLS["probe_fused"]: kernels.plan_probe(
+                SET_ARGS["run_slots"], SET_ARGS["run_capacity"], W).smem,
+            SYMBOLS["compact_ranks"]: kernels.plan_ranks(W).smem}
+    entry = None
     for line in _build.ptxas_report().splitlines():
+        if "Compiling entry function" in line:
+            entry = next((s for s in smem if s in line), None)
         if "ptxas" in line or "Used" in line or "spill" in line:
-            log("  " + line.strip())
+            extra = (f"  [+ {smem[entry]} B dynamic shared memory per block at "
+                     f"phase 3's shapes]" if entry and "Used" in line else "")
+            log("  " + line.strip() + extra)
 
     rng = np.random.default_rng(SEED)
     pool, succ = key_pool(rng)

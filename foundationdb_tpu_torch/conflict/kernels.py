@@ -16,15 +16,20 @@ that its main path went through the kernels.
   K5 run_conflicts   <- _probe_kernel        (pallas_kernel.py:165)
 
 K5 is K1 without the history input.  No system path calls it: like the
-reference's `run_conflicts`, it is K1's unfused referee.  The source note of
-each kernel (bound on the card, what the design does about it) is at the
-top of csrc/conflict_kernels.cu.  All five are integer functions: kernel
-and plain version agree exactly.
+reference's `run_conflicts`, it is K1's unfused referee, and its kernel
+keeps the thread-per-read design that K1's parallel-over-runs kernel
+replaced.  The source note of each kernel (bound on the card, what the
+design does about it) is at the top of csrc/conflict_kernels.cu.  K1's and
+K3's launch geometry comes from `plan_probe` and `plan_ranks`, pure
+functions of the shapes.  All five are integer functions: kernel and plain
+version agree exactly.
 """
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Callable
+from typing import NamedTuple
 
 import torch
 
@@ -97,6 +102,76 @@ def run_to_step_plain(u_b, u_e, ver):
 
 
 # ---------------------------------------------------------------------------
+# launch plans of K1 and K3 (pure functions of the shapes)
+
+SMEM_MAX = 227 * 1024          # dynamic shared memory one block may take
+PROBE_READS = 128              # reads per K1 block (the TPU's READ_BLOCK)
+PROBE_MAX_THREADS = 1024
+# the least summary stride: of 128 (the TPU kernel's SUMMARY_STRIDE) to
+# 1024, K1 at the stream's shapes ran fastest on the card at 512 and 1024:
+# every block stages the whole summary, and a sparser one saves more
+# staging than its longer window search costs
+PROBE_MIN_STRIDE = 512
+PROBE_MAX_STRIDE = 1 << 16
+PROBE_SUMMARY_BYTES = 40 * 1024
+RANKS_THREADS = 128            # recent rows per K3 block (the kernel's kRanksThreads)
+RANKS_SMEM = 112 * 1024        # two K3 blocks an SM
+
+
+class ProbePlan(NamedTuple):
+    group_log2: int   # lanes per read: 2**group_log2, K rounded up, <= 32
+    stride_log2: int  # summary stride S = 2**stride_log2
+    n_sum: int        # summary rows per run, ceil(run_cap / S)
+    threads: int      # per block: reads per block << group_log2
+    smem: int         # dynamic shared bytes per block
+
+
+class RanksPlan(NamedTuple):
+    span_rows: int    # main rows a block stages at most
+    smem: int         # dynamic shared bytes per block
+
+
+@functools.lru_cache(maxsize=None)
+def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
+    """K1's launch: one lane per (read, run) pair, a read's lanes in one
+    warp; the summary stride is the least power of two >= PROBE_MIN_STRIDE
+    whose summary (every S-th begin of every run) fits
+    PROBE_SUMMARY_BYTES.  Raises where none up to PROBE_MAX_STRIDE does."""
+    group_log2 = min(max(K - 1, 0).bit_length(), 5)
+    reads = min(PROBE_READS, PROBE_MAX_THREADS >> group_log2)
+    stride_log2 = PROBE_MIN_STRIDE.bit_length() - 1
+    while (summary := K * -(-run_cap >> stride_log2) * W * 4) > PROBE_SUMMARY_BYTES:
+        if 1 << stride_log2 >= PROBE_MAX_STRIDE:
+            break
+        stride_log2 += 1
+    smem = summary + 2 * reads * W * 4  # with the reads' begins and ends
+    if summary > PROBE_SUMMARY_BYTES or smem > SMEM_MAX:
+        raise ValueError(
+            f"probe_fused: no run summary fits shared memory at K={K}, "
+            f"run_cap={run_cap}, W={W} (stride <= {PROBE_MAX_STRIDE}, "
+            f"summary <= {PROBE_SUMMARY_BYTES} B, block <= {SMEM_MAX} B)")
+    return ProbePlan(group_log2, stride_log2, -(-run_cap >> stride_log2),
+                     reads << group_log2, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_ranks(W: int) -> RanksPlan:
+    """K3's launch: RANKS_THREADS queries a block, staged with the main
+    rows between their least and greatest rank when those fit RANKS_SMEM.
+    Raises where the queries alone exceed a block's shared memory."""
+    row = 4 * W
+    # the queries and the span, each with its 16-byte alignment slack, and
+    # the least and the greatest query
+    fixed = RANKS_THREADS * row + 16 + 4 * ((2 * W + 3) & ~3) + 12
+    span_rows = max((RANKS_SMEM - fixed) // row, 0)
+    smem = fixed + span_rows * row
+    if smem > SMEM_MAX:
+        raise ValueError(f"compact_ranks: {RANKS_THREADS} query rows of W={W} "
+                         f"lanes exceed {SMEM_MAX} B of shared memory")
+    return RanksPlan(span_rows, smem)
+
+
+# ---------------------------------------------------------------------------
 # launch plumbing
 
 
@@ -149,7 +224,8 @@ _I32, _BOOL = torch.int32, torch.bool
 def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
     """K1: fused history + run probe.  rb, re_: int32[R, W]; snap_r:
     int32[R]; r_ok, hist_r: bool[R]; runs_b, runs_e: int32[K, run_cap, W];
-    runs_ver: int32[K].  Returns bool[R]."""
+    runs_ver: int32[K].  Returns bool[R].  On the card, raises where
+    plan_probe finds no run summary that fits shared memory."""
     if _is_cpu(rb):
         return probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
                                  runs_ver, hist_r)
@@ -166,9 +242,11 @@ def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
         _check("runs_e", runs_e, _I32, (K, run_cap, W), dev),
         _check("runs_ver", runs_ver, _I32, (K,), dev),
     ]
+    plan = plan_probe(K, run_cap, W)
     out = torch.empty(R, dtype=_BOOL, device=dev)
     if R:
-        _launch("fdb_probe_fused", dev, *ptrs, out.data_ptr(), R, K, run_cap, W)
+        _launch("fdb_probe_fused", dev, *ptrs, out.data_ptr(), R, K, run_cap, W,
+                *plan)
         launches["probe_fused"] += 1
     return out
 
@@ -222,7 +300,8 @@ def intra_query(beg_tab, stab, rb_r, re_r):
 
 def compact_ranks(ks, rec_ks):
     """K3: ub[j] = #ks rows <= rec_ks[j].  ks: int32[cap, W] sorted;
-    rec_ks: int32[n_rec, W].  Returns int32[n_rec]."""
+    rec_ks: int32[n_rec, W].  Returns int32[n_rec].  On the card, raises
+    where plan_ranks cannot take W."""
     if _is_cpu(ks):
         return compact_ranks_plain(ks, rec_ks)
     cap, W = ks.shape
@@ -232,9 +311,11 @@ def compact_ranks(ks, rec_ks):
         _check("ks", ks, _I32, (cap, W), dev),
         _check("rec_ks", rec_ks, _I32, (n_rec, W), dev),
     ]
+    plan = plan_ranks(W)
     out = torch.empty(n_rec, dtype=_I32, device=dev)
     if n_rec:
-        _launch("fdb_compact_ranks", dev, *ptrs, out.data_ptr(), cap, n_rec, W)
+        _launch("fdb_compact_ranks", dev, *ptrs, out.data_ptr(), cap, n_rec, W,
+                *plan)
         launches["compact_ranks"] += 1
     return out
 

@@ -107,12 +107,13 @@ def test_probe_work_without_history_replays_k5(seed):
 
 
 def test_kernel_symbols_match_profiler_names():
-    """The profiler prints a templated kernel's bool argument either way."""
-    key = "void (anonymous namespace)::probe_kernel<(bool)0>(int const*)"
-    assert chip_smoke._is_kernel(key, chip_smoke.SYMBOLS["probe"])
-    assert not chip_smoke._is_kernel(key, chip_smoke.SYMBOLS["probe_fused"])
-    assert chip_smoke._is_kernel("probe_kernel<true>(int const*)",
-                                 chip_smoke.SYMBOLS["probe_fused"])
+    """Each kernel's symbol finds its own profiler record (the demangled
+    name with its arguments) and no other kernel's."""
+    records = {name: f"void (anonymous namespace)::{symbol}(int const*, int)"
+               for name, _where, symbol in chip_smoke.KERNELS}
+    for name, symbol in chip_smoke.SYMBOLS.items():
+        for other, key in records.items():
+            assert chip_smoke._is_kernel(key, symbol) == (name == other), (name, other)
     assert [k for k, _w, _s in chip_smoke.KERNELS] == list(kernels.launches)
 
 

@@ -47,10 +47,10 @@ def _rows(rng, n, W=5):
 def _run(rng, run_cap, W=5):
     """A sorted disjoint run: begins = even rows of a sorted list, ends =
     odd rows, sentinel-padded."""
-    live = _rows(rng, run_cap, W)
+    live = _rows(rng, max(run_cap, 2), W)
     live = live[live[:, -1] != 0xFFFFFFFF]
-    m = (len(live) // 2) * 2
-    b, e = live[:m:2], live[1:m:2]
+    m = min(len(live) // 2, run_cap)
+    b, e = live[: 2 * m : 2], live[1 : 2 * m : 2]
     out_b = np.full((run_cap, W), 0xFFFFFFFF, np.uint32)
     out_e = out_b.copy()
     out_b[: len(b)], out_e[: len(e)] = b, e
@@ -62,39 +62,82 @@ def _same(a, b):
     return torch.equal(a.cpu(), b.cpu())
 
 
-def test_k1_probe_fused_matches_plain(cuda):
-    rng = np.random.default_rng(1)
-    K, run_cap, R = 4, 256, 300
-    runs = [_run(rng, run_cap) for _ in range(K)]
-    runs_b = keys.to_lanes(np.stack([r[0] for r in runs]), cuda)
-    runs_e = keys.to_lanes(np.stack([r[1] for r in runs]), cuda)
-    runs_ver = torch.tensor([0, 3, 9, 20], dtype=torch.int32, device=cuda)
-    q = _rows(rng, 2 * R)[rng.permutation(2 * R)]
-    rb = keys.to_lanes(np.minimum(q[:R], q[R:]), cuda)
-    re_ = keys.to_lanes(np.maximum(q[:R], q[R:]), cuda)
-    snap = torch.from_numpy(rng.integers(0, 25, R).astype(np.int32)).to(cuda)
-    r_ok = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
-    hist = torch.from_numpy(rng.random(R) < 0.1).to(cuda) & r_ok
-    args = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, hist)
-    before = kernels.launches["probe_fused"]
+# K1 inputs: (W, K, run_cap, R, case); R = 300 and 385 are not multiples
+# of the 128-read tile, 5 is less than one
+K1_CASES = [(W, K, cap, 300, "random") for W in (5, 9) for K in (1, 8)
+            for cap in (1, 64, 16384)] + [
+    (5, 8, 64, 385, "random"),
+    (5, 3, 64, 5, "random"),
+    (9, 8, 1000, 300, "random"),  # run_cap above the stride, not a multiple
+    (5, 8, 64, 300, "no_r_ok"),
+    (5, 8, 64, 300, "all_hist"),
+    (5, 8, 256, 300, "sentinel_run"),
+    (9, 8, 256, 300, "dead_run"),
+    (5, 8, 256, 300, "touching"),
+    (9, 2, 16384, 1000, "touching"),
+]
+
+
+def _probe_case(rng, dev, W, K, run_cap, R, case):
+    """K1's arguments: K seeded runs, R reads (half of them on run keys),
+    and what `case` changes: no r_ok, every history bit, run 0 all
+    sentinel, run 0 at version 0, or reads whose end is a run's begin
+    and reads whose begin is a run's end."""
+    runs = [_run(rng, run_cap, W) for _ in range(K)]
+    runs_b_np = np.stack([r[0] for r in runs])
+    runs_e_np = np.stack([r[1] for r in runs])
+    if case == "sentinel_run":
+        runs_b_np[0] = runs_e_np[0] = 0xFFFFFFFF
+    runs_ver_np = rng.integers(1, 25, K).astype(np.int32)
+    if case == "dead_run":
+        runs_ver_np[0] = 0
+    q = _rows(rng, 2 * R, W)[rng.permutation(2 * R)]
+    rb, re_ = np.minimum(q[:R], q[R:]), np.maximum(q[:R], q[R:])
+    live_b = runs_b_np[runs_b_np[..., -1] != 0xFFFFFFFF]
+    live_e = runs_e_np[runs_e_np[..., -1] != 0xFFFFFFFF]
+    if len(live_b):
+        pick = rng.integers(0, len(live_b), R)
+        on_run = rng.random(R) < 0.5
+        rb[on_run] = np.minimum(rb[on_run], live_b[pick[on_run]])
+    if case == "touching" and len(live_b) > 1:
+        n = R // 3
+        j = rng.integers(0, len(live_b) - 1, n)
+        rb[:n], re_[:n] = live_e[j], live_b[j + 1]      # begin == an end
+        rb[n:2 * n], re_[n:2 * n] = live_b[j], live_b[j + 1]  # end == a begin
+    snap = rng.integers(0, 25, R).astype(np.int32)
+    r_ok = rng.random(R) < 0.9
+    if case == "no_r_ok":
+        r_ok[:] = False
+    hist = (rng.random(R) < 0.1) & r_ok
+    if case == "all_hist":
+        hist[:] = True
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (keys.to_lanes(rb, dev), keys.to_lanes(re_, dev), t(snap), t(r_ok),
+            keys.to_lanes(runs_b_np, dev), keys.to_lanes(runs_e_np, dev),
+            t(runs_ver_np), t(hist))
+
+
+@pytest.mark.parametrize("W,K,run_cap,R,case", K1_CASES)
+def test_k1_probe_fused_matches_plain(cuda, W, K, run_cap, R, case):
+    """K1 equals its plain version, and K5 ORed with the history bits."""
+    rng = np.random.default_rng(K1_CASES.index((W, K, run_cap, R, case)))
+    args = _probe_case(rng, cuda, W, K, run_cap, R, case)
+    before = dict(kernels.launches)
     got = kernels.probe_fused(*args)
-    assert kernels.launches["probe_fused"] == before + 1
-    assert _same(got, kernels.probe_fused_plain(*args))
+    assert kernels.launches["probe_fused"] == before["probe_fused"] + 1
+    want = kernels.probe_fused_plain(*args)
+    assert _same(got, want)
+    assert _same(kernels.run_conflicts(*args[:7]) | args[7], got)
+    assert kernels.launches["probe"] == before["probe"] + 1
+    if case == "random" and R >= 300 and run_cap > 1:
+        hist = args[7].cpu()
+        assert (want.cpu() & ~hist).any()  # the runs made conflicts
 
 
 def test_k5_run_conflicts_matches_plain_and_k1(cuda):
     rng = np.random.default_rng(6)
-    K, run_cap, R = 4, 256, 300
-    runs = [_run(rng, run_cap) for _ in range(K)]
-    runs_b = keys.to_lanes(np.stack([r[0] for r in runs]), cuda)
-    runs_e = keys.to_lanes(np.stack([r[1] for r in runs]), cuda)
-    runs_ver = torch.tensor([0, 3, 9, 20], dtype=torch.int32, device=cuda)
-    q = _rows(rng, 2 * R)[rng.permutation(2 * R)]
-    rb = keys.to_lanes(np.minimum(q[:R], q[R:]), cuda)
-    re_ = keys.to_lanes(np.maximum(q[:R], q[R:]), cuda)
-    snap = torch.from_numpy(rng.integers(0, 25, R).astype(np.int32)).to(cuda)
-    r_ok = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
-    args = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver)
+    args = _probe_case(rng, cuda, 5, 4, 256, 300, "random")[:7]
+    r_ok = args[3]
     before = kernels.launches["probe"]
     got = kernels.run_conflicts(*args)
     assert kernels.launches["probe"] == before + 1
@@ -117,13 +160,55 @@ def test_k2_intra_query_matches_plain(cuda):
                  kernels.intra_query_plain(tab, stab, rb_r, re_r))
 
 
-def test_k3_compact_ranks_matches_plain(cuda):
-    rng = np.random.default_rng(3)
-    ks = keys.to_lanes(_rows(rng, 4096), cuda)
-    rec = np.concatenate([_rows(rng, 600), keys.from_lanes(ks[:100])])
-    rec = keys.to_lanes(rec, cuda)  # sentinel rows and exact hits included
-    assert _same(kernels.compact_ranks(ks, rec),
-                 kernels.compact_ranks_plain(ks, rec))
+def _k3_case(rng, dev, case):
+    """(main ks, recent rows, the branch every live block must take)."""
+    W = 9 if case == "w9" else 5
+    cap = 50 if case == "small_cap" else 1 << 16
+    main = _rows(rng, cap, W)
+    if cap > 50:  # a partly full main, as after a compaction
+        main[int(0.6 * cap):] = 0xFFFFFFFF
+    if case in ("staged", "w9"):  # one run's step rows, in key order
+        b, e = _run(rng, 8192, W)
+        rec = kernels.run_to_step_plain(keys.to_lanes(b), keys.to_lanes(e),
+                                        torch.tensor(3, dtype=torch.int32))[0]
+        return keys.to_lanes(main, dev), rec.to(dev), "staged"
+    if case == "global":  # unsorted, spread over all of main
+        rec = _rows(rng, 4096, W)
+        rec = rec[rec[:, -1] != 0xFFFFFFFF][rng.permutation(4000)]
+        return keys.to_lanes(main, dev), keys.to_lanes(rec, dev), "global"
+    if case == "all_sentinel":
+        rec = np.full((1000, W), 0xFFFFFFFF, np.uint32)
+        return keys.to_lanes(main, dev), keys.to_lanes(rec, dev), None
+    # hits: queries equal to main rows (and the sentinel tail); small_cap:
+    # main smaller than one block of queries
+    rec = np.concatenate([_rows(rng, 300, W), main[rng.integers(0, len(main), 200)]])
+    rec = rec[np.lexsort(rec.T[::-1])]
+    return keys.to_lanes(main, dev), keys.to_lanes(rec, dev), None
+
+
+def _k3_branches(ks, rec):
+    """Per block of K3: the main rows between its least and greatest rank
+    staged in shared memory, or searched in global memory."""
+    plan = kernels.plan_ranks(ks.shape[1])
+    ranks = kernels.compact_ranks_plain(ks.cpu(), rec.cpu()).long()
+    spans = [int(b.max() - b.min()) for b in ranks.split(kernels.RANKS_THREADS)]
+    return ("staged" if s <= plan.span_rows else "global" for s in spans if s)
+
+
+K3_CASES = ["staged", "global", "all_sentinel", "hits", "w9", "small_cap"]
+
+
+@pytest.mark.parametrize("case", K3_CASES)
+def test_k3_compact_ranks_matches_plain(cuda, case):
+    rng = np.random.default_rng(100 + K3_CASES.index(case))
+    ks, rec, branch = _k3_case(rng, cuda, case)
+    if branch is not None:  # the inputs drive the branch the case names
+        taken = list(_k3_branches(ks, rec))
+        assert taken.count(branch) >= len(taken) - 1 and taken.count(branch) > 0
+    before = kernels.launches["compact_ranks"]
+    got = kernels.compact_ranks(ks, rec)
+    assert kernels.launches["compact_ranks"] == before + 1
+    assert _same(got, kernels.compact_ranks_plain(ks, rec))
 
 
 def test_k4_run_to_step_matches_plain(cuda):

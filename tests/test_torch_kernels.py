@@ -21,6 +21,7 @@ from foundationdb_tpu.ops import rmq as jrmq  # noqa: E402
 from foundationdb_tpu_torch.conflict import device as tdev  # noqa: E402
 from foundationdb_tpu_torch.conflict import kernels  # noqa: E402
 from foundationdb_tpu_torch.keys import from_lanes, to_lanes  # noqa: E402
+from foundationdb_tpu_torch.ops.search import lower_bound  # noqa: E402
 
 SENT = np.uint32(0xFFFFFFFF)
 
@@ -266,6 +267,82 @@ def test_compact_fold_matches_scatter_fold(seed):
         assert int(want[2]) == int(t_n)
         if cap == 32:
             assert int(t_n) > cap  # the overflow case really ran
+
+
+def test_plan_probe_at_the_streams_shapes():
+    """K1 at the stream's shapes: 128 reads x 8 runs a block, the
+    summary every 512th begin (5 KB at W=5, 9 KB at W=9)."""
+    assert kernels.plan_probe(8, 1 << 14, 5) == kernels.ProbePlan(
+        group_log2=3, stride_log2=9, n_sum=32, threads=1024, smem=10240)
+    assert kernels.plan_probe(8, 1 << 14, 9).smem == 8 * 32 * 36 + 2 * 128 * 36
+
+
+@pytest.mark.parametrize("K,run_cap,W", [(1, 1, 5), (1, 64, 5), (2, 100, 5),
+                                         (3, 127, 9), (8, 129, 5), (8, 1 << 16, 9),
+                                         (8, 1 << 20, 5), (33, 1 << 14, 5),
+                                         (64, 3000, 9), (0, 64, 5)])
+def test_plan_probe_geometry(K, run_cap, W):
+    """Any accepted shape: a read's lanes (K rounded up, <= 32) share one
+    warp, the block fits, and the summary's windows cover the run."""
+    p = kernels.plan_probe(K, run_cap, W)
+    G, S = 1 << p.group_log2, 1 << p.stride_log2
+    assert G >= min(K, 32) and G <= max(2 * K - 1, 1) and 32 % G == 0
+    assert p.threads % 32 == 0 and p.threads <= kernels.PROBE_MAX_THREADS
+    assert (p.threads // G) * G == p.threads
+    assert kernels.PROBE_MIN_STRIDE <= S <= kernels.PROBE_MAX_STRIDE
+    assert (p.n_sum - 1) * S < run_cap <= p.n_sum * S or run_cap == p.n_sum == 0
+    summary = K * p.n_sum * W * 4
+    assert summary <= kernels.PROBE_SUMMARY_BYTES
+    assert p.smem == summary + 2 * (p.threads // G) * W * 4 <= kernels.SMEM_MAX
+    if S > kernels.PROBE_MIN_STRIDE:  # the least stride that fits
+        assert K * -(-run_cap // (S // 2)) * W * 4 > kernels.PROBE_SUMMARY_BYTES
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_plan_probe_windows_hold_the_rank(seed):
+    """The window K1 searches after its summary count c, rows
+    [(c-1)S + 1, min(cS, run_cap)), holds #begins < q whenever c > 0, and
+    c == 0 means that count is 0: on runs shorter than, equal to and
+    longer than one stride, sentinel tails included."""
+    rng = np.random.default_rng(seed)
+    for run_cap in (1, 100, 128, 300, 1024):
+        b, _ = _run(rng, int(rng.integers(0, run_cap // 2 + 1)), run_cap)
+        begins = _t(b)
+        p = kernels.plan_probe(8, run_cap, begins.shape[1])
+        S = 1 << p.stride_log2
+        q, _ = _intervals(rng, 64)
+        q[:8] = b[rng.integers(0, run_cap, 8)]  # queries equal to begins
+        q = _t(q)
+        rank = lower_bound(begins, q).long()
+        c = lower_bound(begins[::S].contiguous(), q).long()
+        assert torch.equal(c == 0, rank == 0)
+        hit = c > 0
+        lo = (c - 1) * S + 1
+        hi = torch.clamp(c * S, max=run_cap)
+        assert bool(((lo <= rank) & (rank <= hi))[hit].all())
+
+
+@pytest.mark.parametrize("K,run_cap,W", [(8, 1 << 26, 9), (3000, 64, 5), (8, 64, 300)])
+def test_plan_probe_raises_where_no_summary_fits(K, run_cap, W):
+    with pytest.raises(ValueError, match=f"K={K}, run_cap={run_cap}, W={W}"):
+        kernels.plan_probe(K, run_cap, W)
+
+
+@pytest.mark.parametrize("W", [2, 5, 9, 65, 300])
+def test_plan_ranks(W):
+    """K3: 128 queries a block; at W=5 the span a block stages holds the
+    stream's ~3.6K main rows per 128 step rows, two blocks an SM."""
+    p = kernels.plan_ranks(W)
+    fixed = kernels.RANKS_THREADS * 4 * W + 16 + 4 * (-(-2 * W // 4) * 4) + 12
+    assert p.smem == fixed + p.span_rows * 4 * W <= kernels.SMEM_MAX
+    assert p.span_rows == 0 or p.smem <= kernels.RANKS_SMEM
+    if W == 5:
+        assert p.span_rows >= 4000 and 2 * p.smem <= 228 * 1024
+
+
+def test_plan_ranks_raises_where_the_queries_do_not_fit():
+    with pytest.raises(ValueError, match="W=500"):
+        kernels.plan_ranks(500)
 
 
 def test_wrappers_take_plain_only_on_cpu_and_reject_other_devices():
