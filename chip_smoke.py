@@ -9,22 +9,30 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
   2. build    nvcc builds the conflict kernels from csrc/, and the
               compiler's -Xptxas -v lines are printed, K1's and K3's with
               the dynamic shared memory a block takes at phase 3's shapes;
-  3. kernels  each kernel (K1-K5) on seeded inputs at the resolver's
-              full-width shapes, held against its plain torch version on
-              the same CUDA tensors (exact: integer functions), timed with
-              L2 cold and warm, and set against the least time the bytes
-              and operations its inputs need would take the card; K5 also
-              against K1 with no history bit set, and K5 | history against
-              K1; K5's cold time (the thread-per-read design K1 had before
-              its redesign) is printed beside K1's;
+  3. kernels  each kernel (K1-K5, K2's per-query referee) on seeded inputs
+              at the resolver's full-width shapes, held against its plain
+              torch version on the same CUDA tensors (exact: integer
+              functions), timed with L2 cold and warm, and set against the
+              least time the bytes and operations its inputs need would
+              take the card; K5 also against K1 with no history bit set,
+              and K5 | history against K1; K5's cold time (the
+              thread-per-read design K1 had before its redesign) is
+              printed beside K1's.  K2, the whole intra fixpoint in one
+              launch, on the first stream batch and on a 1024-txn chain
+              (a trajectory as long as the batch), also against the loop
+              it replaced (the per-query kernel in a host loop: same bits,
+              same iteration count), whose time is printed beside it; K4
+              over the 8 runs of a compaction at once;
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
               + 16 timed batches, GC from the 10th batch) through
               DeviceConflictSet.resolve_batch on "cuda" and on "cpu":
               identical verdicts every batch and identical final state,
-              and every kernel launched by the cuda run.  Then a few more
-              batches, timed plain and profiled on a twin set (device
-              busy share, the ops that take the time);
+              the same fixpoint iterations, every kernel of the path
+              launched by the cuda run (K2 once a batch, K4 once a
+              compaction), host syncs and iterations per batch.  Then a
+              few more batches, timed plain and profiled on a twin set
+              (device busy share, launches, the ops that take the time);
   6. best-known  the same stream through bench.py's BEST_KNOWN layout
               (lsm=True, search_impl="bucket") on "cpu" once and on
               "cuda" in three modes (`drive`): synchronous resolve_batch,
@@ -32,8 +40,10 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               with BatchStager feeding resolve_arrays(sync=False).  Every
               mode's verdicts equal phase 4's and the cpu run's batch by
               batch, its final state the cpu run's; checks/s, latency,
-              pack/h2d time, host syncs and (profiled) device-busy share
-              per mode.  K5 referees K1 on one batch of the live state;
+              pack/h2d time, host syncs, fixpoint iterations (equal to the
+              cpu run's) and (profiled) device-busy share and launches
+              per mode.  On one batch of the live state K5 referees K1,
+              and the per-query loop referees K2;
   7. recovery a deep 16-bit-prefix bucket through resolve_deferred on the
               card: the deferred check fails, the window recovers, and the
               verdicts equal the oracle's;
@@ -43,7 +53,8 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints the kernels' JSON line (`launches`: K1-K4 on phase 4's
-stream, K5 in its referee role; `launches_by_path` for every path), then
+stream, K5 and the per-query intra kernel in their referee roles;
+`launches_by_path` for every path), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -99,9 +110,14 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
      "run_to_step_kernel"),
     ("probe", "foundationdb_tpu/conflict/pallas_kernel.py:165",
      "probe_kernel"),
+    ("intra_fixpoint", "foundationdb_tpu/conflict/pallas_kernel.py:353",
+     "intra_fixpoint_kernel"),
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
-MAIN_PATH = ("probe_fused", "intra_query", "compact_ranks", "run_to_step")
+MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
+CHAIN_TXNS = 1024  # the chain batch of phase 3: txn t reads what t - 1 writes
+# cudaLaunchKernel and, for K2, cudaLaunchCooperativeKernel
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
 # bench.py's BEST_KNOWN layout, run in three modes over the same stream
 BEST_KNOWN = dict(lsm=True, search_impl="bucket")
 MODES = ("sync", "deferred", "packer")
@@ -318,6 +334,22 @@ def intra_query_work(torch, rmq, beg_tab, stab, rb_r, re_r):
     return n_bytes, 12 * R, out
 
 
+def intra_fixpoint_work(fx, n_iters: int):
+    """K2's fixpoint: each input read once (a kernel could hold them on
+    chip across iterations: ~0.45 MB at the stream's shapes) and the bits
+    and the count written once; one operation a read, write and txn an
+    iteration."""
+    *tensors, B = fx
+    n_bytes = sum(t.numel() * t.element_size() for t in tensors) + B + 4
+    return n_bytes, n_iters * (fx[0].shape[0] + fx[2].shape[0] + B), None
+
+
+def run_to_step_work(K: int, rcap: int, W: int):
+    """K4: a pure copy, so it reads every input byte whatever the data:
+    the runs' rows and versions in, the step rows and values out."""
+    return 2 * K * rcap * W * 4 * 2 + 2 * K * rcap * 4 + 4 * K, 0, None
+
+
 def compact_ranks_work(torch, keys_mod, ks, rec):
     """K3: per recent row, its last lane (+1) and one search of main."""
     n_rec, W = rec.shape
@@ -366,6 +398,46 @@ def sorted_run(keys_mod, rng, pool, succ, n_live, run_cap):
     return out_b, out_e
 
 
+def chain_inputs(torch, keys_mod, tdev, dev, pool, succ, B):
+    """K2's arguments for a chain batch of B txns: txn t writes pool key t
+    and reads pool key t - 1 (txn 0 reads key B, which nobody writes), so
+    the fixpoint settles about one txn an iteration."""
+    t = np.arange(B)
+    rb, re_ = (keys_mod.to_lanes(a, dev) for a in point_rows(
+        keys_mod, pool, succ, np.where(t > 0, t - 1, B)))
+    wb, we = (keys_mod.to_lanes(a, dev) for a in point_rows(keys_mod, pool, succ, t))
+    tx = torch.arange(B, device=dev)
+    ones = torch.ones(B, dtype=torch.bool, device=dev)
+    return (*tdev._intra_setup(rb, re_, wb, we), ones, ones, tx, tx,
+            tx.to(torch.int32), ones, ~ones, B)
+
+
+def fixpoint_check(check, results, torch, kernels, fx, key, reps):
+    """K2 on `fx` against its plain version (`check`) and against the loop
+    it replaced (the per-query kernel in a host loop): the same bits and
+    iteration count; logs the loop's time beside the kernel's."""
+    got = kernels.intra_fixpoint(*fx)
+    n_iters = int(got[1])
+    loop = lambda: kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)  # noqa: E731
+    before = kernels.launches["intra_query"]
+    k2_loop = loop()
+    require(kernels.launches["intra_query"] - before == n_iters,
+            f"{key}: the per-query loop launched K2 once an iteration")
+    require(torch.equal(k2_loop[0], got[0]) and int(k2_loop[1]) == n_iters,
+            f"{key}: the fixpoint kernel disagrees with the per-query loop")
+    check("intra_fixpoint", list(got), list(kernels.intra_fixpoint_plain(*fx)),
+          intra_fixpoint_work(fx, n_iters), fn=lambda: kernels.intra_fixpoint(*fx),
+          plain_fn=lambda: kernels.intra_fixpoint_plain(*fx), reps=reps, cold=False,
+          key=key)
+    loop_ms = launch_ms(torch, loop, 3)
+    ms = results[key]["ms"]
+    results[key].update(iterations=n_iters, k2_loop_ms=loop_ms)
+    log(f"kernel {key}: {n_iters} iterations, {int(got[0].sum())} of {fx[-1]} "
+        f"txns intra-conflicted; same bits and count as the per-query loop; "
+        f"fixpoint kernel {ms:.6f} ms vs the loop {loop_ms:.6f} ms "
+        f"(loop / kernel = {loop_ms / ms:.1f})")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 
@@ -383,9 +455,10 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
         f"per-launch time below)")
 
-    def check(name, got, want, work, fn, plain_fn, reps, cold):
+    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None):
         """`cold`: the main path finds the kernel's inputs out of L2, so
-        its `ms` (and the plain version's) is timed after a flush."""
+        its `ms` (and the plain version's) is timed after a flush.  `key`:
+        where the results go (the kernel's name by default)."""
         torch.cuda.synchronize()
         n_bytes, n_ops, replay = work
         got = [g.to(torch.int64) for g in got]
@@ -401,11 +474,11 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
         bound_ms, bound_by = bound(n_bytes, n_ops)
         ms = cold_ms if cold else warm_ms
-        results[name] = dict(mismatches=mismatches, max_abs_err=err, ms=ms,
-                             cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
-                             call_ms=back_to_back, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by)
-        log(f"kernel {name}: mismatches={mismatches} ms={ms:.6f} "
+        results[key or name] = dict(mismatches=mismatches, max_abs_err=err, ms=ms,
+                                    cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
+                                    call_ms=back_to_back, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        log(f"kernel {key or name}: mismatches={mismatches} ms={ms:.6f} "
             f"({'cold' if cold else 'warm'} L2, as on the main path) "
             f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
             f"device_ms={own_ms:.6f} (profiler, warm) "
@@ -467,7 +540,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         f"{k5_ms:.6f} ms, K5 / K1 = {k5_ms / k1_ms:.2f}")
 
     # K2: the first fixpoint iteration's tables of a real stream batch
-    rb, re_, r_tx, wb, we, w_tx, _snap, _act = tdev.stage_batch(dev, *first_batch[:8])
+    rb, re_, r_tx, wb, we, w_tx, _snap, active = tdev.stage_batch(dev, *first_batch[:8])
     rb_r, re_r, wb_r, we_r = tdev._intra_setup(rb, re_, wb, we)
     n = 2 * (rb.shape[0] + wb.shape[0])
     w_ok = w_tx >= 0
@@ -483,6 +556,20 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           intra_query_work(torch, rmq, *k2),
           fn=lambda: kernels.intra_query(*k2),
           plain_fn=lambda: kernels.intra_query_plain(*k2), reps=100, cold=False)
+
+    # K2 redesigned: the whole fixpoint of the first stream batch (no
+    # history yet), then of a chain batch, held against its plain version
+    # and against the loop it replaced (the per-query kernel above in a
+    # host loop); warm, as on the main path, where the ranks were just made
+    B = active.shape[0]
+    w_ok = (w_tx >= 0) & ~tdev._is_sentinel(wb)
+    fx = (rb_r, re_r, wb_r, we_r, r_tx >= 0, w_ok,
+          torch.clamp(r_tx, 0, B - 1).long(), torch.clamp(w_tx, 0, B - 1).long(),
+          w_tx, active, torch.zeros(B, dtype=torch.bool, device=dev), B)
+    fixpoint_check(check, results, torch, kernels, fx, "intra_fixpoint", reps=50)
+    fixpoint_check(check, results, torch, kernels,
+                   chain_inputs(torch, keys_mod, tdev, dev, pool, succ, CHAIN_TXNS),
+                   "intra_fixpoint_chain", reps=10)
 
     # K3: ~447K live boundaries of main at cap 2**19 (the stream's size
     # after 24 batches) against one run's step rows (2 * run_cap,
@@ -503,14 +590,14 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           fn=lambda: kernels.compact_ranks(ks, rec),
           plain_fn=lambda: kernels.compact_ranks_plain(ks, rec), reps=50, cold=True)
 
-    # K4: one run (of the stream's shape) as a step function; a pure copy,
-    # so it reads every input byte whatever the data
-    ver = runs_ver[1]
-    check("run_to_step", list(kernels.run_to_step(u_b, u_e, ver)),
-          list(kernels.run_to_step_plain(u_b, u_e, ver)),
-          (2 * run_cap * W * 4 * 2 + 2 * run_cap * 4 + 4, 0, None),
-          fn=lambda: kernels.run_to_step(u_b, u_e, ver),
-          plain_fn=lambda: kernels.run_to_step_plain(u_b, u_e, ver), reps=100, cold=True)
+    # K4: the 8 runs of a compaction (of the stream's shape) as step
+    # functions, in one launch
+    k4 = (runs_b, runs_e, runs_ver)
+    check("run_to_step", list(kernels.run_to_step_runs(*k4)),
+          list(kernels.run_to_step_runs_plain(*k4)),
+          run_to_step_work(*runs_b.shape),
+          fn=lambda: kernels.run_to_step_runs(*k4),
+          plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
     return results
 
@@ -539,7 +626,7 @@ def stream_batches(TxInfo, rng, pool, succ, n_batches, txns=TXNS):
 def stream_phase(torch, fdb, batches, power):
     """Phase 4: the flat layout (the reference constructor's default)
     through resolve_batch on "cuda" and on "cpu".  Returns (launches, the
-    cuda set, the verdicts per batch)."""
+    cuda set, the verdicts per batch, the fixpoint's iterations)."""
     tdev, kernels, Verdict = fdb["device"], fdb["kernels"], fdb["Verdict"]
     on_gpu = tdev.DeviceConflictSet(**SET_ARGS, device="cuda")
     on_cpu = tdev.DeviceConflictSet(**SET_ARGS, device="cpu")
@@ -555,6 +642,8 @@ def stream_phase(torch, fdb, batches, power):
         if i >= GC_FROM_BATCH:
             on_gpu.remove_before(version - GC_LAG)
     launches = dict(kernels.launches)
+    syncs = on_gpu.host_syncs / len(batches)
+    iters = on_gpu.fixpoint_iterations()
     t_cpu = time.perf_counter()
     for i, ((version, txns), got) in enumerate(zip(batches, verdicts), start=1):
         want = on_cpu.resolve_batch(version, txns)
@@ -563,6 +652,8 @@ def stream_phase(torch, fdb, batches, power):
             on_cpu.remove_before(version - GC_LAG)
     cpu_s = time.perf_counter() - t_cpu
     same_state(on_gpu, on_cpu, "flat stream")
+    require(iters == on_cpu.fixpoint_iterations(),
+            "flat stream: the fixpoint's iterations differ from the cpu run's")
     counts = {v: sum(1 for vs in verdicts for x in vs if x == v) for v in Verdict}
     timed = gpu_ms[PREFILL_BATCHES:]
     checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
@@ -580,16 +671,28 @@ def stream_phase(torch, fdb, batches, power):
         f"compact_ms={stats['phase']['compact_ms']:.3f} "
         f"resolve_arrays p50={stats['resolve_ms_p50']:.3f} "
         f"p99={stats['resolve_ms_p99']:.3f}; host syncs per batch "
-        f"{on_gpu.host_syncs / len(batches):.2f}")
+        f"{syncs:.2f}; fixpoint iterations per batch {iters / len(batches):.3f} "
+        f"(= the cpu run's)")
     log(f"stream: per-batch ms on cuda: {[round(x, 3) for x in gpu_ms]}")
     log(f"stream: cpu cross-check took {cpu_s:.1f} s")
     log(f"stream: launches {json.dumps(launches)}")
-    need = {"probe_fused": len(batches), "intra_query": len(batches),
-            "compact_ranks": 16, "run_to_step": 16}
-    for name, n in need.items():
-        require(launches[name] >= n, f"{name} launched {launches[name]} < {n} times")
+    check_path_launches(launches, len(batches), on_gpu.stats.compactions, "flat stream")
+    require(syncs <= 2.0, f"flat stream: {syncs:.2f} host syncs a batch, more than 2")
     require(counts[Verdict.TOO_OLD] > 0, "the GC clamp never made a txn TOO_OLD")
-    return launches, on_gpu, verdicts
+    return launches, on_gpu, verdicts, iters
+
+
+def check_path_launches(launches, n_batches: int, compactions: int, where: str) -> None:
+    """The main path's kernels: K1 and K2 once a batch, K4 once a
+    compaction, K3 once a run it folds (8 a compaction, more on a regrow);
+    the referees never."""
+    require(compactions == 2, f"{where}: {compactions} compactions, expected 2")
+    need = {"probe_fused": n_batches, "intra_fixpoint": n_batches,
+            "run_to_step": compactions, "intra_query": 0, "probe": 0}
+    for name, n in need.items():
+        require(launches[name] == n, f"{where}: {name} launched {launches[name]} times, not {n}")
+    require(launches["compact_ranks"] >= 8 * compactions,
+            f"{where}: compact_ranks launched {launches['compact_ranks']} times")
 
 
 def same_state(a, b, where: str) -> None:
@@ -604,6 +707,14 @@ def same_state(a, b, where: str) -> None:
 def _device_us(event) -> float:
     return getattr(event, "self_device_time_total",
                    getattr(event, "self_cuda_time_total", 0))
+
+
+def launch_calls(events) -> int:
+    return sum(e.count for e in events if e.key in LAUNCH_CALLS)
+
+
+def sync_calls(events) -> int:
+    return sum(e.count for e in events if "Synchronize" in e.key)
 
 
 def busy_ms(torch, events) -> float:
@@ -640,7 +751,9 @@ def profile_phase(torch, fdb, on_gpu, batches, power):
     wall_ms = sum(walls)
     log(f"profile: {len(batches)} batches (the first compacts 8 runs), wall "
         f"{[round(w, 3) for w in walls]} ms, device busy {busy:.3f} ms = "
-        f"{100 * busy / wall_ms:.1f}% of {wall_ms:.3f} ms on {power}")
+        f"{100 * busy / wall_ms:.1f}% of {wall_ms:.3f} ms on {power}; "
+        f"{launch_calls(events) / len(batches):.1f} launches and "
+        f"{sync_calls(events) / len(batches):.2f} synchronize calls a batch")
     ours = {name: sum(_device_us(e) for e in events if _is_kernel(e.key, symbol)) / 1e3
             for name, _where, symbol in KERNELS}
     log(f"profile: the hand kernels' device ms {json.dumps(ours)} = "
@@ -754,7 +867,7 @@ def drive(torch, fdb, mode: str, cs, batches, first: int):
     return out, walls
 
 
-def best_known_phase(torch, fdb, batches, flat_verdicts, power):
+def best_known_phase(torch, fdb, batches, flat_verdicts, flat_iters, power):
     """Phase 6: the stream through DeviceConflictSet(lsm=True,
     search_impl="bucket") on "cpu" once, then on "cuda" in each mode of
     `drive`, twice, in TURNS, each turn on a fresh set: verdicts equal the
@@ -772,6 +885,8 @@ def best_known_phase(torch, fdb, batches, flat_verdicts, power):
         if floor is not None:
             on_cpu.remove_before(floor)
     require(cpu_verdicts == flat_verdicts, "best-known cpu run differs from the flat run")
+    require(on_cpu.fixpoint_iterations() == flat_iters,
+            "best-known cpu run: the fixpoint's iterations differ from the flat run's")
     log(f"best-known: cpu reference run took {time.perf_counter() - t:.1f} s")
     checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
     runs = {}
@@ -786,18 +901,23 @@ def best_known_phase(torch, fdb, batches, flat_verdicts, power):
         require(len(got) == len(batches), f"best-known {mode}: verdicts missing")
         same_state(cs, on_cpu, f"best-known {mode}")
         require(cs.search_fallbacks == 0, f"best-known {mode}: a search fell back")
-        for name in MAIN_PATH:
-            require(launches[name] > 0, f"best-known {mode}: {name} never launched")
+        check_path_launches(launches, len(batches), cs.stats.compactions,
+                            f"best-known {mode}")
         timed = walls[PREFILL_BATCHES:]
         stats = cs.kernel_stats()
         reads = len(batches) if mode == "packer" else 0  # the caller's own
+        syncs = cs.host_syncs + reads
+        iters = cs.fixpoint_iterations()
+        require(iters == flat_iters,
+                f"best-known {mode}: the fixpoint's iterations differ from the cpu run's")
         m = dict(checks_per_s=checks / (sum(timed) / 1e3),
                  p50_ms=float(np.percentile(timed, 50)),
                  p99_ms=float(np.percentile(timed, 99)), n=len(timed),
                  pack_ms=stats["pack_ms"],
                  encode_pad_ms=stats["encode_ms"] + stats["pad_ms"],
                  h2d_ms=stats["h2d_ms"],
-                 syncs_per_batch=(cs.host_syncs + reads) / len(batches))
+                 syncs_per_batch=syncs / len(batches),
+                 iters_per_batch=iters / len(batches))
         runs.setdefault(mode, (cs, launches, {"turns": []}))[2]["turns"].append(m)
         log(f"best-known {mode} (turn {turn}): {len(batches)} batches identical to the flat "
             f"run and the cpu run, final state equal; checks/s="
@@ -805,7 +925,9 @@ def best_known_phase(torch, fdb, batches, flat_verdicts, power):
             f"p99={m['p99_ms']:.3f} (n={m['n']}); all batches: pack_ms="
             f"{m['pack_ms']:.3f} encode+pad_ms={m['encode_pad_ms']:.3f} "
             f"h2d_ms={m['h2d_ms']:.3f} host syncs per batch="
-            f"{m['syncs_per_batch']:.2f}; compactions={cs.stats.compactions} on {power}")
+            f"{m['syncs_per_batch']:.2f} fixpoint iterations per batch="
+            f"{m['iters_per_batch']:.3f} (= the cpu run's); "
+            f"compactions={cs.stats.compactions} on {power}")
         log(f"best-known {mode} (turn {turn}): per-batch ms {[round(w, 3) for w in walls]}")
         log(f"best-known {mode} (turn {turn}): launches {json.dumps(launches)}")
     return runs
@@ -829,23 +951,24 @@ def best_known_profile(torch, fdb, runs, batches, first: int, power):
         events = prof.key_averages()
         busy = busy_ms(torch, events)
         m["busy_share"] = busy / sum(walls)
-        syncs = sum(e.count for e in events if "Synchronize" in e.key)
-        launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+        syncs, launches = sync_calls(events), launch_calls(events)
         m["launches_per_batch"] = launches / len(batches)
         log(f"best-known {mode} profile: {len(batches)} batches, wall "
             f"{[round(w, 3) for w in walls]} ms, device busy {busy:.3f} ms = "
             f"{100 * m['busy_share']:.1f}% on {power}; the profiler saw "
-            f"{syncs} synchronize calls and {launches} cudaLaunchKernel")
+            f"{syncs} synchronize calls and {launches} kernel launches")
 
 
 def referee_phase(torch, fdb, cs, version, txns):
-    """K5 in its role: K1's unfused referee, on one batch against the live
-    state of a best-known set (its runs, its cached table).  Nothing is
-    written to the set.  Returns K5's launches in this phase."""
+    """The referees in their roles, on one batch against the live state of
+    a best-known set (its runs, its cached table): K5, K1's unfused
+    referee, and the per-query intra kernel in the host loop K2 replaced,
+    held against K2 on the batch's history bits.  Nothing is written to
+    the set.  Returns the referees' launches in this phase."""
     tdev, kernels = fdb["device"], fdb["kernels"]
     packed = tdev.pack_batch(txns, cs.oldest_version, cs._offset,
                              SET_ARGS["max_key_bytes"])
-    rb, re_, r_tx, _wb, _we, _w_tx, snap, _active = tdev.stage_batch(cs.device, *packed[:8])
+    rb, re_, r_tx, wb, we, w_tx, snap, active = tdev.stage_batch(cs.device, *packed[:8])
     kernels.reset_launches()
     g_lo, g_hi, conv = tdev.inc_search(cs._ks, cs._bidx, cs._count, rb, re_, r_tx)
     require(bool(conv), "referee batch: the bucketed search did not converge")
@@ -863,7 +986,24 @@ def referee_phase(torch, fdb, cs, version, txns):
     log(f"referee: K5 | history == K1 on a live batch ({int(fused.sum())} of "
         f"{int(r_ok.sum())} live reads conflict; {cs._n_runs} live runs); "
         f"K5 launches {launches}")
-    return launches
+    B = active.shape[0]
+    r_idx = torch.clamp(r_tx, 0, B - 1).long()
+    hist = torch.zeros(B, dtype=torch.int32, device=cs.device).index_add_(
+        0, r_idx, (r_ok & fused).to(torch.int32)) > 0
+    fx = (*tdev._intra_setup(rb, re_, wb, we), r_ok,
+          (w_tx >= 0) & ~tdev._is_sentinel(wb), r_idx,
+          torch.clamp(w_tx, 0, B - 1).long(), w_tx, active, hist, B)
+    intra, n_iters = kernels.intra_fixpoint(*fx)
+    loop_intra, loop_iters = kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)
+    torch.cuda.synchronize()
+    k2 = kernels.launches["intra_query"]
+    require(torch.equal(intra, loop_intra) and int(n_iters) == int(loop_iters),
+            "the per-query loop disagrees with K2 on a live batch")
+    require(k2 == int(n_iters), "the referee loop did not launch the query once an iteration")
+    log(f"referee: the per-query loop == K2 on the live batch ({int(hist.sum())} "
+        f"history-conflicted, {int(intra.sum())} intra-conflicted txns, "
+        f"{int(n_iters)} iterations); per-query launches {k2}")
+    return {"probe": launches, "intra_query": k2}
 
 
 def recovery_drill(fdb):
@@ -998,12 +1138,12 @@ def main() -> int:
     log(f"kernels phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    launches, on_gpu, flat_verdicts = stream_phase(torch, fdb, stream, power)
+    launches, on_gpu, flat_verdicts, flat_iters = stream_phase(torch, fdb, stream, power)
     log(f"stream phase: {time.perf_counter() - t:.1f} s")
     profile_phase(torch, fdb, on_gpu, extra, power)
 
     t = time.perf_counter()
-    runs = best_known_phase(torch, fdb, stream, flat_verdicts, power)
+    runs = best_known_phase(torch, fdb, stream, flat_verdicts, flat_iters, power)
     referee_launches = referee_phase(torch, fdb, runs["sync"][0], *extra[0])
     best_known_profile(torch, fdb, runs, extra, n_stream + 1, power)
     log(f"best-known phase: {time.perf_counter() - t:.1f} s")
@@ -1016,9 +1156,9 @@ def main() -> int:
     log(f"recovery + oracle phases: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
-    by_path = {"flat": launches, "referee": {"probe": referee_launches}}
+    by_path = {"flat": launches, "referee": referee_launches}
     by_path.update({f"best_{mode}": l for mode, (_cs, l, _m) in runs.items()})
-    path_launches = dict(launches, probe=referee_launches)
+    path_launches = dict(launches, **referee_launches)
     timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
              "bound_ms", "bound_by")
     print(json.dumps({"kernels": [

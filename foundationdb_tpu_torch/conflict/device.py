@@ -28,12 +28,14 @@ Per batch (`resolve_core_inc`, or `resolve_core_inc_lsm`):
            (history; from a table built per batch out of vs, or from the
            LSM layout's table cached between compactions), the run probe
            (kernel K1, fused with history), then the intra-batch fixpoint
-           (`phase_intra`, kernel K2 in every iteration);
+           (`phase_intra`: kernel K2 runs every iteration of it in one
+           launch);
   append   `inc_append`: the committed writes' canonical union becomes the
            next run.
 Every K batches `_compact_runs` folds the runs into main: each run becomes
-a step function (kernel K4), and the scatter fold max-composes it into
-main from cross ranks (kernel K3); bidx and tab are rebuilt there only.
+a step function (kernel K4, one launch for all runs), and the scatter
+fold max-composes each into main from cross ranks (kernel K3); bidx and
+tab are rebuilt there only.
 `remove_before` rebases versions (and clamps tab: the clamp commutes with
 range-max).
 
@@ -50,10 +52,12 @@ All-integer and deterministic: on the CPU (`device="cpu"`) the kernels'
 plain torch versions run, and verdicts and state are bit-identical to the
 reference package's DeviceConflictSet batch by batch.  JAX's `mode="drop"`
 scatters become writes into one spare slot past the end that is then
-sliced off; `.at[].min` becomes `scatter_reduce_(..., "amin")`, `.at[].add`
-`index_add_`, and `lax.while_loop` a Python loop (one host sync per
-fixpoint iteration, counted in `host_syncs` with every other read of a
-device value on the host).
+sliced off; `.at[].min` becomes `scatter_reduce_(..., "amin")` and `.at[].add`
+`index_add_`.  The fixpoint's `lax.while_loop` stays on the device: on the
+card K2 runs the whole loop in one launch and hands back its iteration
+count as a device tensor, which the set sums on the device
+(`fixpoint_iterations()` reads the sum); on the CPU it is a Python loop.
+`host_syncs` counts every read of a device value on the host.
 """
 
 from __future__ import annotations
@@ -69,13 +73,7 @@ import torch
 
 from .. import keys as keymod
 from ..keys import SENT_LANE, to_lanes, from_lanes, with_last_lane_inc
-from ..ops.rmq import (
-    I32_MAX,
-    _levels,
-    build_sparse_table,
-    query_sparse_table,
-    range_update_point_query,
-)
+from ..ops.rmq import I32_MAX, _levels, build_sparse_table, query_sparse_table
 from ..ops.search import lex_less, lexsort
 from ..runtime.coverage import testcov
 from . import kernels
@@ -274,19 +272,6 @@ def _intra_setup(rb, re_, wb, we):
     return lr[:R], lr[R:2 * R], lr[2 * R:2 * R + Wn], lr[2 * R + Wn:]
 
 
-def _fixpoint(step, n_txn: int, device) -> tuple[torch.Tensor, int]:
-    """The reference's `lax.while_loop(changed & (it < B + 2))`: run `step`
-    until the intra bits stop changing.  Returns (intra, n_iters)."""
-    intra = torch.zeros(n_txn, dtype=torch.bool, device=device)
-    changed, it = True, 0
-    while changed and it < n_txn + 2:
-        new_intra = step(intra)
-        changed = bool(torch.any(new_intra != intra))
-        intra = new_intra
-        it += 1
-    return intra, it
-
-
 def phase_intra_dense(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
                       hist, n_txn: int):
     """Dense-referee intra fixpoint: the [R, Wn] overlap predicate
@@ -307,7 +292,7 @@ def phase_intra_dense(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
         tx_minw.scatter_reduce_(0, r_idx.long(), minw, "amin")
         return tx_minw < tx_iota
 
-    return _fixpoint(step, B, rb.device)
+    return kernels._fixpoint(step, B, rb.device)
 
 
 def phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
@@ -321,33 +306,14 @@ def phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
       case 2  wb_r <= rb_r < we_r: a block-decomposition stab, the min over
               write intervals containing rank rb_r;
 
-    both answered per read by kernel K2.  "txn t conflicts iff a strictly
-    earlier committed txn writes a range t reads" iterates to a fixpoint
-    with the reference's exact iteration count.  Returns (intra, n_iters)."""
-    B = n_txn
+    both per read.  "txn t conflicts iff a strictly earlier committed txn
+    writes a range t reads" iterates to a fixpoint with the reference's
+    exact iteration count: kernel K2 (`kernels.intra_fixpoint`) runs the
+    whole loop in one launch.  Returns (intra, n_iters int32[1]), the count
+    a device tensor."""
     rb_r, re_r, wb_r, we_r = _intra_setup(rb, re_, wb, we)
-    n = 2 * (rb.shape[0] + wb.shape[0])
-    tx_iota = _arange(B, rb)
-    w_span = wb_r < we_r  # non-empty in rank space
-    wb_idx = wb_r.long()
-
-    def step(intra):
-        committed = active & ~hist & ~intra
-        w_com = w_ok & committed[w_idx.long()]
-        w_cand = torch.where(w_com, w_tx, I32_MAX)
-        begs = torch.full((n,), I32_MAX, dtype=torch.int32, device=rb.device)
-        begs.scatter_reduce_(0, wb_idx, w_cand, "amin")
-        beg_tab = build_sparse_table(begs, torch.minimum, I32_MAX)
-        stab = range_update_point_query(
-            n, wb_r, we_r, w_cand, w_com & w_span, "min", I32_MAX
-        )
-        minw = kernels.intra_query(beg_tab, stab, rb_r, re_r)
-        minw = torch.where(r_ok, minw, I32_MAX)
-        tx_minw = torch.full((B,), I32_MAX, dtype=torch.int32, device=rb.device)
-        tx_minw.scatter_reduce_(0, r_idx.long(), minw, "amin")
-        return tx_minw < tx_iota
-
-    return _fixpoint(step, B, rb.device)
+    return kernels.intra_fixpoint(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx,
+                                  w_idx, w_tx, active, hist, n_txn)
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +327,8 @@ def inc_check(hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap,
     here out of the gap versions `hist_base`, or, `from_table`, from the
     LSM layout's cached table), the run probe fused with them (kernel K1),
     the intra-batch fixpoint.  Returns (verdict int32[B], w_ins bool[Wn],
-    fixpoint iterations) — w_ins marks the live writes of committed txns."""
+    fixpoint iterations int32[1]) — w_ins marks the live writes of
+    committed txns."""
     B = n_txn
     r_ok = r_tx >= 0
     r_idx = torch.clamp(r_tx, 0, B - 1).long()
@@ -447,7 +414,8 @@ def resolve_core_inc(ks, hist_base, bidx, count: int, runs_b, runs_e,
     only), committed writes append as run `slot`.  `hist_base` is main's
     gap versions, or its cached sparse table when `from_table`.  Returns
     (verdict int32[B], runs_b', runs_e', runs_ver', converged, fixpoint
-    iterations); converged is a device bool (None for the sort search)."""
+    iterations int32[1]); converged is a device bool (None for the sort
+    search)."""
     g_lo, g_hi, conv = inc_search(
         ks, bidx, count, rb, re_, r_tx,
         search_iters=search_iters, search_impl=search_impl,
@@ -891,6 +859,9 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self.stats.merge_impl = "scatter"
         self.search_fallbacks = 0  # bucketed searches replayed at full depth
         self.host_syncs = 0        # reads of a device value on the host
+        # the fixpoint iterations of every resolve, summed on the device
+        # (rebound, never updated in place)
+        self._intra_iters = torch.zeros(1, dtype=torch.int64, device=self.device)
         # the pipelined stream's validity: the AND of every sync=False
         # dispatch's search convergence since the last check
         self._dev_ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -1024,6 +995,11 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         """One tiny host<->device round trip through the live state."""
         return int(self._vs[:1].sum()) >= 0
 
+    def fixpoint_iterations(self) -> int:
+        """The intra fixpoint's iterations summed over every resolve so
+        far (a replayed batch counts again): one read on the host."""
+        return self._host_int(self._intra_iters)
+
     def _host_bool(self, t: torch.Tensor) -> bool:
         self.host_syncs += 1
         return bool(t)
@@ -1091,13 +1067,12 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         full depth, counted in `search_fallbacks`.
 
         sync=False: PIPELINED — dispatches and returns the verdicts as a
-        device tensor without reading anything on the host but the intra
-        fixpoint's per-iteration flag (and a compaction's fold counts, on
-        the batch that compacts).  The search's convergence folds into a
-        device flag; `check_pipelined()` reads it, and raises if a batch
-        since the last check did not converge: its verdicts are wrong and
-        the stream must be replayed through sync=True (resolve_deferred
-        does that itself)."""
+        device tensor without reading anything on the host (but a
+        compaction's fold counts, on the batch that compacts).  The
+        search's convergence folds into a device flag; `check_pipelined()`
+        reads it, and raises if a batch since the last check did not
+        converge: its verdicts are wrong and the stream must be replayed
+        through sync=True (resolve_deferred does that itself)."""
         if sync and self._inflight:
             # a deferred window is open: settle it first so the sync
             # result (and any fallback replay) sees the final state
@@ -1137,7 +1112,6 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 *batch, commit_off, n_txn=Bp, run_cap=self._run_cap,
                 search_iters=iters, search_impl=self._search_impl,
             )
-            self.host_syncs += n_iters  # one flag read per fixpoint iteration
             if not sync or conv is None or self._host_bool(conv):
                 break
             # a bucket deeper than 2**iters (shared-prefix keys): replay at
@@ -1147,6 +1121,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             testcov("kernel.search_fallback.inc")
             iters = _levels(self._cap) + 1
         self._runs_b, self._runs_e, self._runs_ver = nb, ne, nv
+        self._intra_iters = self._intra_iters + n_iters
         self._n_runs += 1
         self._run_rows_ub += 2 * Wn
         self._last_commit = commit_version
@@ -1196,14 +1171,15 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         t0 = time.perf_counter()
         before = self._count + self._run_rows_ub
         nc_i = self._count
-        for s in range(self._n_runs):
-            # the run as a step function (K4): its intervals at its version
-            rows, vals = kernels.run_to_step(
-                self._runs_b[s], self._runs_e[s], self._runs_ver[s]
-            )
+        n = self._n_runs
+        # every run as a step function (K4): its intervals at its version
+        rows, vals = kernels.run_to_step_runs(
+            self._runs_b[:n], self._runs_e[:n], self._runs_ver[:n]
+        )
+        for s in range(n):
             while True:
                 nk, nv, nc = compact_fold(
-                    self._ks, self._vs, rows, vals, cap=self._cap
+                    self._ks, self._vs, rows[s], vals[s], cap=self._cap
                 )
                 nc_i = self._host_int(nc)
                 if nc_i <= self._cap:

@@ -9,20 +9,27 @@ raises if the launch is refused.  There is no fallback from one to the
 other.  `launches` counts kernel launches per wrapper, so a run can show
 that its main path went through the kernels.
 
-  K1 probe_fused     <- _probe_fused_kernel  (pallas_kernel.py:189)
-  K2 intra_query     <- _intra_kernel        (pallas_kernel.py:353)
-  K3 compact_ranks   <- _rank_count_kernel   (pallas_kernel.py:474)
-  K4 run_to_step     <- _interleave_kernel   (pallas_kernel.py:416)
-  K5 run_conflicts   <- _probe_kernel        (pallas_kernel.py:165)
+  K1 probe_fused       <- _probe_fused_kernel  (pallas_kernel.py:189)
+  K2 intra_fixpoint    <- _intra_kernel        (pallas_kernel.py:353) and the
+                          lax.while_loop around it (device.py:394)
+     intra_query       <- _intra_kernel, one query (the fixpoint's referee)
+  K3 compact_ranks     <- _rank_count_kernel   (pallas_kernel.py:474)
+  K4 run_to_step_runs  <- _interleave_kernel   (pallas_kernel.py:416);
+     run_to_step          its one-run case
+  K5 run_conflicts     <- _probe_kernel        (pallas_kernel.py:165)
 
-K5 is K1 without the history input.  No system path calls it: like the
-reference's `run_conflicts`, it is K1's unfused referee, and its kernel
-keeps the thread-per-read design that K1's parallel-over-runs kernel
-replaced.  The source note of each kernel (bound on the card, what the
-design does about it) is at the top of csrc/conflict_kernels.cu.  K1's and
-K3's launch geometry comes from `plan_probe` and `plan_ranks`, pure
-functions of the shapes.  All five are integer functions: kernel and plain
-version agree exactly.
+K2 runs the whole intra-batch fixpoint in one cooperative launch and
+reads nothing on the host; `intra_query` keeps the per-iteration query
+kernel that the fixpoint replaced, which no system path calls: with
+`intra_fixpoint_plain(..., query=intra_query)` it is the fixpoint's
+referee on the card.  K5 is K1 without the history input.  No system path
+calls it either: like the reference's `run_conflicts`, it is K1's unfused
+referee, and its kernel keeps the thread-per-read design that K1's
+parallel-over-runs kernel replaced.  The source note of each kernel (bound
+on the card, what the design does about it) is at the top of
+csrc/conflict_kernels.cu.  K1's and K3's launch geometry comes from
+`plan_probe` and `plan_ranks`, pure functions of the shapes.  All are
+integer functions: kernel and plain version agree exactly.
 """
 
 from __future__ import annotations
@@ -34,7 +41,12 @@ from typing import NamedTuple
 import torch
 
 from ..keys import SENT_LANE, with_last_lane_inc
-from ..ops.rmq import I32_MAX, query_sparse_table
+from ..ops.rmq import (
+    I32_MAX,
+    build_sparse_table,
+    query_sparse_table,
+    range_update_point_query,
+)
 from ..ops.search import lex_less, lower_bound
 from . import _build
 
@@ -44,6 +56,7 @@ launches: dict[str, int] = {
     "compact_ranks": 0,
     "run_to_step": 0,
     "probe": 0,
+    "intra_fixpoint": 0,
 }
 
 
@@ -85,6 +98,55 @@ def intra_query_plain(beg_tab, stab, rb_r, re_r):
     return torch.minimum(case1, stab[torch.clamp(rb_r, 0, n - 1).long()])
 
 
+def _fixpoint(step, n_txn: int, device) -> tuple[torch.Tensor, int]:
+    """The reference's `lax.while_loop(changed & (it < B + 2))`: run `step`
+    until the intra bits stop changing, reading the flag on the host every
+    iteration.  Returns (intra, n_iters)."""
+    intra = torch.zeros(n_txn, dtype=torch.bool, device=device)
+    changed, it = True, 0
+    while changed and it < n_txn + 2:
+        new_intra = step(intra)
+        changed = bool(torch.any(new_intra != intra))
+        intra = new_intra
+        it += 1
+    return intra, it
+
+
+def intra_fixpoint_plain(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx, w_idx,
+                         w_tx, active, hist, n_txn: int, *,
+                         query=intra_query_plain):
+    """The rank-space intra-batch fixpoint, one torch step a host loop
+    iteration: per iteration the committed writers' begins scatter into a
+    min-sparse-table (case 1), their spans into a range-update point-query
+    array (case 2), `query` answers each read's min over both (K2's
+    function; `intra_query` puts the K2 kernel in the loop), and a txn is
+    intra-conflicted iff one of its reads' min is an earlier txn.  Returns
+    (intra bool[n_txn], n_iters int32[1]), the count a device tensor."""
+    B = n_txn
+    n = 2 * (rb_r.shape[0] + wb_r.shape[0])
+    tx_iota = torch.arange(B, dtype=torch.int32, device=rb_r.device)
+    w_span = wb_r < we_r  # non-empty in rank space
+    wb_idx = wb_r.long()
+
+    def step(intra):
+        committed = active & ~hist & ~intra
+        w_com = w_ok & committed[w_idx.long()]
+        w_cand = torch.where(w_com, w_tx, I32_MAX)
+        begs = torch.full((n,), I32_MAX, dtype=torch.int32, device=rb_r.device)
+        begs.scatter_reduce_(0, wb_idx, w_cand, "amin")
+        beg_tab = build_sparse_table(begs, torch.minimum, I32_MAX)
+        stab = range_update_point_query(
+            n, wb_r, we_r, w_cand, w_com & w_span, "min", I32_MAX
+        )
+        minw = torch.where(r_ok, query(beg_tab, stab, rb_r, re_r), I32_MAX)
+        tx_minw = torch.full((B,), I32_MAX, dtype=torch.int32, device=rb_r.device)
+        tx_minw.scatter_reduce_(0, r_idx.long(), minw, "amin")
+        return tx_minw < tx_iota
+
+    intra, it = _fixpoint(step, B, rb_r.device)
+    return intra, torch.tensor([it], dtype=torch.int32, device=rb_r.device)
+
+
 def compact_ranks_plain(ks, rec_ks):
     """int32[n_rec] = #ks rows lexicographically <= rec_ks[j] (lower bound
     of the row with its length lane + 1; sentinel rows wrap)."""
@@ -99,6 +161,13 @@ def run_to_step_plain(u_b, u_e, ver):
     v = torch.where(u_b[:, -1] != SENT_LANE, ver.reshape(()), 0)
     vals = torch.stack([v, torch.zeros_like(v)], dim=1).reshape(2 * rcap)
     return rows, vals.to(torch.int32)
+
+
+def run_to_step_runs_plain(runs_b, runs_e, runs_ver):
+    """run_to_step_plain over every run, stacked: rows int32[K, 2*rcap, W],
+    vals int32[K, 2*rcap]."""
+    steps = [run_to_step_plain(b, e, v) for b, e, v in zip(runs_b, runs_e, runs_ver)]
+    return torch.stack([s[0] for s in steps]), torch.stack([s[1] for s in steps])
 
 
 # ---------------------------------------------------------------------------
@@ -214,7 +283,7 @@ def _launch(entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{entry} launch failed: cuda error {err} ({msg})")
 
 
-_I32, _BOOL = torch.int32, torch.bool
+_I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 
 
 # ---------------------------------------------------------------------------
@@ -320,23 +389,76 @@ def compact_ranks(ks, rec_ks):
     return out
 
 
-def run_to_step(u_b, u_e, ver):
-    """K4: one run as a step function.  u_b, u_e: int32[rcap, W]; ver: a
-    one-element int32 tensor (read on the device, no host sync).  Returns
-    (rows int32[2*rcap, W], vals int32[2*rcap])."""
-    if _is_cpu(u_b):
-        return run_to_step_plain(u_b, u_e, ver)
-    rcap, W = u_b.shape
-    dev = u_b.device
+def intra_fixpoint(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx, w_idx, w_tx,
+                   active, hist, n_txn: int):
+    """K2: the whole intra-batch fixpoint in one cooperative launch, the
+    contract of intra_fixpoint_plain.  rb_r, re_r: int32[R]; wb_r, we_r,
+    w_tx: int32[Wn]; r_ok: bool[R]; w_ok: bool[Wn]; r_idx: int64[R];
+    w_idx: int64[Wn]; active, hist: bool[n_txn].  Returns (intra
+    bool[n_txn], n_iters int32[1]), both on the device: nothing is read on
+    the host.  Its domain is what _intra_setup and inc_check give: ranks in
+    [0, n) with n = 2 * (R + Wn), r_idx and w_idx in [0, n_txn).  It is not
+    checked here (that would read on the host); the kernel clamps each
+    index into its buffer, so an input outside the domain gives a wrong
+    answer, never a stray write.  Raises if the card refuses the
+    cooperative launch."""
+    if _is_cpu(rb_r):
+        return intra_fixpoint_plain(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx,
+                                    w_idx, w_tx, active, hist, n_txn)
+    R, Wn, B = rb_r.shape[0], wb_r.shape[0], n_txn
+    dev = rb_r.device
     ptrs = [
-        _check("u_b", u_b, _I32, (rcap, W), dev),
-        _check("u_e", u_e, _I32, (rcap, W), dev),
-        _check("ver", ver.reshape(1), _I32, (1,), dev),
+        _check("rb_r", rb_r, _I32, (R,), dev),
+        _check("re_r", re_r, _I32, (R,), dev),
+        _check("wb_r", wb_r, _I32, (Wn,), dev),
+        _check("we_r", we_r, _I32, (Wn,), dev),
+        _check("r_ok", r_ok, _BOOL, (R,), dev),
+        _check("w_ok", w_ok, _BOOL, (Wn,), dev),
+        _check("r_idx", r_idx, _I64, (R,), dev),
+        _check("w_idx", w_idx, _I64, (Wn,), dev),
+        _check("w_tx", w_tx, _I32, (Wn,), dev),
+        _check("active", active, _BOOL, (B,), dev),
+        _check("hist", hist, _BOOL, (B,), dev),
     ]
-    rows = torch.empty((2 * rcap, W), dtype=_I32, device=dev)
-    vals = torch.empty(2 * rcap, dtype=_I32, device=dev)
-    if rcap:
+    n = 2 * (R + Wn)
+    leaves = 1 << max(n - 1, 0).bit_length()  # a power of two >= max(n, 1)
+    intra = torch.empty(B, dtype=_BOOL, device=dev)
+    n_iters = torch.empty(1, dtype=_I32, device=dev)
+    # two min trees over the ranks, the intra bits and the hit flags as
+    # int32, and the two parity slots of the changed flag
+    scratch = torch.empty(4 * leaves + 2 * B + 2, dtype=_I32, device=dev)
+    _launch("fdb_intra_fixpoint", dev, *ptrs, intra.data_ptr(),
+            n_iters.data_ptr(), scratch.data_ptr(), R, Wn, B, n, leaves)
+    launches["intra_fixpoint"] += 1
+    return intra, n_iters
+
+
+def run_to_step_runs(runs_b, runs_e, runs_ver):
+    """K4: every run as a step function, in one launch.  runs_b, runs_e:
+    int32[K, rcap, W]; runs_ver: int32[K] (read on the device, no host
+    sync).  Returns (rows int32[K, 2*rcap, W], vals int32[K, 2*rcap])."""
+    if _is_cpu(runs_b):
+        return run_to_step_runs_plain(runs_b, runs_e, runs_ver)
+    K, rcap, W = runs_b.shape
+    dev = runs_b.device
+    ptrs = [
+        _check("runs_b", runs_b, _I32, (K, rcap, W), dev),
+        _check("runs_e", runs_e, _I32, (K, rcap, W), dev),
+        _check("runs_ver", runs_ver, _I32, (K,), dev),
+    ]
+    rows = torch.empty((K, 2 * rcap, W), dtype=_I32, device=dev)
+    vals = torch.empty((K, 2 * rcap), dtype=_I32, device=dev)
+    if K * rcap:
         _launch("fdb_run_to_step", dev, *ptrs, rows.data_ptr(),
-                vals.data_ptr(), rcap, W)
+                vals.data_ptr(), K, rcap, W)
         launches["run_to_step"] += 1
     return rows, vals
+
+
+def run_to_step(u_b, u_e, ver):
+    """K4's one-run case.  u_b, u_e: int32[rcap, W]; ver: a one-element
+    int32 tensor.  Returns (rows int32[2*rcap, W], vals int32[2*rcap])."""
+    if _is_cpu(u_b):
+        return run_to_step_plain(u_b, u_e, ver)
+    rows, vals = run_to_step_runs(u_b[None], u_e[None], ver.reshape(1))
+    return rows[0], vals[0]

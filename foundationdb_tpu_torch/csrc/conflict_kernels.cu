@@ -63,14 +63,61 @@
 //    Bound: as K1's (bytes in principle, dependent-load latency in
 //    practice), less the R bytes of the history bits it does not read.
 //
-// K2 fdb_intra_query  replaces _intra_kernel (pallas_kernel.py:353, built by
-//    _build_intra :376, wrapper intra_query :395).  One thread per read:
-//    k = 31 - clz(len), two clamped lookups into the min-sparse-table
-//    (empty rank range -> INT32_MAX) and one into the stab array.
-//    Bound: bytes — one random 4-byte gather per read (two more when its
-//    rank range is not empty) and three coalesced 4-byte streams; the
-//    fixpoint has just built the table ([17, 49152] ints, 3.3 MB), so it
-//    is in L2.
+// K2 fdb_intra_fixpoint  replaces _intra_kernel (pallas_kernel.py:353, built
+//    by _build_intra :376, wrapper intra_query :395) together with the
+//    lax.while_loop around it (foundationdb_tpu/conflict/device.py:394):
+//    the whole intra-batch fixpoint of phase_intra in ONE cooperative
+//    launch.  Per iteration, with intra the bits so far: a write of a txn
+//    t that is active, not history-conflicted and not intra-conflicted
+//    offers w_cand = w_tx; read r's minimum is the least offer of a write
+//    that begins strictly inside its rank range (rb_r, re_r) (case 1) or
+//    covers its begin rank, wb_r <= rb_r < we_r (case 2); txn t becomes
+//    intra-conflicted iff one of its live reads' minimum is below t.  The
+//    loop stops on the first iteration that changes no bit, or at
+//    n_txn + 2 iterations, as the reference's does; the kernel writes the
+//    bits and the count.
+//    Bound: bytes — every input read once (at the stream's shapes R =
+//    16384 reads and Wn = 8192 writes of 17-21 bytes, 8192 txns: ~0.45 MB,
+//    a fraction of a microsecond); the operations are a few per element an
+//    iteration.  What sets its time in practice is the three grid-wide
+//    barriers an iteration (plus one before the first) and the atomics.
+//    Design: a min is the same whatever structure computes it, so the
+//    plain version's 17-level sparse table and 17-level down-sweep (each
+//    level a barrier here) become two min segment trees over the ranks,
+//    2 * 2^ceil(log2 n) ints each (512 KB at n = 49152, L2-resident).
+//    Phase A, per committed write: atomicMin its offer into tree 1 at leaf
+//    wb_r and up the ancestors, stopping at the first node that already
+//    held a value <= the offer (whoever wrote that value carries it up
+//    the same path); where wb_r < we_r, atomicMin into the canonical nodes
+//    of [wb_r, we_r) in tree 2.  Phase B, per live read: tree 1's range
+//    min over [rb_r + 1, re_r) and tree 2's min along leaf rb_r's path to
+//    the root; a minimum below the read's txn sets that txn's hit flag (a
+//    plain store of 1: the flags need no minimum, only whether one is
+//    below t).  Phase C, per txn: the new bit is the hit flag; a change
+//    sets this iteration's changed slot; the hit flags and both trees are
+//    reset for the next iteration.  After the third barrier every block
+//    reads the same slot and the same count and takes the same decision
+//    (a block that left the loop alone would deadlock the grid).  The
+//    slots alternate by iteration parity; the next one is cleared in
+//    phase B, after every block has read it for the iteration before.
+//    State that other blocks write inside the launch is read with
+//    __ldcg (L2, never a stale L1 line).  Grid: the least of the blocks
+//    the largest phase needs and what is resident at once
+//    (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs), launched
+//    with cudaLaunchCooperativeKernel, which refuses a grid that cannot
+//    be resident (the wrapper then raises); the kernel is right for any
+//    grid of at least one block.  grid.sync() needs no -rdc=true since
+//    CUDA 11.
+//
+// fdb_intra_query: the per-iteration query that K2 ran before, kept as
+//    the fixpoint's referee (intra_fixpoint_plain with query=intra_query:
+//    the same loop on the host) and as its same-card "before".  One thread
+//    per read: k = 31 - clz(len), two clamped lookups into the
+//    min-sparse-table (empty rank range -> INT32_MAX) and one into the
+//    stab array.  Bound: bytes — one random 4-byte gather per read (two
+//    more when its rank range is not empty) and three coalesced 4-byte
+//    streams; the loop has just built the table ([17, 49152] ints, 3.3
+//    MB), so it is in L2.
 //
 // K3 fdb_compact_ranks  replaces _rank_count_kernel (pallas_kernel.py:474,
 //    built by _build_rank_count :490, wrapper compact_ranks :509).
@@ -100,21 +147,27 @@
 //    no other load of main.
 
 // K4 fdb_run_to_step  replaces _interleave_kernel (pallas_kernel.py:416,
-//    built by _build_interleave :428, wrapper run_to_step_pallas :453).  One
-//    thread per output lane: rows[2i] = begins[i], rows[2i+1] = ends[i];
-//    the thread of lane 0 also writes vals (the run's version on a live
-//    begin, 0 on a sentinel begin and on every end).  Bound: bytes, a pure
-//    copy (2 * run_cap * W * 4 B read, as much again written, plus vals);
-//    neighbouring threads touch neighbouring addresses, so both sides
+//    built by _build_interleave :428, wrapper run_to_step_pallas :453), for
+//    all K runs of a compaction in one launch (a compaction used to launch
+//    it once a run: eight launches of ~2 us of copying, each behind a
+//    ~35 us host call).  One thread per (run, row pair) in a grid-stride
+//    loop: rows[k][2i] = begins[k][i], rows[k][2i+1] = ends[k][i], vals the
+//    run's version on a live begin (0 on a sentinel begin and on every
+//    end).  Bound: bytes, a pure copy (2 * K * run_cap * W * 4 B read, as
+//    much again written, plus vals: ~11.5 MB for 8 runs of 16384 rows at
+//    W = 5); neighbouring threads copy neighbouring rows, so both sides
 //    coalesce.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 
 namespace {
 
-constexpr int kThreads = 256;  // K2, K4, K5
+constexpr int kThreads = 256;  // intra_query, K4, K5
+constexpr int kFixThreads = 512;  // K2's block
 constexpr int kProbeMaxThreads = 1024;
 constexpr int kRanksThreads = 128;  // K3's block: a compile-time divisor
 constexpr unsigned kFull = 0xFFFFFFFFu;
@@ -487,21 +540,137 @@ __global__ void __launch_bounds__(kRanksThreads)
   }
 }
 
-__global__ void run_to_step_kernel(const int* __restrict__ u_b,
-                                   const int* __restrict__ u_e,
+__device__ __forceinline__ int clamp_to(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+__device__ __forceinline__ int clamp_idx(long long x, int hi) {
+  return static_cast<int>(min(max(x, 0LL), static_cast<long long>(hi)));
+}
+
+// K2: the whole fixpoint; scratch = [2 * leaves] tree 1 (writer begins),
+// [2 * leaves] tree 2 (writer spans), [B] intra bits, [B] hit flags, [2]
+// changed slots, every int written by the kernel before it is read
+__global__ void __launch_bounds__(kFixThreads)
+    intra_fixpoint_kernel(const int* __restrict__ rb_r,
+                          const int* __restrict__ re_r,
+                          const int* __restrict__ wb_r,
+                          const int* __restrict__ we_r,
+                          const bool* __restrict__ r_ok,
+                          const bool* __restrict__ w_ok,
+                          const long long* __restrict__ r_idx,
+                          const long long* __restrict__ w_idx,
+                          const int* __restrict__ w_tx,
+                          const bool* __restrict__ active,
+                          const bool* __restrict__ hist,
+                          bool* __restrict__ out, int* __restrict__ n_iters,
+                          int* scratch, int R, int Wn, int B, int n,
+                          int leaves) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  int* begins = scratch;
+  int* covers = begins + 2 * static_cast<size_t>(leaves);
+  int* intra = covers + 2 * static_cast<size_t>(leaves);
+  int* hit = intra + B;
+  int* changed = hit + B;
+  const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int last_rank = max(n - 1, 0);
+  const int last_txn = max(B - 1, 0);
+  for (int k = first; k < 2 * leaves; k += stride) {
+    begins[k] = kI32Max;
+    covers[k] = kI32Max;
+  }
+  for (int t = first; t < B; t += stride) {
+    intra[t] = 0;
+    hit[t] = 0;
+    out[t] = false;
+  }
+  if (first == 0) changed[0] = 0;
+  grid.sync();
+
+  int it = 0;
+  for (;;) {
+    // A: every committed write offers its txn index to both trees
+    for (int j = first; j < Wn; j += stride) {
+      if (!w_ok[j]) continue;
+      const int t = clamp_idx(w_idx[j], last_txn);
+      if (!active[t] || hist[t] || __ldcg(intra + t)) continue;
+      const int v = w_tx[j];
+      const int wb = clamp_to(wb_r[j], 0, last_rank);
+      const int we = clamp_to(we_r[j], 0, n);
+      for (int node = leaves + wb; node >= 1; node >>= 1) {
+        if (atomicMin(begins + node, v) <= v) break;
+      }
+      for (int lo = leaves + wb, hi = leaves + we; lo < hi; lo >>= 1, hi >>= 1) {
+        if (lo & 1) atomicMin(covers + lo++, v);
+        if (hi & 1) atomicMin(covers + --hi, v);
+      }
+    }
+    grid.sync();
+
+    // B: each live read's minimum, against its own txn
+    if (first == 0) changed[(it + 1) & 1] = 0;
+    for (int i = first; i < R; i += stride) {
+      if (!r_ok[i]) continue;
+      const int t = clamp_idx(r_idx[i], last_txn);
+      const int rb = clamp_to(rb_r[i], 0, last_rank);
+      int m = kI32Max;
+      for (int lo = leaves + rb + 1, hi = leaves + clamp_to(re_r[i], 0, n); lo < hi;
+           lo >>= 1, hi >>= 1) {
+        if (lo & 1) m = min(m, __ldcg(begins + lo++));
+        if (hi & 1) m = min(m, __ldcg(begins + --hi));
+      }
+#pragma unroll 4
+      for (int node = leaves + rb; node >= 1; node >>= 1) {
+        m = min(m, __ldcg(covers + node));
+      }
+      if (m < t) hit[t] = 1;
+    }
+    grid.sync();
+
+    // C: the new bits; clear the flags and the trees for the next round
+    for (int t = first; t < B; t += stride) {
+      const int now = __ldcg(hit + t);
+      if (now != __ldcg(intra + t)) {
+        changed[it & 1] = 1;
+        intra[t] = now;
+        out[t] = now != 0;
+      }
+      hit[t] = 0;
+    }
+    for (int k = first; k < 2 * leaves; k += stride) {
+      begins[k] = kI32Max;
+      covers[k] = kI32Max;
+    }
+    grid.sync();
+    ++it;
+    if (!__ldcg(changed + ((it - 1) & 1)) || it >= B + 2) break;
+  }
+  if (first == 0) *n_iters = it;
+}
+
+// K4: one thread per (run, row pair); pair p = k * rcap + i writes rows
+// 2p and 2p + 1 of the [K * 2 rcap, W] output
+__global__ void run_to_step_kernel(const int* __restrict__ runs_b,
+                                   const int* __restrict__ runs_e,
                                    const int* __restrict__ ver,
                                    int* __restrict__ rows,
-                                   int* __restrict__ vals, int rcap, int W) {
-  const size_t t = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const size_t total = static_cast<size_t>(2) * rcap * W;
-  if (t >= total) return;
-  const size_t r = t / W;
-  const int w = static_cast<int>(t - r * W);
-  const size_t i = r >> 1;
-  const bool is_end = (r & 1) != 0;
-  rows[t] = (is_end ? u_e : u_b)[i * W + w];
-  if (w == 0) {
-    vals[r] = (!is_end && u_b[i * W + W - 1] != kSentLane) ? ver[0] : 0;
+                                   int* __restrict__ vals, int K, int rcap,
+                                   int W) {
+  const size_t pairs = static_cast<size_t>(K) * rcap;
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       p < pairs; p += stride) {
+    const int* b = runs_b + p * W;
+    const int* e = runs_e + p * W;
+    int* out = rows + 2 * p * W;
+    for (int w = 0; w < W; ++w) {
+      out[w] = b[w];
+      out[W + w] = e[w];
+    }
+    vals[2 * p] = b[W - 1] != kSentLane ? ver[p / rcap] : 0;
+    vals[2 * p + 1] = 0;
   }
 }
 
@@ -584,13 +753,71 @@ int fdb_compact_ranks(const void* ks, const void* rec, void* out, int cap,
   return static_cast<int>(cudaGetLastError());
 }
 
-int fdb_run_to_step(const void* u_b, const void* u_e, const void* ver,
-                    void* rows, void* vals, int rcap, int W, void* stream) {
-  run_to_step_kernel<<<blocks_for(static_cast<size_t>(2) * rcap * W), kThreads,
-                       0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(u_b), static_cast<const int*>(u_e),
+int fdb_intra_fixpoint(const void* rb_r, const void* re_r, const void* wb_r,
+                       const void* we_r, const void* r_ok, const void* w_ok,
+                       const void* r_idx, const void* w_idx, const void* w_tx,
+                       const void* active, const void* hist, void* out,
+                       void* n_iters, void* scratch, int R, int Wn, int B,
+                       int n, int leaves, void* stream) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  int sms = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, intra_fixpoint_kernel, kFixThreads, 0);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  // every block resident at once: no more than the card holds, and no
+  // more than the largest phase has items for (fewer blocks, cheaper
+  // barriers)
+  const int work = std::max(std::max(R, Wn), std::max(B, 2 * leaves));
+  const int grid =
+      std::min(per_sm * sms, static_cast<int>(blocks_for(work, kFixThreads)));
+  if (grid < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int* a_rb = static_cast<const int*>(rb_r);
+  const int* a_re = static_cast<const int*>(re_r);
+  const int* a_wb = static_cast<const int*>(wb_r);
+  const int* a_we = static_cast<const int*>(we_r);
+  const bool* a_rok = static_cast<const bool*>(r_ok);
+  const bool* a_wok = static_cast<const bool*>(w_ok);
+  const long long* a_ridx = static_cast<const long long*>(r_idx);
+  const long long* a_widx = static_cast<const long long*>(w_idx);
+  const int* a_wtx = static_cast<const int*>(w_tx);
+  const bool* a_active = static_cast<const bool*>(active);
+  const bool* a_hist = static_cast<const bool*>(hist);
+  bool* a_out = static_cast<bool*>(out);
+  int* a_iters = static_cast<int*>(n_iters);
+  int* a_scratch = static_cast<int*>(scratch);
+  void* args[] = {&a_rb,   &a_re,  &a_wb,    &a_we,      &a_rok,
+                  &a_wok,  &a_ridx, &a_widx, &a_wtx,     &a_active,
+                  &a_hist, &a_out, &a_iters, &a_scratch, &R,
+                  &Wn,     &B,     &n,       &leaves};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(intra_fixpoint_kernel),
+                                    dim3(grid), dim3(kFixThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fdb_run_to_step(const void* runs_b, const void* runs_e, const void* ver,
+                    void* rows, void* vals, int K, int rcap, int W,
+                    void* stream) {
+  const size_t pairs = static_cast<size_t>(K) * rcap;
+  run_to_step_kernel<<<std::min(blocks_for(pairs), 65535u), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(runs_b), static_cast<const int*>(runs_e),
       static_cast<const int*>(ver), static_cast<int*>(rows),
-      static_cast<int*>(vals), rcap, W);
+      static_cast<int*>(vals), K, rcap, W);
   return static_cast<int>(cudaGetLastError());
 }
 

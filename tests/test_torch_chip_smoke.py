@@ -10,6 +10,7 @@ import torch
 
 import chip_smoke
 from foundationdb_tpu_torch import keys
+from foundationdb_tpu_torch.conflict import device as tdev
 from foundationdb_tpu_torch.conflict import kernels
 from foundationdb_tpu_torch.ops import rmq
 from foundationdb_tpu_torch.ops.search import lower_bound
@@ -155,3 +156,32 @@ def test_compact_ranks_work_replays_the_kernel(seed):
     n_bytes, n_ops, out = chip_smoke.compact_ranks_work(torch, keys, ks, rec)
     assert torch.equal(out, kernels.compact_ranks_plain(ks, rec))
     assert n_bytes < ks.numel() * 4 + rec.numel() * 4 + rec.shape[0] * 4 and n_ops > 0
+
+
+def test_chain_inputs_and_intra_fixpoint_work():
+    """Phase 3's chain batch settles one txn an iteration (every other txn
+    conflicts), and K2's work counts each input once, the bits and the
+    count written once, one operation a read, write and txn an
+    iteration."""
+    pool, succ = chip_smoke.key_pool(np.random.default_rng(0), 256)
+    B = 64
+    fx = chip_smoke.chain_inputs(torch, keys, tdev, torch.device("cpu"), pool, succ, B)
+    intra, n_iters = kernels.intra_fixpoint(*fx)
+    assert int(n_iters) == B and int(intra.sum()) == B // 2
+    n_bytes, n_ops, replay = chip_smoke.intra_fixpoint_work(fx, int(n_iters))
+    R = Wn = B  # one read and one write a txn
+    assert n_bytes == 17 * R + 21 * Wn + 3 * B + 4 and replay is None
+    assert n_ops == B * (R + Wn + B)
+
+
+def test_run_to_step_work_is_the_copy():
+    """K4's bytes are exactly its inputs and outputs, once each."""
+    rng = np.random.default_rng(1)
+    runs = [_run(rng, 16, n) for n in (5, 0, 8)]
+    args = (keys.to_lanes(np.stack([r[0] for r in runs])),
+            keys.to_lanes(np.stack([r[1] for r in runs])),
+            torch.tensor([3, 0, 5], dtype=torch.int32))
+    rows, vals = kernels.run_to_step_runs(*args)
+    n_bytes, n_ops, _ = chip_smoke.run_to_step_work(*args[0].shape)
+    assert n_bytes == sum(t.numel() * t.element_size() for t in (*args, rows, vals))
+    assert n_ops == 0

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, each held against its plain torch
-version on the same CUDA tensors (exact: all five are integer functions),
+version on the same CUDA tensors (exact: all are integer functions),
 and the port's sets on "cuda" (the flat layout, and the best-known layout
 synchronous and pipelined) against the same sets on "cpu".
 
@@ -211,6 +211,108 @@ def test_k3_compact_ranks_matches_plain(cuda, case):
     assert _same(got, kernels.compact_ranks_plain(ks, rec))
 
 
+def _fixpoint_keys(xs):
+    return keys.encode_keys([int(x).to_bytes(4, "big") for x in xs], 16)
+
+
+def _fixpoint_case(rng, dev, case):
+    """K2's arguments, as phase_intra hands them over: the ranks of seeded
+    key rows (_intra_setup), r_idx and w_idx int64."""
+    if case == "chain":  # txn t reads the key txn t - 1 writes
+        B = R = Wn = 1024
+        t = np.arange(B)
+        rb = np.where(t > 0, 10 * (t - 1), 10 * B + 5)
+        wb = 10 * t
+        rb, re_, wb, we = rb, rb + 1, wb, wb + 1
+        r_tx = w_tx = t.astype(np.int32)
+        active, hist = np.ones(B, bool), np.zeros(B, bool)
+    else:
+        B, R, Wn, width = {"random": (256, 512, 256, 1 << 7),
+                           "no_writes": (256, 512, 256, 1 << 7),
+                           "ragged": (300, 1000, 333, 1 << 7),
+                           "tiny": (2, 1, 1, 1),
+                           "stream": (8192, 16384, 8192, 1),
+                           "side_stream": (256, 512, 256, 1 << 7)}[case]
+        span = 1 << (20 if case == "stream" else 12)
+        rb, wb = rng.integers(0, span, R), rng.integers(0, span, Wn)
+        re_ = rb + rng.integers(1, width + 1, R)
+        we = wb + rng.integers(1, width + 1, Wn)
+        r_tx = rng.integers(-1 if case != "stream" else 0, B, R).astype(np.int32)
+        w_tx = rng.integers(-1 if case != "stream" else 0, B, Wn).astype(np.int32)
+        if case == "no_writes":
+            w_tx[:] = -1
+        if case == "tiny":
+            rb[:], re_[:], wb[:], we[:], r_tx[:], w_tx[:] = 5, 9, 3, 7, 1, 0
+        active = rng.random(B) < (1.0 if case in ("stream", "tiny") else 0.9)
+        hist = (rng.random(B) < (0.0 if case == "tiny" else 0.1)) & active
+    rows = [keys.to_lanes(_fixpoint_keys(a), dev) for a in (rb, re_, wb, we)]
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    return (*tdev._intra_setup(*rows), t(r_tx >= 0), t(w_tx >= 0),
+            t(np.clip(r_tx, 0, B - 1).astype(np.int64)),
+            t(np.clip(w_tx, 0, B - 1).astype(np.int64)), t(w_tx), t(active),
+            t(hist), B)
+
+
+FIXPOINT_CASES = ["random", "chain", "no_writes", "ragged", "tiny", "stream",
+                  "side_stream"]
+
+
+@pytest.mark.parametrize("case", FIXPOINT_CASES)
+def test_k2_intra_fixpoint_matches_plain_and_the_query_loop(cuda, case):
+    """K2, the whole fixpoint in one cooperative launch, equals its plain
+    version and the host loop around the per-query kernel it replaced:
+    the same bits and the same iteration count, one launch; on a side
+    stream as on the default one."""
+    rng = np.random.default_rng(40 + FIXPOINT_CASES.index(case))
+    fx = _fixpoint_case(rng, cuda, case)
+    before = dict(kernels.launches)
+    if case == "side_stream":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)  # the launch waits behind it
+            got = kernels.intra_fixpoint(*fx)
+        torch.cuda.current_stream().wait_stream(side)
+    else:
+        got = kernels.intra_fixpoint(*fx)
+    assert kernels.launches["intra_fixpoint"] == before["intra_fixpoint"] + 1
+    want = kernels.intra_fixpoint_plain(*fx)
+    loop = kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)
+    n = int(want[1])
+    assert kernels.launches["intra_query"] == before["intra_query"] + n
+    for bits, count in (want, loop):
+        assert _same(got[0], bits) and int(got[1]) == int(count)
+    assert got[1].device.type == "cuda" and got[1].dtype == torch.int32
+    if case == "chain":
+        assert n >= 1000 and int(got[0].sum()) == 512
+    if case == "no_writes":
+        assert n == 1 and not got[0].any()
+    if case == "tiny":  # txn 1 reads what txn 0 writes
+        assert n == 2 and got[0].tolist() == [False, True]
+
+
+@pytest.mark.parametrize("W", [5, 9])
+@pytest.mark.parametrize("K", [1, 3, 8])
+def test_k4_run_to_step_runs_matches_plain(cuda, K, W):
+    """K4 over all runs in one launch, a dead (version 0) and an empty
+    (all-sentinel) run among them, equals its plain version."""
+    rng = np.random.default_rng(10 * K + W)
+    runs = [_run(rng, 512, W) for _ in range(K)]
+    runs_b = np.stack([r[0] for r in runs])
+    runs_e = np.stack([r[1] for r in runs])
+    if K > 1:
+        runs_b[1] = runs_e[1] = 0xFFFFFFFF
+    ver = rng.integers(1, 30, K).astype(np.int32)
+    ver[-1] = 0 if K > 2 else ver[-1]
+    args = (keys.to_lanes(runs_b, cuda), keys.to_lanes(runs_e, cuda),
+            torch.from_numpy(ver).to(cuda))
+    before = kernels.launches["run_to_step"]
+    rows, vals = kernels.run_to_step_runs(*args)
+    assert kernels.launches["run_to_step"] == before + 1
+    p_rows, p_vals = kernels.run_to_step_runs_plain(*args)
+    assert _same(rows, p_rows) and _same(vals, p_vals)
+
+
 def test_k4_run_to_step_matches_plain(cuda):
     rng = np.random.default_rng(4)
     b, e = _run(rng, 512)
@@ -231,6 +333,18 @@ def test_wrapper_rejects_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.compact_ranks(ks, torch.zeros((5, 8), dtype=torch.int32,
                                               device=cuda).t())  # not contiguous
+    fx = list(_fixpoint_case(np.random.default_rng(0), cuda, "random"))
+    bad = {6: fx[6].to(torch.int32),           # r_idx must be int64
+           0: fx[0][:-1],                       # rb_r shorter than r_ok
+           9: fx[9].repeat(2)[::2],             # active not contiguous
+           10: fx[10].cpu()}                    # hist on another device
+    for i, arg in bad.items():
+        with pytest.raises((TypeError, ValueError)):
+            kernels.intra_fixpoint(*fx[:i], arg, *fx[i + 1:])
+    runs = torch.zeros((3, 4, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.run_to_step_runs(runs, runs, torch.zeros(2, dtype=torch.int32,
+                                                         device=cuda))
 
 
 def test_set_on_cuda_matches_set_on_cpu(cuda):
@@ -263,9 +377,28 @@ def test_set_on_cuda_matches_set_on_cpu(cuda):
     a, b = on_gpu.export_state(), on_cpu.export_state()
     for k in a:
         assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
-    # K5 is off the set's path (K1's referee only)
-    assert all(kernels.launches[k] > 0 for k in kernels.launches if k != "probe"), \
-        kernels.launches
+    # K5 and the per-query intra kernel are off the set's path (referees)
+    assert all(kernels.launches[k] > 0 for k in kernels.launches
+               if k not in ("probe", "intra_query")), kernels.launches
+    assert kernels.launches["intra_query"] == kernels.launches["probe"] == 0
+
+
+def test_set_on_cuda_reads_no_fixpoint_flag(cuda):
+    """The fixpoint's iterations add no host sync: a flat set on the card
+    reads one value a synchronous batch (its verdicts) however long the
+    fixpoint runs, and its iteration total (one more read) equals the
+    same set's on the CPU."""
+    chain = [TxInfo(0, [(b"k%04d" % (t - 1), b"k%04d\x00" % (t - 1))] if t else [],
+                    [(b"k%04d" % t, b"k%04d\x00" % t)]) for t in range(300)]
+    sets = [tdev.DeviceConflictSet(run_slots=8, device=d) for d in ("cuda", "cpu")]
+    for s in sets:
+        for version in range(1, 6):  # no compaction: 5 of 8 run slots
+            s.resolve_batch(version, chain[: 60 * version])
+    on_gpu, on_cpu = sets
+    assert on_gpu.host_syncs == 5  # one a batch
+    iters = on_gpu.fixpoint_iterations()
+    assert iters == on_cpu.fixpoint_iterations() > 5 * 50
+    assert on_gpu.host_syncs == 6
 
 
 def _best_known_stream(seed, n_batches=14):
@@ -316,7 +449,7 @@ def test_best_known_pipelined_on_cuda_matches_cpu(cuda):
             deferred.remove_before(floor)
     assert handles[-1].wait() == wants[-1]
     assert all(kernels.launches[k] > 0 for k in
-               ("probe_fused", "intra_query", "compact_ranks", "run_to_step"))
+               ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step"))
 
     staged_set = tdev.DeviceConflictSet(**BEST_SMALL, device="cuda")
     floors = {}  # the MVCC floor each batch is packed against

@@ -265,6 +265,37 @@ def test_resolve_arrays_packed_path_and_kernel_stats():
     assert b.healthcheck()
 
 
+def test_fixpoint_iterations_cost_no_host_sync(monkeypatch):
+    """The fixpoint's iterations stay on the device: host_syncs counts one
+    read a synchronous batch (its verdicts) and none a pipelined one,
+    however many iterations ran; the set's total equals the sum of what
+    phase_intra returned for the same batches; reading it is one read."""
+    counts = []
+    phase_intra = tdev.phase_intra
+
+    def recording(*args):
+        intra, n_iters = phase_intra(*args)
+        counts.append(int(n_iters))
+        return intra, n_iters
+
+    monkeypatch.setattr(tdev, "phase_intra", recording)
+    s = tdev.DeviceConflictSet(run_slots=8, device="cpu")  # no compaction
+    chain = [TTxInfo(0, [(b"k%02d" % (t - 1), b"k%02d\x00" % (t - 1))] if t else [],
+                     [(b"k%02d" % t, b"k%02d\x00" % t)]) for t in range(12)]
+    s.resolve_batch(1, chain)
+    for version, txns, _floor in _stream(9, 3):
+        s.resolve_batch(version + 1, txns)
+    assert s.host_syncs == 4 and counts[0] >= 12
+    version += 1
+    for txns in (chain, chain[:5]):
+        version += 1
+        packed = tdev.pack_batch(txns, s.oldest_version, s._offset, 32)
+        s.resolve_arrays(version, *packed[:8], sync=False)
+    assert s.host_syncs == 4 and len(counts) == 6
+    assert s.fixpoint_iterations() == sum(counts)
+    assert s.host_syncs == 5
+
+
 def test_resolve_deferred_is_synchronous():
     s = tdev.DeviceConflictSet(**SMALL, device="cpu")
     t = TTxInfo(0, [(b"a", b"b")], [(b"a", b"b")])

@@ -1,6 +1,6 @@
-"""The plain torch versions of the port's five kernels (K1-K5 of
-foundationdb_tpu_torch/conflict/kernels.py), and the device phases around
-them, held against the reference's Pallas kernels in interpret mode and its
+"""The plain torch versions of the port's kernels (K1-K5 of
+foundationdb_tpu_torch/conflict/kernels.py, with K2's per-query referee and
+K4's one-run case), and the device phases around them, held against the reference's Pallas kernels in interpret mode and its
 XLA paths, on seeded numpy inputs with sentinel and TOO_OLD rows.  All
 integer: equality is exact.  Shapes stay tiny (interpret mode is slow)."""
 
@@ -34,9 +34,9 @@ def _intervals(rng, n, span=1 << 16, width=1 << 8, mkb=16):
     return enc(b), enc(e)
 
 
-def _run(rng, n_live, run_cap):
+def _run(rng, n_live, run_cap, mkb=16):
     """One run: sorted disjoint intervals, sentinel-padded to run_cap."""
-    wb, we = _intervals(rng, 2 * n_live)
+    wb, we = _intervals(rng, 2 * n_live, mkb=mkb)
     w_ins = rng.random(2 * n_live) < 0.7
     u_b, u_e = jdev._union_intervals(
         jnp.asarray(wb), jnp.asarray(we), jnp.asarray(w_ins), run_cap=run_cap
@@ -165,40 +165,130 @@ def test_k4_run_to_step_plain_matches_pallas_and_xla(ver):
         assert np.array_equal(np.asarray(want[1]), vals.numpy())
 
 
-@pytest.mark.parametrize("trial", range(4))
-def test_phase_intra_bits_and_iterations_match(trial):
-    """The port's rank-space fixpoint (K2 plain inside) equals the
-    reference's dense referee, its XLA path and its interpret-mode Pallas
-    path: the same bits AND the same iteration count."""
+@pytest.mark.parametrize("K", [1, 8])
+@pytest.mark.parametrize("mkb", [16, 32], ids=["W5", "W9"])
+def test_k4_run_to_step_runs_plain_matches_xla_run_by_run(K, mkb):
+    """K4 over all runs of a compaction equals the reference's run_to_step
+    run by run, a dead run (version 0) and an empty (all-sentinel) run
+    among them; the one-run wrapper is its K = 1 case."""
+    rng = np.random.default_rng(K + mkb)
+    runs = [_run(rng, n, 64, mkb=mkb) for n in (30, 0, 12, 25, 1, 31, 7, 20)[:K]]
+    runs_b = np.stack([r[0] for r in runs])
+    runs_e = np.stack([r[1] for r in runs])
+    runs_ver = np.array([9, 3, 0, 5, 1, 12, 4, 8][:K], dtype=np.int32)
+    rows, vals = kernels.run_to_step_runs(_t(runs_b), _t(runs_e), _t(runs_ver))
+    assert rows.shape == (K, 128, runs_b.shape[2]) and vals.shape == (K, 128)
+    for k in range(K):
+        want = jdev.run_to_step(jnp.asarray(runs_b[k]), jnp.asarray(runs_e[k]),
+                                jnp.int32(runs_ver[k]))
+        assert np.array_equal(np.asarray(want[0]), from_lanes(rows[k]))
+        assert np.array_equal(np.asarray(want[1]), vals[k].numpy())
+        one = kernels.run_to_step(_t(runs_b[k]), _t(runs_e[k]),
+                                  torch.tensor(runs_ver[k]))
+        assert torch.equal(one[0], rows[k]) and torch.equal(one[1], vals[k])
+
+
+def _keys(xs):
+    return jkeys.encode_keys([int(x).to_bytes(4, "big") for x in xs], 16)
+
+
+def _intra_host(rb, re_, wb, we, r_tx, w_tx, active, hist, B):
+    """phase_intra's arguments from key rows and txn ids, as inc_check
+    derives them (r_idx and w_idx int64, as inc_check gives them)."""
+    return (rb, re_, wb, we, r_tx >= 0, w_tx >= 0,
+            np.clip(r_tx, 0, B - 1).astype(np.int64),
+            np.clip(w_tx, 0, B - 1).astype(np.int64), w_tx, active, hist)
+
+
+def _intra_random(trial):
     rng = np.random.default_rng(3 + 100 * trial)
     B, R, Wn = 32, 64, 64
 
     def intervals(n):
         b = rng.integers(0, 1 << 20, n)
-        e = b + rng.integers(1, 1 << 10, n)
-        return (jkeys.encode_keys([int(x).to_bytes(4, "big") for x in b], 16),
-                jkeys.encode_keys([int(x).to_bytes(4, "big") for x in e], 16))
+        return _keys(b), _keys(b + rng.integers(1, 1 << 10, n))
 
     rb, re_ = intervals(R)
     wb, we = intervals(Wn)
     r_tx = rng.integers(-1, B, R).astype(np.int32)
     w_tx = rng.integers(-1, B, Wn).astype(np.int32)
-    host = (rb, re_, wb, we, r_tx >= 0, w_tx >= 0, np.clip(r_tx, 0, B - 1),
-            np.clip(w_tx, 0, B - 1), w_tx, rng.random(B) < 0.9,
-            rng.random(B) < 0.2)
+    return _intra_host(rb, re_, wb, we, r_tx, w_tx, rng.random(B) < 0.9,
+                       rng.random(B) < 0.2, B), B
+
+
+def _intra_chain(B, n_live):
+    """txn t writes key 10t and reads key 10(t-1), the key txn t-1 writes
+    (txn 0 reads a key nobody writes); txns n_live..B-1 are padding.  The
+    fixpoint settles about one txn of the chain an iteration."""
+    t = np.arange(n_live)
+    r = np.where(t > 0, 10 * (t - 1), 10 * n_live + 5)
+    tx = t.astype(np.int32)
+    return _intra_host(_keys(r), _keys(r + 1), _keys(10 * t), _keys(10 * t + 1),
+                       tx, tx, np.arange(B) < n_live, np.zeros(B, bool), B), B
+
+
+def _phase_intra_all(host, B):
+    """(bits, count) from the reference's dense referee, XLA path and
+    interpret-mode Pallas path, and from the port's phase_intra,
+    phase_intra_dense and kernels.intra_fixpoint."""
     jargs = tuple(map(jnp.asarray, host)) + (B,)
     targs = tuple(map(_t, host)) + (B,)
-    a_dense, n_dense = jdev.phase_intra_dense(*jargs)
-    a_rank, n_rank = jdev.phase_intra(*jargs)
-    a_int, n_int = jdev.phase_intra(*jargs, impl="interpret")
-    t_rank, tn_rank = tdev.phase_intra(*targs)
-    t_dense, tn_dense = tdev.phase_intra_dense(*targs)
-    for bits, n in ((a_rank, n_rank), (a_int, n_int)):
-        assert np.array_equal(np.asarray(a_dense), np.asarray(bits))
-        assert int(n_dense) == int(n)
-    assert np.array_equal(np.asarray(a_dense), t_rank.numpy())
-    assert np.array_equal(np.asarray(a_dense), t_dense.numpy())
-    assert int(n_dense) == tn_rank == tn_dense
+    ranks = tdev._intra_setup(*targs[:4])
+    out = {
+        "ref_dense": jdev.phase_intra_dense(*jargs),
+        "ref_xla": jdev.phase_intra(*jargs),
+        "ref_interpret": jdev.phase_intra(*jargs, impl="interpret"),
+        "phase_intra": tdev.phase_intra(*targs),
+        "phase_intra_dense": tdev.phase_intra_dense(*targs),
+        "intra_fixpoint": kernels.intra_fixpoint(*ranks, *targs[4:]),
+    }
+    return {k: (np.asarray(bits), int(np.asarray(n).reshape(-1)[0]))
+            for k, (bits, n) in out.items()}
+
+
+def _assert_intra_agree(host, B):
+    got = _phase_intra_all(host, B)
+    bits, n = got["ref_dense"]
+    for name, (b, k) in got.items():
+        assert np.array_equal(bits, b), name
+        assert k == n, (name, k, n)
+    return bits, n
+
+
+@pytest.mark.parametrize("trial", range(4))
+def test_phase_intra_bits_and_iterations_match(trial):
+    """The port's rank-space fixpoint (kernels.intra_fixpoint, plain on the
+    CPU) equals the reference's dense referee, its XLA path and its
+    interpret-mode Pallas path: the same bits AND the same iteration
+    count; the count is a device tensor on the CPU too."""
+    host, B = _intra_random(trial)
+    targs = tuple(map(_t, host)) + (B,)
+    _intra, n_iters = tdev.phase_intra(*targs)
+    assert n_iters.dtype == torch.int32 and n_iters.shape == (1,)
+    _assert_intra_agree(host, B)
+
+
+@pytest.mark.parametrize("case", ["chain", "chain_padded", "no_writes", "inactive"])
+def test_intra_fixpoint_edge_cases_match(case):
+    """A chain batch (a trajectory as long as the batch), the chain inside
+    a padded batch, no live write, and every txn inactive: the same bits
+    and count from the port as from the reference."""
+    if case.startswith("chain"):
+        host, B = _intra_chain(32, 32 if case == "chain" else 23)
+    else:
+        host, B = _intra_random(7)
+        rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active, hist = host
+        if case == "no_writes":
+            w_tx = np.full_like(w_tx, -1)
+            w_ok = w_tx >= 0
+        else:
+            active = np.zeros_like(active)
+        host = (rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active, hist)
+    bits, n = _assert_intra_agree(host, B)
+    if case.startswith("chain"):
+        assert n > 16 and bits.any()  # a long trajectory, and conflicts
+    else:
+        assert n == 1 and not bits.any()
 
 
 @pytest.mark.parametrize("seed", range(3))
