@@ -49,7 +49,27 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               verdicts equal the oracle's;
   8. oracle   a reduced stream (variable-length keys with shared prefixes,
               main capacity small enough to regrow) on "cuda" against the
-              port's OracleConflictSet: identical verdicts.
+              port's OracleConflictSet: identical verdicts;
+  9. supervised  the best-known set on "cuda" inside the port's
+              DeviceSupervisor, the port's native skip list as its CPU
+              fallback: (a) phase 4's stream through resolve_batch and
+              then resolve_deferred (one behind), in turns with the bare
+              best-known set (bare, supervised, supervised, bare), verdicts
+              equal phase 4's, healthy with 0 trips and 1 promotion, the
+              native set serving the first batch's parity check only, and
+              the supervised / bare checks/s; (b) the drill: the
+              port's buggify loses the device 3 times mid-stream, the
+              breaker trips once, the native set serves, force_promote()
+              rebuilds the set on the card from the committed-write record
+              and a parity batch re-promotes it (healthy, 1 trip, 2
+              promotions; the times to degrade and to re-promote printed);
+              (c) four batches with the wall watchdog on, and a
+              BatchStager batch resolved on the watchdog's worker thread;
+ 10. bench    the port's headline bench (foundationdb_tpu_torch/bench.py)
+              at its full shape in this process: its JSON line (abort-set
+              parity against the native set on the timed batches and on
+              the resolver e2e run's), then native and card checks/s,
+              vs_baseline, p50/p99 and the resolver e2e rate.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints the kernels' JSON line (`launches`: K1-K4 on phase 4's
@@ -1077,6 +1097,258 @@ def oracle_phase(fdb, batches):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the supervised set (DeviceSupervisor over the best-known set)
+
+
+class StepClock:
+    """The supervisor's clock in the drill: `step` seconds a batch, so the
+    retry backoff (0.05 s, then 0.1 s) elapses between batches and the
+    re-probe interval (5 s) does not before the drill promotes by hand."""
+
+    def __init__(self, step: float) -> None:
+        self.t, self.step = 0.0, step
+
+    def __call__(self) -> float:
+        return self.t
+
+    def tick(self) -> None:
+        self.t += self.step
+
+
+def supervised_set(fdb, natives: list, **kw):
+    """DeviceSupervisor over the best-known set on "cuda", the port's native
+    skip list as its CPU fallback; every native set it builds goes into
+    `natives`."""
+    def fallback(oldest=0):
+        natives.append(fdb["native"].NativeConflictSet(oldest))
+        return natives[-1]
+
+    return fdb["supervisor"].DeviceSupervisor(
+        lambda oldest=0: fdb["device"].DeviceConflictSet(
+            oldest, **SET_ARGS, **BEST_KNOWN, device="cuda"),
+        fallback_factory=fallback, **kw)
+
+
+def served(natives: list) -> int:
+    """Batches the native fallback sets resolved (record replays included)."""
+    return sum(n.stats.batches for n in natives)
+
+
+# bare and supervised in turns, so that drift over the call falls on both
+SUPERVISED_TURNS = ("bare", "supervised", "supervised", "bare")
+
+
+def supervised_phase(torch, fdb, batches, flat_verdicts, power):
+    """Phase 9 (a): the stream through the supervised set, synchronous and
+    then deferred (waited one behind), in SUPERVISED_TURNS with the bare
+    best-known set, each turn on a fresh set: verdicts equal phase 4's
+    batch by batch; every supervised turn healthy, 0 trips, 1 promotion,
+    0 s degraded, the native set resolving the first batch only (the
+    promotion's parity check) and every batch after it served from the
+    card.  Returns {path: launches} (each mode's first supervised turn)."""
+    kernels = fdb["kernels"]
+    checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
+    out = {}
+    for mode in ("sync", "deferred"):
+        rates = {"bare": [], "supervised": []}
+        for turn, kind in enumerate(SUPERVISED_TURNS, start=1):
+            natives: list = []
+            cs = (supervised_set(fdb, natives) if kind == "supervised" else
+                  fdb["device"].DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda"))
+            kernels.reset_launches()
+            got, walls = drive(torch, fdb, mode, cs, batches, 1)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            where = f"{kind} {mode} (turn {turn})"
+            for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
+                require(a == b, f"{where}: batch {i} differs from the flat run")
+            require(len(got) == len(batches), f"{where}: verdicts missing")
+            dev_set = cs
+            if kind == "supervised":
+                h = cs.health()
+                require(h["state"] == "healthy" and h["serving"] == "device"
+                        and h["trips"] == 0 and h["promotions"] == 1
+                        and h["time_degraded_s"] == 0 and h["consecutive_failures"] == 0,
+                        f"{where}: a degrade or a failure on the healthy run: {h}")
+                require(served(natives) == 1 and cs._cpu is None,
+                        f"{where}: the native set served {served(natives)} batches, "
+                        f"not only the first batch's parity check")
+                dev_set = cs._dev
+                out.setdefault("supervised" if mode == "sync" else f"supervised_{mode}",
+                               launches)
+            check_path_launches(launches, len(batches), dev_set.stats.compactions, where)
+            timed = walls[PREFILL_BATCHES:]
+            rates[kind].append(checks / (sum(timed) / 1e3))
+            log(f"{where}: {len(batches)} batches identical to the flat run"
+                + (f"; health {json.dumps(h)}; the native set served 1 batch (the "
+                   f"parity check)" if kind == "supervised" else "")
+                + f"; checks/s={rates[kind][-1]:.1f} timed-batch ms "
+                f"p50={float(np.percentile(timed, 50)):.3f} "
+                f"p99={float(np.percentile(timed, 99)):.3f} on {power}")
+            log(f"{where}: launches {json.dumps(launches)}")
+            cs.close()
+        bare, sup = (float(np.median(rates[k])) for k in ("bare", "supervised"))
+        log(f"supervised {mode}: checks/s supervised {[round(r, 1) for r in rates['supervised']]}"
+            f" bare {[round(r, 1) for r in rates['bare']]} (turns "
+            f"{' '.join(SUPERVISED_TURNS)}); supervised / bare medians = {sup / bare:.3f}")
+    return out
+
+
+DRILL_LOST_AT = 10     # device.lost forced 3 times from this batch on
+DRILL_PROMOTE_AT = 16  # force_promote() before this batch
+
+
+def drill_phase(torch, fdb, batches, flat_verdicts, power):
+    """Phase 9 (b): the port's buggify (seeded, only forced sites fire)
+    loses the device 3 times from batch DRILL_LOST_AT on: one failed
+    dispatch and two failed re-probes trip the breaker once, and the
+    native set serves those batches and the ones after; force_promote()
+    before batch DRILL_PROMOTE_AT rebuilds the set on the card from the
+    committed-write record, the parity batch checks it, and the rest is
+    served from the card.  Verdicts equal phase 4's throughout; the end
+    state is healthy, 1 trip, 2 promotions.  Returns the path's launches."""
+    kernels, buggify = fdb["kernels"], fdb["buggify"]
+    natives: list = []
+    clock = StepClock(0.5)
+    sup = supervised_set(fdb, natives, clock=clock)
+    buggify.enable(fdb["DeterministicRandom"](SEED), enable_prob=0.0)
+    kernels.reset_launches()
+    walls, replayed = {}, None
+    try:
+        for i, (version, txns) in enumerate(batches, start=1):
+            clock.tick()
+            if i == DRILL_LOST_AT:
+                buggify.force("device.lost", 3)
+            if i == DRILL_PROMOTE_AT:
+                replayed = sup.health()["recorded_batches"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sup.force_promote()
+                torch.cuda.synchronize()
+                walls["force_promote"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            got = sup.resolve_batch(version, txns)
+            torch.cuda.synchronize()
+            walls[i] = (time.perf_counter() - t0) * 1e3
+            require(got == flat_verdicts[i - 1], f"drill: batch {i} differs from the flat run")
+            floor = gc_floor(i, version)
+            if floor is not None:
+                sup.remove_before(floor)
+            h = sup.health()
+            on_cpu = DRILL_LOST_AT <= i < DRILL_PROMOTE_AT
+            require(h["serving"] == ("cpu" if on_cpu else "device"),
+                    f"drill: batch {i} served from {h['serving']}")
+            if i == DRILL_LOST_AT + 2:
+                require(h["state"] == "degraded" and h["trips"] == 1,
+                        f"drill: the breaker did not trip at batch {i}: {h}")
+        census = buggify.census()
+    finally:
+        buggify.disable()
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    h = sup.health()
+    require(h["state"] == "healthy" and h["trips"] == 1 and h["promotions"] == 2,
+            f"drill: end state {h}")
+    require(census["device.lost"]["fires"] == 3, f"drill: the buggify census {census}")
+    on_card = (DRILL_LOST_AT - 1) + replayed + (len(batches) - DRILL_PROMOTE_AT + 1)
+    require(launches["probe_fused"] == on_card,
+            f"drill: K1 launched {launches['probe_fused']} times, not the "
+            f"{on_card} batches resolved on the card (replay included)")
+    n_cpu = DRILL_PROMOTE_AT - DRILL_LOST_AT
+    log(f"drill: device.lost x3 from batch {DRILL_LOST_AT}: degraded at batch "
+        f"{DRILL_LOST_AT + 2} (1 trip), the native set served batches "
+        f"{DRILL_LOST_AT}-{DRILL_PROMOTE_AT - 1} and the parity batch "
+        f"({served(natives)} native batches with its rebuild replays), "
+        f"force_promote() replayed {replayed} recorded batches onto the card; "
+        f"all {len(batches)} batches identical to the flat run; end health "
+        f"{json.dumps(h)}")
+    log(f"drill: time to degrade (the call that lost the device: CPU rebuild "
+        f"from the record + the native resolve) {walls[DRILL_LOST_AT]:.3f} ms; "
+        f"time to re-promote: force_promote() {walls['force_promote']:.3f} ms "
+        f"(new set, record replay on the card) + the parity batch "
+        f"{walls[DRILL_PROMOTE_AT]:.3f} ms (card and native); degraded batches "
+        f"{[round(walls[i], 3) for i in range(DRILL_LOST_AT, DRILL_PROMOTE_AT)]} ms "
+        f"({n_cpu} on the native set) on {power}")
+    log(f"drill: launches {json.dumps(launches)}")
+    sup.close()
+    return launches
+
+
+def watchdog_phase(torch, fdb, batches, flat_verdicts):
+    """Phase 9 (c): four batches through a supervised set with the wall
+    watchdog on (every device call on its worker thread): two through
+    resolve_batch, two through resolve_deferred; and one batch staged by
+    BatchStager on its side stream, taken and resolved on a watchdog's
+    worker thread.  Verdicts equal phase 4's.  Returns the launches."""
+    tdev, kernels, sup_mod = fdb["device"], fdb["kernels"], fdb["supervisor"]
+    natives: list = []
+    sup = supervised_set(fdb, natives)
+    sup.enable_wall_watchdog()
+    kernels.reset_launches()
+    got, _ = drive(torch, fdb, "sync", sup, batches[:2], 1)
+    more, _ = drive(torch, fdb, "deferred", sup, batches[2:4], 3)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    require(got + more == flat_verdicts[:4], "watchdog: verdicts differ from the flat run")
+    worker = sup._watchdog._worker
+    require(sup._watchdog.wall and worker is not None and worker.is_alive(),
+            "watchdog: the wall watchdog's worker never ran")
+    h = sup.health()
+    require(h["state"] == "healthy" and h["serving"] == "device" and h["trips"] == 0,
+            f"watchdog: {h}")
+    require(launches["probe_fused"] == 4 and launches["intra_fixpoint"] == 4,
+            f"watchdog: {launches}")
+    sup.close()
+
+    cs = tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda")
+    version, txns = batches[0]
+    packed = tdev.pack_batch(txns, 0, cs._offset, SET_ARGS["max_key_bytes"])
+    staged = tdev.BatchStager("cuda")(packed)
+    wd = sup_mod.Watchdog(60.0, wall=True)
+    codes = wd.run(lambda: cs.resolve_arrays(version, *staged.take()))
+    wd.close()
+    require([fdb["Verdict"](int(c)) for c in codes[:len(txns)]] == flat_verdicts[0],
+            "watchdog: a staged batch resolved on the worker thread differs")
+    log(f"watchdog: 4 batches (2 sync, 2 deferred) on the wall watchdog's worker "
+        f"thread and a BatchStager batch taken there, identical to the flat run; "
+        f"health {json.dumps(h)}; launches {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the port's headline bench
+
+
+def bench_phase(fdb, power):
+    """The port's bench at its full shape in this process: its JSON line
+    (abort-set parity against the port's native set inside), then its
+    numbers beside the card.  Returns the path's launches."""
+    kernels, bench = fdb["kernels"], fdb["bench"]
+    kernels.reset_launches()
+    doc = bench.run("cuda")
+    launches = dict(kernels.launches)
+    print(json.dumps(doc), flush=True)
+    k = doc["kernel"]
+    require(k["parity_batches"] == bench.TIMED_BATCHES
+            and k["e2e_parity_batches"] == bench.E2E_BATCHES + 2 and doc["value"] > 0,
+            f"bench: {doc}")
+    n_batches = (bench.PREFILL_BATCHES + bench.TIMED_BATCHES + bench.POST_BATCHES
+                 + bench.E2E_BATCHES + 2)
+    require(launches["probe_fused"] == n_batches and launches["intra_fixpoint"] == n_batches
+            and launches["run_to_step"] >= 1 and launches["compact_ranks"] >= 8
+            and launches["probe"] == 0 and launches["intra_query"] == 0,
+            f"bench: launches {launches}")
+    log(f"bench: native {k['native_checks_per_sec']:.1f} checks/s, card "
+        f"{doc['value']:.1f} checks/s, vs_baseline {doc['vs_baseline']}, sync "
+        f"p50 {k['resolve_ms_p50']} ms p99 {k['resolve_ms_p99']} ms, resolver e2e "
+        f"{k['resolver_e2e_checks_per_sec']:.1f} checks/s; abort-set parity on "
+        f"{k['parity_batches']} timed and {k['e2e_parity_batches']} e2e batches; "
+        f"on {power}")
+    log(f"bench: launches {json.dumps(launches)}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1090,15 +1362,19 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from foundationdb_tpu_torch import keys
-    from foundationdb_tpu_torch.conflict import _build, device, kernels, oracle, pipeline
+    from foundationdb_tpu_torch import bench, keys
+    from foundationdb_tpu_torch.conflict import (
+        _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
     from foundationdb_tpu_torch.ops import rmq
-    from foundationdb_tpu_torch.runtime import coverage
+    from foundationdb_tpu_torch.runtime import buggify, coverage
+    from foundationdb_tpu_torch.runtime.core import DeterministicRandom
 
     fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
-               Verdict=Verdict)
+               Verdict=Verdict, supervisor=supervisor, native=native,
+               buggify=buggify, DeterministicRandom=DeterministicRandom,
+               bench=bench)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1155,9 +1431,20 @@ def main() -> int:
     oracle_phase(fdb, oracle_batches(TxInfo, np.random.default_rng(SEED + 1)))
     log(f"recovery + oracle phases: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    supervised = supervised_phase(torch, fdb, stream, flat_verdicts, power)
+    supervised["drill"] = drill_phase(torch, fdb, stream, flat_verdicts, power)
+    supervised["watchdog"] = watchdog_phase(torch, fdb, stream, flat_verdicts)
+    log(f"supervised phase: {time.perf_counter() - t:.1f} s")
+
+    t = time.perf_counter()
+    bench_launches = bench_phase(fdb, power)
+    log(f"bench phase: {time.perf_counter() - t:.1f} s")
+
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}
     by_path.update({f"best_{mode}": l for mode, (_cs, l, _m) in runs.items()})
+    by_path.update(supervised, bench=bench_launches)
     path_launches = dict(launches, **referee_launches)
     timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
              "bound_ms", "bound_by")
