@@ -69,12 +69,37 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               at its full shape in this process: its JSON line (abort-set
               parity against the native set on the timed batches and on
               the resolver e2e run's), then native and card checks/s,
-              vs_baseline, p50/p99 and the resolver e2e rate.
+              vs_baseline, p50/p99 and the resolver e2e rate;
+ 11. legacy   phase 4's stream through the legacy layouts
+              (incremental=False): the flat full merge once per merge_impl
+              (scatter, sort, gather) and the LSM recent level (scatter).
+              Verdicts equal phase 4's, the three merges' final states are
+              identical, K2 once a batch, K3 once a fold (and against its
+              plain version on the live levels); a reduced stream of the
+              flat and LSM layouts identical on "cpu", state included.
+              Prints ms a batch, compactions, launches and node_count;
+ 12. timing   phase 4's stream through the flat and best-known sets with
+              phase_timing=True: verdicts equal phase 4's, the per-batch
+              sort / scan / merge / compact ms; then `python -m
+              foundationdb_tpu_torch.profile_kernel --phase` must exit 0;
+ 13. sharded  BASELINE.json config 5 (4 resolvers, key-space split): 4
+              partitions on the card, split at the key pool's quartiles,
+              2**17 rows each, through (a) the constructor default, (b)
+              the best-known layout, (c) (b) through
+              resolve_arrays(sync=False) two batches in flight, (d) the
+              legacy flat merge on 8 batches.  The modes agree batch by
+              batch; each equals the same set on "cpu" over 4 batches,
+              per-partition state included; K1 and K2 once a partition a
+              batch, K4 once a partition a compaction, K3 at least 8 times
+              as often; checks/s, p50/p99 and (profiled) launches a batch
+              beside phase 6's single set; then phase 8's stream against 4
+              partition oracles merged with min.
 
 Each path is driven with the launch counts set to 0 just before it and read
-just after.  Prints the kernels' JSON line (`launches`: K1-K4 on phase 4's
-stream, K5 and the per-query intra kernel in their referee roles;
-`launches_by_path` for every path), then
+just after.  Prints each phase's seconds, the kernels' JSON line
+(`launches`: K1-K4 on phase 4's stream, K5 and the per-query intra kernel
+in their referee roles; `launches_by_path` for every path, phases 11-13's
+included), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -717,11 +742,14 @@ def check_path_launches(launches, n_batches: int, compactions: int, where: str) 
 
 def same_state(a, b, where: str) -> None:
     """The two sets' exported states are equal, key by key."""
-    sa, sb = a.export_state(), b.export_state()
-    require(sa.keys() == sb.keys(), f"{where}: the state keys differ")
-    for k in sa:
-        require(np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])),
-                f"{where}: final state {k!r} differs")
+    same_export(a.export_state(), b.export_state(), where)
+
+
+def same_export(a: dict, b: dict, where: str) -> None:
+    require(a.keys() == b.keys(), f"{where}: the state keys differ")
+    for k in a:
+        require(np.array_equal(np.asarray(a[k]), np.asarray(b[k])),
+                f"{where}: state {k!r} differs")
 
 
 def _device_us(event) -> float:
@@ -1349,6 +1377,356 @@ def bench_phase(fdb, power):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the legacy layouts (incremental=False): a full merge a batch
+
+LEGACY_RUNS = (  # (name, the set's keywords)
+    ("flat-scatter", dict(incremental=False, merge_impl="scatter")),
+    ("flat-sort", dict(incremental=False, merge_impl="sort")),
+    ("flat-gather", dict(incremental=False, merge_impl="gather")),
+    ("lsm-scatter", dict(incremental=False, lsm=True)),
+)
+LEGACY_CPU_BATCHES = 4  # the reduced stream the cpu twins run
+
+
+def stream_ms(walls) -> str:
+    timed = walls[PREFILL_BATCHES:] or walls
+    return (f"ms a batch mean={float(np.mean(timed)):.3f} "
+            f"p50={float(np.percentile(timed, 50)):.3f} "
+            f"p99={float(np.percentile(timed, 99)):.3f} (n={len(timed)})")
+
+
+def require_launches(launches, need: dict, where: str) -> None:
+    for name, n in need.items():
+        require(launches[name] == n,
+                f"{where}: {name} launched {launches[name]} times, not {n}")
+
+
+def state_without_impl(cs) -> dict:
+    """The exported state but the merge_impl name."""
+    return {k: v for k, v in cs.export_state().items() if k != "merge_impl"}
+
+
+def legacy_phase(torch, fdb, batches, flat_verdicts, power):
+    """Phase 11: phase 4's stream through the legacy layouts on "cuda":
+    the flat full merge once per merge_impl and the LSM recent level
+    (scatter).  Verdicts equal phase 4's batch by batch (the layout does
+    not change them), the three merges end in identical states, K2 runs
+    once a batch and K3 once a recent-level fold; K3 also against its
+    plain version on the LSM set's live levels.  Then the reduced stream
+    on "cuda" and "cpu" through the flat and LSM layouts: identical state.
+    Returns {path: launches}."""
+    tdev, kernels = fdb["device"], fdb["kernels"]
+    out, states = {}, {}
+    for name, kw in LEGACY_RUNS:
+        cs = tdev.DeviceConflictSet(**SET_ARGS, **kw, device="cuda")
+        kernels.reset_launches()
+        got, walls = drive(torch, fdb, "sync", cs, batches, 1)
+        torch.cuda.synchronize()
+        launches = out[f"legacy_{name}"] = dict(kernels.launches)
+        for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
+            require(a == b, f"legacy {name}: batch {i} differs from phase 4")
+        folds = cs.stats.compactions
+        require_launches(launches, {"intra_fixpoint": len(batches), "probe_fused": 0,
+                                    "run_to_step": 0, "probe": 0, "intra_query": 0},
+                         f"legacy {name}")
+        if kw.get("lsm"):
+            require(folds >= 1 and launches["compact_ranks"] >= folds,
+                    f"legacy {name}: {folds} folds, K3 {launches['compact_ranks']}")
+            ub = kernels.compact_ranks(cs._ks, cs._rec_ks)
+            require(torch.equal(ub, kernels.compact_ranks_plain(cs._ks, cs._rec_ks)),
+                    f"legacy {name}: K3 disagrees with its plain version on live levels")
+        else:
+            require(launches["compact_ranks"] == 0, f"legacy {name}: K3 launched")
+            states[name] = state_without_impl(cs)
+        log(f"legacy {name}: {len(batches)} batches identical to phase 4; "
+            f"{stream_ms(walls)} on {power}; compactions={folds} "
+            f"full_merges={cs.stats.full_merges} cap={cs.capacity} "
+            f"node_count={cs.node_count} host syncs per batch "
+            f"{cs.host_syncs / len(batches):.2f}; launches {json.dumps(launches)}")
+    for name in ("flat-sort", "flat-gather"):
+        same_export(states["flat-scatter"], states[name], f"legacy {name} against scatter")
+    log("legacy: the scatter, sort and gather merges end in identical states")
+    t = time.perf_counter()
+    reduced = batches[:LEGACY_CPU_BATCHES]
+    for name, kw in (LEGACY_RUNS[0], LEGACY_RUNS[3]):
+        twins = [tdev.DeviceConflictSet(**SET_ARGS, **kw, device=d) for d in ("cuda", "cpu")]
+        runs = [drive(torch, fdb, "sync", s, reduced, 1)[0] for s in twins]
+        require(runs[0] == runs[1], f"legacy {name}: cuda and cpu verdicts differ")
+        same_state(*twins, f"legacy {name} (reduced)")
+    log(f"legacy: {LEGACY_CPU_BATCHES} batches of flat-scatter and lsm-scatter "
+        f"identical on cuda and cpu, state included ({time.perf_counter() - t:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: phase timing (phase_timing=True) and profile_kernel --phase
+
+PHASE_NAMES = ("sort_s", "scan_s", "append_s", "compact_s")
+
+
+def timing_phase(torch, fdb, batches, flat_verdicts, power):
+    """Phase 12: phase 4's stream through the flat and best-known sets with
+    phase_timing=True: verdicts equal phase 4's, the main path's launches
+    as phase 4's; each batch's sort / scan / merge (the append) / compact
+    ms printed.  Then `python -m foundationdb_tpu_torch.profile_kernel
+    --phase` as a subprocess, which must exit 0.  Returns {path:
+    launches}."""
+    tdev, kernels = fdb["device"], fdb["kernels"]
+    out = {}
+    for name, kw in (("flat", {}), ("best-known", BEST_KNOWN)):
+        cs = tdev.DeviceConflictSet(**SET_ARGS, **kw, phase_timing=True, device="cuda")
+        kernels.reset_launches()
+        per_batch = []
+        for i, ((version, txns), want) in enumerate(zip(batches, flat_verdicts), start=1):
+            before = [getattr(cs.stats, k) for k in PHASE_NAMES]
+            require(cs.resolve_batch(version, txns) == want,
+                    f"timed {name}: batch {i} differs from phase 4")
+            per_batch.append([round((getattr(cs.stats, k) - b) * 1e3, 3)
+                              for k, b in zip(PHASE_NAMES, before)])
+            floor = gc_floor(i, version)
+            if floor is not None:
+                cs.remove_before(floor)
+        torch.cuda.synchronize()
+        launches = out[f"timed_{name}"] = dict(kernels.launches)
+        check_path_launches(launches, len(batches), cs.stats.compactions, f"timed {name}")
+        phase = cs.kernel_stats()["phase"]
+        log(f"timed {name}: {len(batches)} batches identical to phase 4; totals "
+            f"sort_ms={phase['sort_ms']:.3f} scan_ms={phase['scan_ms']:.3f} "
+            f"merge_ms={phase['merge_ms']:.3f} compact_ms={phase['compact_ms']:.3f} "
+            f"on {power}")
+        log(f"timed {name}: per batch [sort, scan, merge, compact] ms {per_batch}")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "foundationdb_tpu_torch.profile_kernel",
+                           "--phase"], cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        log("  profile_kernel | " + line)
+    require(proc.returncode == 0,
+            f"profile_kernel --phase exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"timed: profile_kernel --phase exited 0 ({time.perf_counter() - t:.1f} s)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the multi-resolver set (BASELINE.json config 5: 4 resolvers)
+
+SHARDS = 4
+# per partition: 4 x 2**17 = the single set's 2**19
+SHARD_ARGS = dict(max_key_bytes=16, capacity=1 << 17, run_slots=8,
+                  run_capacity=1 << 14)
+SHARD_MODES = (  # (mode, the set's keywords)
+    ("a", {}),                          # the constructor default
+    ("b", BEST_KNOWN),                  # resolve_batch
+    ("c", BEST_KNOWN),                  # resolve_arrays(sync=False), 2 in flight
+    ("d", dict(incremental=False)),     # the legacy flat merge
+)
+SHARD_CPU_BATCHES = 4
+SHARD_LEGACY_BATCHES = 8
+ORACLE_SPLITS = [b"b", b"c", b"d"]  # phase 8's stems start with a-d
+
+
+def quartile_splits(pool):
+    """The pool's keys at its quartiles, in byte order: 4 partitions of
+    equal share of the uniform stream."""
+    order = np.lexsort(pool.T[::-1])
+    n = len(pool)
+    return [pool[order[q * n // SHARDS]].tobytes() for q in range(1, SHARDS)]
+
+
+def drive_in_flight(torch, fdb, cs, batches, snap_at: int):
+    """resolve_arrays(sync=False) with two batches in flight (the verdicts
+    read two behind, one check_pipelined() at the end) and the stream's
+    GC; returns (verdicts, wall ms a batch, the state after batch
+    snap_at)."""
+    tdev, Verdict = fdb["device"], fdb["Verdict"]
+    out, walls, pending, snap = [], [], [], None
+
+    def read(entry):
+        verdict, n = entry
+        out.append([Verdict(int(c)) for c in verdict[:n].cpu().numpy()])
+
+    torch.cuda.synchronize()
+    for i, (version, txns) in enumerate(batches, start=1):
+        t0 = time.perf_counter()
+        packed = tdev.pack_batch(txns, cs.oldest_version, cs._offset,
+                                 SHARD_ARGS["max_key_bytes"], stats=cs.stats)
+        pending.append((cs.resolve_arrays(version, *packed[:8], sync=False), len(txns)))
+        if len(pending) > 2:
+            read(pending.pop(0))
+        floor = gc_floor(i, version)
+        if floor is not None:
+            cs.remove_before(floor)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == snap_at:
+            snap = cs.export_state()
+    t0 = time.perf_counter()
+    for entry in pending:
+        read(entry)
+    cs.check_pipelined()
+    walls[-1] += (time.perf_counter() - t0) * 1e3
+    return out, walls, snap
+
+
+def drive_sync(torch, fdb, cs, batches, snap_at: int):
+    """resolve_batch with the stream's GC; returns (verdicts, wall ms a
+    batch, the state after batch snap_at)."""
+    out, walls, snap = [], [], None
+    for i, (version, txns) in enumerate(batches, start=1):
+        o, w = drive(torch, fdb, "sync", cs, [(version, txns)], i)
+        out += o
+        walls += w
+        if i == snap_at:
+            snap = cs.export_state()
+    return out, walls, snap
+
+
+class MultiOracle:
+    """N partition oracles, each on the ranges clipped to its partition,
+    verdicts merged with min: the reference's multi-resolver semantics."""
+
+    def __init__(self, oracle_mod, Verdict, splits):
+        self._bounds = [b""] + list(splits) + [None]
+        self._parts = [oracle_mod.OracleConflictSet() for _ in self._bounds[1:]]
+        self._Verdict = Verdict
+
+    @staticmethod
+    def _clip(r, lo, hi):
+        b, e = max(r[0], lo), r[1] if hi is None else min(r[1], hi)
+        return (b, e) if b < e else None
+
+    def resolve_batch(self, TxInfo, version, txns):
+        per = []
+        for part, lo, hi in zip(self._parts, self._bounds, self._bounds[1:]):
+            clip = lambda rs: [c for r in rs if (c := self._clip(r, lo, hi))]  # noqa: E731
+            per.append(part.resolve_batch(version, [
+                TxInfo(t.read_snapshot, clip(t.read_ranges), clip(t.write_ranges))
+                for t in txns]))
+        return [self._Verdict(min(int(v[i]) for v in per)) for i in range(len(txns))]
+
+    def remove_before(self, version):
+        for p in self._parts:
+            p.remove_before(version)
+
+
+def sharded_profile(torch, fdb, cs, make, batches, first: int, power):
+    """The few batches past the stream on a twin of `cs` (its exported
+    state loaded) under torch.profiler: launches a batch and the device's
+    busy share of the same batches' wall on `cs` itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    twin = make()
+    twin.load_state(cs.export_state())
+    plain, walls = drive(torch, fdb, "sync", cs, batches, first)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        traced, _ = drive(torch, fdb, "sync", twin, batches, first)
+        torch.cuda.synchronize()
+    require(traced == plain, "sharded: the profiled twin differs")
+    events = prof.key_averages()
+    busy = busy_ms(torch, events)
+    return launch_calls(events) / len(batches), busy / sum(walls)
+
+
+def sharded_phase(torch, fdb, batches, extra, pool, oracle_stream, single, power):
+    """Phase 13: 4 partitions on the one card, split at the key pool's
+    quartiles, through (a) the constructor default, (b) the best-known
+    layout, (c) (b) through resolve_arrays(sync=False) two in flight, and
+    (d) the legacy flat merge on 8 batches.  The modes' verdicts agree
+    over all batches; each mode equals the same set on "cpu" over the
+    first 4 batches, verdicts and per-partition state; K1 and K2 launch
+    once a partition a batch, K4 once a partition a compaction, K3 at
+    least as often; (a)'s verdicts equal N partition oracles on phase 8's
+    stream.  Checks/s, p50/p99 and (profiled) launches a batch beside
+    phase 6's single set (`single`: its sync turn).  Returns {path:
+    launches}."""
+    Sharded = fdb["sharded"].ShardedDeviceConflictSet
+    kernels, TxInfo = fdb["kernels"], fdb["TxInfo"]
+    splits = quartile_splits(pool)
+    log(f"sharded: split keys {[s.hex() for s in splits]}")
+    checks = TIMED_BATCHES * TXNS * (READS_PER_TXN + 1)
+    out, verdicts, snaps, sets = {}, {}, {}, {}
+    for mode, kw in SHARD_MODES:
+        n = SHARD_LEGACY_BATCHES if mode == "d" else len(batches)
+        cs = sets[mode] = Sharded(splits, **SHARD_ARGS, **kw)
+        kernels.reset_launches()
+        drive_mode = drive_in_flight if mode == "c" else drive_sync
+        got, walls, snaps[mode] = drive_mode(torch, fdb, cs, batches[:n], SHARD_CPU_BATCHES)
+        torch.cuda.synchronize()
+        launches = out[f"sharded_{mode}"] = dict(kernels.launches)
+        verdicts[mode] = got
+        folds = cs.compactions
+        if mode == "d":
+            require_launches(launches, {"intra_fixpoint": SHARDS * n, "probe_fused": 0,
+                                        "run_to_step": 0, "compact_ranks": 0},
+                             f"sharded {mode}")
+        else:
+            require(folds == 2, f"sharded {mode}: {folds} compactions, expected 2")
+            require_launches(launches, {"probe_fused": SHARDS * n,
+                                        "intra_fixpoint": SHARDS * n,
+                                        "run_to_step": SHARDS * folds},
+                             f"sharded {mode}")
+            require(launches["compact_ranks"] >= SHARDS * 8 * folds,
+                    f"sharded {mode}: K3 launched {launches['compact_ranks']} times")
+        require(cs.search_fallbacks == 0 and cs.regrows == 0,
+                f"sharded {mode}: fallbacks {cs.search_fallbacks}, regrows {cs.regrows}")
+        timed = walls[PREFILL_BATCHES:] or walls
+        rate = (len(timed) * TXNS * (READS_PER_TXN + 1)) / (sum(timed) / 1e3)
+        log(f"sharded {mode}: {n} batches; checks/s={rate:.1f} {stream_ms(walls)} on "
+            f"{power}; compactions={folds} counts={cs.export_state()['counts'].tolist()} "
+            f"host syncs per batch {cs.host_syncs / n:.2f}; launches "
+            f"{json.dumps(launches)} = {launches['probe_fused'] / n:.1f} K1 and "
+            f"{launches['intra_fixpoint'] / n:.1f} K2 a batch")
+    for mode in ("b", "c", "d"):
+        require(verdicts[mode] == verdicts["a"][:len(verdicts[mode])],
+                f"sharded {mode}: verdicts differ from mode a")
+    single_rate = single["checks_per_s"]
+    log(f"sharded: modes a-d agree on every batch; the single best-known set "
+        f"(phase 6, sync, turn 1): checks/s={single_rate:.1f} p50={single['p50_ms']:.3f} "
+        f"p99={single['p99_ms']:.3f} ms; launches a batch {single.get('launches_per_batch')}")
+    for mode, make in (("a", lambda: Sharded(splits, **SHARD_ARGS)),
+                       ("b", lambda: Sharded(splits, **SHARD_ARGS, **BEST_KNOWN))):
+        per_batch, share = sharded_profile(torch, fdb, sets[mode], make, extra,
+                                           len(batches) + 1, power)
+        log(f"sharded {mode} profile: {per_batch:.1f} launches a batch, device busy "
+            f"{100 * share:.1f}% of wall on {power}")
+    # K3 on a partition's live main level against its plain version
+    cs = sets["b"]
+    ks = cs._ks[0]
+    rows, _vals = kernels.run_to_step_plain(cs._runs_b[0][0], cs._runs_e[0][0],
+                                            cs._runs_ver[0][:1])
+    require(torch.equal(kernels.compact_ranks(ks, rows),
+                        kernels.compact_ranks_plain(ks, rows)),
+            "sharded: K3 disagrees with its plain version on a live partition")
+    t = time.perf_counter()
+    reduced = batches[:SHARD_CPU_BATCHES]
+    for mode, kw in (("a", {}), ("b", BEST_KNOWN), ("d", dict(incremental=False))):
+        cpu = Sharded(splits, **SHARD_ARGS, **kw, devices=["cpu"])
+        got, _w, state = drive_sync(torch, fdb, cpu, reduced, SHARD_CPU_BATCHES)
+        for m in (mode, "c") if mode == "b" else (mode,):
+            require(got == verdicts[m][:SHARD_CPU_BATCHES],
+                    f"sharded {m}: cuda and cpu verdicts differ")
+            same_export(snaps[m], state, f"sharded {m} (cpu, batch {SHARD_CPU_BATCHES})")
+    log(f"sharded: modes a-d equal the cpu set over {SHARD_CPU_BATCHES} batches, "
+        f"per-partition state included ({time.perf_counter() - t:.1f} s)")
+    oracle = MultiOracle(fdb["oracle"], fdb["Verdict"], ORACLE_SPLITS)
+    cs = Sharded(ORACLE_SPLITS, capacity=1 << 8, run_slots=4)
+    kernels.reset_launches()
+    for i, (version, txns) in enumerate(oracle_stream, start=1):
+        require(cs.resolve_batch(version, txns) == oracle.resolve_batch(TxInfo, version, txns),
+                f"sharded oracle batch {i}: verdicts differ from the multi-oracle")
+        if i % 5 == 0:
+            cs.remove_before(version - 3)
+            oracle.remove_before(version - 3)
+    torch.cuda.synchronize()
+    out["sharded_oracle"] = dict(kernels.launches)
+    require(cs.regrows >= 1, "sharded oracle stream: main never regrew")
+    log(f"sharded: {len(oracle_stream)} batches of phase 8's stream identical to "
+        f"{len(ORACLE_SPLITS) + 1} partition oracles merged with min; "
+        f"compactions={cs.compactions} regrows={cs.regrows} cap={cs.capacity}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1367,6 +1745,7 @@ def main() -> int:
         _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
     from foundationdb_tpu_torch.ops import rmq
+    from foundationdb_tpu_torch.parallel import sharded
     from foundationdb_tpu_torch.runtime import buggify, coverage
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
 
@@ -1374,7 +1753,7 @@ def main() -> int:
                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
                Verdict=Verdict, supervisor=supervisor, native=native,
                buggify=buggify, DeterministicRandom=DeterministicRandom,
-               bench=bench)
+               bench=bench, sharded=sharded)
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1428,7 +1807,8 @@ def main() -> int:
 
     t = time.perf_counter()
     recovery_drill(fdb)
-    oracle_phase(fdb, oracle_batches(TxInfo, np.random.default_rng(SEED + 1)))
+    oracle_stream = oracle_batches(TxInfo, np.random.default_rng(SEED + 1))
+    oracle_phase(fdb, oracle_stream)
     log(f"recovery + oracle phases: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -1441,10 +1821,24 @@ def main() -> int:
     bench_launches = bench_phase(fdb, power)
     log(f"bench phase: {time.perf_counter() - t:.1f} s")
 
+    t = time.perf_counter()
+    new_paths = legacy_phase(torch, fdb, stream, flat_verdicts, power)
+    log(f"legacy phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(timing_phase(torch, fdb, stream, flat_verdicts, power))
+    log(f"phase-timing phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    single = dict(runs["sync"][2]["turns"][0],
+                  launches_per_batch=runs["sync"][2].get("launches_per_batch"))
+    new_paths.update(sharded_phase(torch, fdb, stream, extra, pool, oracle_stream,
+                                   single, power))
+    log(f"sharded phase: {time.perf_counter() - t:.1f} s")
+
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}
     by_path.update({f"best_{mode}": l for mode, (_cs, l, _m) in runs.items()})
     by_path.update(supervised, bench=bench_launches)
+    by_path.update(new_paths)
     path_launches = dict(launches, **referee_launches)
     timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
              "bound_ms", "bound_by")

@@ -78,7 +78,8 @@ class KernelStats:
     append (the merge phase that replaced the per-batch full re-sort),
     compact = deferred run→main folds.  The port's device set fills
     `compact_s` (compactions end in a host sync anyway); the other splits
-    need per-phase barriers the hot path must not pay, and stay zero."""
+    need per-phase barriers the hot path must not pay, and only a set
+    built with `phase_timing=True` fills them."""
 
     backend: str = "?"         # the port's device set: "cuda" or "cpu"
     batches: int = 0

@@ -1,8 +1,8 @@
 """Device (PyTorch/CUDA) ConflictSet — the resolver's batched OCC check.
 
-Port of the incremental layouts of foundationdb_tpu/conflict/device.py.
-The committed-write history is a step function over key space, held in
-fixed-capacity tensors:
+Port of foundationdb_tpu/conflict/device.py.  The committed-write
+history is a step function over key space, held in fixed-capacity
+tensors:
 
   main   ks    int32[CAP, W]       sorted boundary keys (keys.py flipped
                                    lanes; sentinel-padded past `count`)
@@ -12,13 +12,17 @@ fixed-capacity tensors:
   runs   runs_b/runs_e int32[K, RUN_CAP, W]   one sorted, disjoint interval
                                    run per batch since the last compaction
          runs_ver int32[K]         commit offset per run (0 = dead)
+  recent rec_ks/rec_vs/rec_bidx    a second, small step function (LSM
+                                   only; idle on the incremental path)
 
-Two layouts, chosen by the constructor's keywords (the reference's, with
-its defaults): `lsm=False, search_impl="sort"` is the reference
+The layouts are chosen by the constructor's keywords (the reference's,
+with its defaults): `lsm=False, search_impl="sort"` is the reference
 constructor's default; `lsm=True, search_impl="bucket"` is bench.py's
-BEST_KNOWN, the configuration the repo measures.
+BEST_KNOWN, the configuration the repo measures; `incremental=False` is
+the legacy per-batch merge (below).
 
-Per batch (`resolve_core_inc`, or `resolve_core_inc_lsm`):
+Per batch on the incremental path (`resolve_core_inc`, or
+`resolve_core_inc_lsm`):
   search   `inc_search`: every read ranked against main, either with ONE
            multi-key sort (`phase_search_sort`) or by a binary search
            inside each read's 16-bit-prefix bucket (`phase_search`, a fixed
@@ -37,7 +41,19 @@ a step function (kernel K4, one launch for all runs), and the scatter
 fold max-composes each into main from cross ranks (kernel K3); bidx and
 tab are rebuilt there only.
 `remove_before` rebases versions (and clamps tab: the clamp commutes with
-range-max).
+range-max).  `phase_timing=True` dispatches search, check and append one
+at a time, each waited out, and times them.
+
+The legacy path (`incremental=False`; `resolve_core`, `resolve_core_lsm`):
+ONE search ranks reads and writes, history is a range-max of vs (and, LSM,
+of the cached table ORed with the recent level's), the fixpoint runs (K2),
+and the committed writes' canonical union MERGES into the state every
+batch: into main (flat; regrown and replayed when it outgrows it), or into
+the recent level (LSM), which `_compact` folds into main (K3) when it
+fills.  `merge_impl` picks the merge and the fold: "scatter" (merge-path
+positions from the ranks, row scatters), or the referees "sort" (one
+multi-key sort, a stable 1-bit sort to compact) and "gather" (positions by
+searchsorted, rows by gathers); all three give the same state.
 
 Pipelining (conflict/pipeline.py): `resolve_arrays(..., sync=False)`
 dispatches a batch and returns its verdicts as a device tensor without
@@ -154,18 +170,20 @@ def _local_ranks(rows: torch.Tensor) -> torch.Tensor:
     )
 
 
-def phase_search_sort(ks, count: int, rb, re_):
-    """Phase "sort" (the reference's inc_search with search_impl="sort";
-    the incremental path ranks only reads, never writes): rank every read
-    against main with ONE multi-key sort:
+def phase_search_sort(ks, count, rb, re_, wb=None, we=None):
+    """Phase "sort" (the reference's phase_search_sort): rank every query
+    against the state with ONE multi-key sort:
     lower_bound(q) = #state keys < q = (sorted position of q) - (#queries
     before q), queries ordered before equal state keys (flag 0 vs 1).
     Read begins query as upper bounds via the (words, len+1) trick.
     Returns (g_lo, g_hi): the gap holding each read's begin, and the first
-    boundary >= its end, clamped to the live prefix."""
+    boundary >= its end, clamped to the live prefix `count` (an int or a
+    device scalar).  The legacy merge also needs the writes' ranks: given
+    wb and we, returns (g_lo, g_hi, wb_rank, we_rank)."""
     R, W = rb.shape
     cap = ks.shape[0]
-    queries = torch.cat([with_last_lane_inc(rb), re_], dim=0)
+    writes = [] if wb is None else [wb, we]
+    queries = torch.cat([with_last_lane_inc(rb), re_] + writes, dim=0)
     nq = queries.shape[0]
     rows = torch.cat([queries, ks], dim=0)
     flag = torch.cat([
@@ -182,7 +200,11 @@ def phase_search_sort(ks, count: int, rb, re_):
     state_rank = torch.clamp(_arange(nq + cap, ks) - n_q_before, max=count)
     ranks = torch.zeros(nq + 1, dtype=torch.int32, device=ks.device)
     ranks.index_copy_(0, torch.where(is_q > 0, sidx, nq).long(), state_rank)
-    return ranks[:R] - 1, ranks[R:nq]
+    if wb is None:
+        return ranks[:R] - 1, ranks[R:nq]
+    Wn = wb.shape[0]
+    return (ranks[:R] - 1, ranks[R:2 * R], ranks[2 * R:2 * R + Wn],
+            ranks[2 * R + Wn:nq])
 
 
 def host_bucket_index(ks_rows: np.ndarray) -> np.ndarray:
@@ -320,6 +342,24 @@ def phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active,
 # the per-batch check and the run append
 
 
+def _batch_masks(r_tx, wb, w_tx, n_txn: int):
+    """(r_ok, r_idx, w_ok, w_idx): live reads and writes, and their txn
+    indices clamped into the batch."""
+    r_ok = r_tx >= 0
+    r_idx = torch.clamp(r_tx, 0, n_txn - 1).long()
+    w_ok = (w_tx >= 0) & ~_is_sentinel(wb)
+    w_idx = torch.clamp(w_tx, 0, n_txn - 1).long()
+    return r_ok, r_idx, w_ok, w_idx
+
+
+def _verdicts(active, committed):
+    return torch.where(
+        active,
+        torch.where(committed, int(Verdict.COMMITTED), int(Verdict.CONFLICT)),
+        int(Verdict.TOO_OLD),
+    ).to(torch.int32)
+
+
 def inc_check(hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap,
               active, runs_b, runs_e, runs_ver, *, n_txn: int,
               from_table: bool = False):
@@ -330,10 +370,7 @@ def inc_check(hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap,
     fixpoint iterations int32[1]) — w_ins marks the live writes of
     committed txns."""
     B = n_txn
-    r_ok = r_tx >= 0
-    r_idx = torch.clamp(r_tx, 0, B - 1).long()
-    w_ok = (w_tx >= 0) & ~_is_sentinel(wb)
-    w_idx = torch.clamp(w_tx, 0, B - 1).long()
+    r_ok, r_idx, w_ok, w_idx = _batch_masks(r_tx, wb, w_tx, B)
     tab = hist_base if from_table else build_sparse_table(hist_base, torch.maximum, 0)
     read_max = query_sparse_table(tab, g_lo, g_hi, torch.maximum, 0)
     snap_r = snap[r_idx]
@@ -348,12 +385,7 @@ def inc_check(hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap,
         rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx, active, hist, B
     )
     committed = active & ~hist & ~intra
-    verdict = torch.where(
-        active,
-        torch.where(committed, int(Verdict.COMMITTED), int(Verdict.CONFLICT)),
-        int(Verdict.TOO_OLD),
-    ).to(torch.int32)
-    return verdict, w_ok & committed[w_idx], n_iters
+    return _verdicts(active, committed), w_ok & committed[w_idx], n_iters
 
 
 def _union_intervals(wb, we, w_ins, *, run_cap: int):
@@ -484,11 +516,347 @@ def compact_fold(ks, vs, rec_ks, rec_vs, *, cap: int):
     keep = ~_is_sentinel(merged)
     keep[1:] &= val[1:] != val[:-1]
     keep_i = keep.to(torch.int32)
-    new_count = keep_i.sum()
+    new_count = keep_i.sum(dtype=torch.int32)
     pos = torch.where(keep, _cumsum32(keep_i) - 1, M)
     new_ks = _set_rows(cap, SENT_LANE, pos, merged)
     new_vs = _set_rows(cap, 0, pos, val)
     return new_ks, new_vs, new_count
+
+
+def _compact_by_sort(keep, rows, val, cap: int):
+    """The reference's stable 1-bit sort compaction: kept rows to the
+    front in order, the rest masked to sentinels behind them, then the
+    first `cap` rows.  Returns (new_ks, new_vs)."""
+    rows = torch.where(keep[:, None], rows, SENT_LANE)
+    val = torch.where(keep, val, 0)
+    perm = lexsort([(~keep).to(torch.int32)])
+    return rows[perm][:cap], val[perm][:cap]
+
+
+def _coalesce(merged, val):
+    """Rows to keep of a merged step function: live, and a value other
+    than the previous row's.  Returns (keep, new_count int32 scalar)."""
+    keep = ~_is_sentinel(merged)
+    keep[1:] &= val[1:] != val[:-1]
+    return keep, keep.sum(dtype=torch.int32)
+
+
+def _compact_fold_sort(ks, vs, rec_ks, rec_vs, *, cap: int):
+    """The sort fold (the referee): ONE multi-key sort of both levels
+    (main first on equal keys), per-source forward fills to evaluate each
+    step function on the merged domain, max-compose, coalesce, and compact
+    with a stable 1-bit sort.  Returns (new_ks, new_vs, new_count)."""
+    rec_cap, W = rec_ks.shape
+    rows = torch.cat([ks, rec_ks], dim=0)
+    src = torch.cat([torch.zeros(cap, dtype=torch.int32, device=ks.device),
+                     torch.ones(rec_cap, dtype=torch.int32, device=ks.device)])
+    perm = lexsort([rows[:, w] for w in range(W)] + [src])
+    merged, s_src, s_val = rows[perm], src[perm], torch.cat([vs, rec_vs])[perm]
+    val = torch.maximum(_ffill(s_src == 0, s_val), _ffill(s_src == 1, s_val))
+    keep, new_count = _coalesce(merged, val)
+    new_ks, new_vs = _compact_by_sort(keep, merged, val, cap)
+    return new_ks, new_vs, new_count
+
+
+def _compact_fold_gather(ks, vs, rec_ks, rec_vs, *, cap: int):
+    """The gather fold: the cross ranks (kernel K3) imply every output
+    position, so the merged domain is built by row gathers — recent
+    positions are strictly increasing, one searchsorted recovers "#recent
+    rows at merged positions <= p" — and compacted with the stable 1-bit
+    sort and two cap-row gathers.  Returns (new_ks, new_vs, new_count)."""
+    rec_cap = rec_ks.shape[0]
+    M = cap + rec_cap
+    rec_live = ~_is_sentinel(rec_ks)
+    ub = kernels.compact_ranks(ks, rec_ks)
+    ar = _arange(rec_cap, ks)
+    # dead recent rows (a suffix) pad past M so the domain stays sorted
+    pos_rec = torch.where(rec_live, ar + ub, M + ar)
+    p = _arange(M, ks)
+    nb = torch.searchsorted(pos_rec, p, right=True).to(torch.int32)
+    is_rec = nb > torch.cat([nb.new_zeros(1), nb[:-1]])
+    rec_i = torch.clamp(nb - 1, 0, rec_cap - 1).long()
+    main_raw = p - nb
+    main_i = torch.clamp(main_raw, 0, cap - 1).long()
+    merged = torch.where(is_rec[:, None], rec_ks[rec_i], ks[main_i])
+    sent = ~is_rec & ((main_raw >= cap) | (ks[main_i, -1] == SENT_LANE))
+    val = torch.maximum(_ffill(~is_rec, vs[main_i]), _ffill(is_rec, rec_vs[rec_i]))
+    keep = ~sent
+    keep[1:] &= val[1:] != val[:-1]
+    new_count = keep.sum(dtype=torch.int32)
+    kperm = lexsort([(~keep).to(torch.int32)])[:cap]
+    q_live = _arange(cap, ks) < new_count
+    out = torch.where(is_rec[kperm][:, None], rec_ks[rec_i[kperm]],
+                      ks[main_i[kperm]])
+    new_ks = torch.where(q_live[:, None], out, SENT_LANE)
+    new_vs = torch.where(q_live, val[kperm], 0)
+    return new_ks, new_vs, new_count
+
+
+_COMPACT_FOLDS = {
+    "scatter": compact_fold,
+    "sort": _compact_fold_sort,
+    "gather": _compact_fold_gather,
+}
+MERGE_IMPLS = tuple(_COMPACT_FOLDS)
+
+
+def compact_lsm(ks, vs, rec_ks, rec_vs, *, cap: int, merge_impl: str = "scatter"):
+    """Fold the step function (rec_ks, rec_vs) into main: the deferred
+    k-way merge's inner step and the LSM compaction.  `merge_impl` picks
+    the fold (scatter is the default; sort and gather are its bit-identical
+    referees); the scatter and gather folds count their cross ranks with
+    kernel K3 (whose plain version is the reference's `_compact_ub`).
+    Returns (new_ks, new_vs, new_count); new_count > cap means
+    rows were dropped and the caller must regrow main and fold again.  The
+    caller rebuilds bidx and tab once, after its last fold."""
+    return _COMPACT_FOLDS[merge_impl](ks, vs, rec_ks, rec_vs, cap=cap)
+
+
+# ---------------------------------------------------------------------------
+# the legacy (non-incremental) layouts: every batch merges its committed
+# writes into the state (flat: main; LSM: the recent level)
+
+
+def phase_history(vs, g_lo, g_hi, snap, r_idx, r_ok, n_txn: int):
+    """History conflicts: range-max of `vs` over each read's covered gaps
+    from a table built here; a txn conflicts iff a read's max > its
+    snapshot.  Returns bool[n_txn]."""
+    tab = build_sparse_table(vs, torch.maximum, 0)
+    return history_from_table(tab, g_lo, g_hi, snap, r_idx, r_ok, n_txn)
+
+
+def history_from_table(tab, g_lo, g_hi, snap, r_idx, r_ok, n_txn: int):
+    """phase_history from a PREBUILT sparse table (the LSM main level's)."""
+    read_max = query_sparse_table(tab, g_lo, g_hi, torch.maximum, 0)
+    r_hist = r_ok & (read_max > snap[r_idx])
+    return torch.zeros(n_txn, dtype=torch.int32, device=tab.device).index_add_(
+        0, r_idx, r_hist.to(torch.int32)) > 0
+
+
+def _canonical_union(ks, vs, wb, we, wb_rank, we_rank, w_ins, *, cap: int):
+    """The committed writes' union on the write-endpoint slot domain (slots
+    = unique endpoint keys in key order): coverage deltas + cumsum give
+    where canonical intervals open and close.  Returns (u_rows, u_rank,
+    is_beg, is_end, news_mask, resume_val) — resume_val is the state's
+    value AT a slot's key, which a canonical end resumes."""
+    Wn = wb.shape[0]
+    nslots = 2 * Wn
+    wlr = _local_ranks(torch.cat([wb, we], dim=0))
+    ins = w_ins.to(torch.int32)
+    delta = torch.zeros(nslots, dtype=torch.int32, device=wb.device)
+    delta.index_add_(0, wlr[:Wn].long(), ins).index_add_(0, wlr[Wn:].long(), -ins)
+    cov = _cumsum32(delta) > 0
+    prev_cov = torch.cat([cov.new_zeros(1), cov[:-1]])
+    is_beg = cov & ~prev_cov
+    is_end = ~cov & prev_cov
+    # slot -> representative row and state rank (duplicates write equals)
+    slot = torch.where(torch.cat([w_ins, w_ins]), wlr, nslots)
+    u_rows = _set_rows(nslots, SENT_LANE, slot, torch.cat([wb, we], dim=0))
+    u_rank = _set_rows(nslots, 0, slot, torch.cat([wb_rank, we_rank]))
+    return (u_rows, u_rank, is_beg, is_end, is_beg | is_end,
+            _resume_values(ks, vs, u_rows, u_rank, cap))
+
+
+def _resume_values(ks, vs, u_rows, u_rank, cap: int):
+    """vs[u_rank] where the row is a boundary of the state, else
+    vs[u_rank - 1]: the state's value at each row's key."""
+    ks_at = ks[torch.clamp(u_rank, 0, cap - 1).long()]
+    key_exists = torch.all(ks_at == u_rows, dim=1)
+    idx = torch.where(key_exists, u_rank, u_rank - 1)
+    return vs[torch.clamp(idx, 0, cap - 1).long()]
+
+
+def phase_merge(ks, vs, wb, we, wb_rank, we_rank, w_ins, commit_off, *, cap: int):
+    """The scatter merge: the canonical union's boundaries merge into the
+    state at merge-path positions from the search's ranks (news before
+    equal olds), values come from a coverage cumsum on the merged domain,
+    equal-valued neighbours coalesce.  Returns (new_ks, new_vs,
+    new_count)."""
+    Wn = wb.shape[0]
+    u_rows, u_rank, is_beg, _is_end, news_mask, resume_val = _canonical_union(
+        ks, vs, wb, we, wb_rank, we_rank, w_ins, cap=cap)
+    M = cap + 2 * Wn
+    j = _cumsum32(news_mask.to(torch.int32)) - 1
+    pos_new = torch.where(news_mask, u_rank + j, M)
+    # news past a full state (rank == cap) shift no old row: dropped from
+    # the count, never clamped into it
+    cnt = torch.zeros(cap + 1, dtype=torch.int32, device=ks.device)
+    cnt.index_add_(0, torch.where(news_mask & (u_rank < cap), u_rank, cap).long(),
+                   torch.ones_like(u_rank))
+    pos_old = _arange(cap, ks) + _cumsum32(cnt[:cap])
+    merged = _put(_put(_spare(M, SENT_LANE, ks), pos_old, ks), pos_new, u_rows)[:M]
+    step = torch.where(is_beg, 1, -1).to(torch.int32)
+    mdelta = torch.zeros(M + 1, dtype=torch.int32, device=ks.device)
+    mcov = _cumsum32(mdelta.index_add_(0, pos_new.long(), step)[:M]) > 0
+    is_old = _set_rows(M, False, pos_old, torch.ones(cap, dtype=torch.bool,
+                                                     device=ks.device))
+    new_val = torch.where(is_beg, commit_off, resume_val).to(torch.int32)
+    val = _put(_put(_spare(M, 0, vs), pos_old, vs), pos_new, new_val)[:M]
+    val = torch.where(is_old & mcov, commit_off, val).to(torch.int32)
+    keep, new_count = _coalesce(merged, val)
+    pos = torch.where(keep, _cumsum32(keep.to(torch.int32)) - 1, M)
+    return _set_rows(cap, SENT_LANE, pos, merged), _set_rows(cap, 0, pos, val), new_count
+
+
+def phase_merge_sort(ks, vs, wb, we, wb_rank, we_rank, w_ins, commit_off, *,
+                     cap: int):
+    """The sort merge (a referee): one multi-key sort orders the state rows
+    and the canonical news (news first on equal keys), coverage deltas and
+    values riding along; then the scatter merge's cumsum and coalesce, and
+    a stable 1-bit sort compacts.  Returns (new_ks, new_vs, new_count)."""
+    Wn, W = wb.shape
+    nslots = 2 * Wn
+    u_rows, _u_rank, is_beg, _is_end, news_mask, resume_val = _canonical_union(
+        ks, vs, wb, we, wb_rank, we_rank, w_ins, cap=cap)
+    rows = torch.cat([torch.where(news_mask[:, None], u_rows, SENT_LANE), ks])
+    flag = torch.cat([torch.zeros(nslots, dtype=torch.int32, device=ks.device),
+                      torch.ones(cap, dtype=torch.int32, device=ks.device)])
+    mdelta = torch.cat([torch.where(news_mask, torch.where(is_beg, 1, -1), 0),
+                        torch.zeros(cap, dtype=torch.int64, device=ks.device)])
+    val_in = torch.cat([torch.where(is_beg, commit_off, resume_val).to(torch.int32),
+                        vs])
+    perm = lexsort([rows[:, w] for w in range(W)] + [flag])
+    merged = rows[perm]
+    mcov = _cumsum32(mdelta[perm].to(torch.int32)) > 0
+    val = torch.where((flag[perm] == 1) & mcov, commit_off, val_in[perm])
+    val = val.to(torch.int32)
+    keep, new_count = _coalesce(merged, val)
+    new_ks, new_vs = _compact_by_sort(keep, merged, val, cap)
+    return new_ks, new_vs, new_count
+
+
+def _union_sorted(ks, vs, wb, we, wb_rank, we_rank, w_ins, *, cap: int):
+    """The union on the element domain, produced sorted by one 2Wn-row
+    sort (begins before equal ends): the coverage transitions ARE the
+    canonical boundaries.  Returns (u_rows, u_rank, is_beg, news_mask,
+    resume_val), all in sorted order."""
+    Wn, W = wb.shape
+    live = torch.cat([w_ins, w_ins])
+    rows = torch.where(live[:, None], torch.cat([wb, we], dim=0), SENT_LANE)
+    tie = torch.cat([torch.zeros(Wn, dtype=torch.int32, device=wb.device),
+                     torch.ones(Wn, dtype=torch.int32, device=wb.device)])
+    delta = torch.where(live, 1 - 2 * tie, 0)
+    perm = lexsort([rows[:, w] for w in range(W)] + [tie])
+    u_rows, u_rank = rows[perm], torch.cat([wb_rank, we_rank])[perm]
+    cov = _cumsum32(delta[perm])
+    prev = torch.cat([cov.new_zeros(1), cov[:-1]])
+    is_beg = (cov > 0) & (prev <= 0)
+    news_mask = is_beg | ((cov <= 0) & (prev > 0))
+    return (u_rows, u_rank, is_beg, news_mask,
+            _resume_values(ks, vs, u_rows, u_rank, cap))
+
+
+def phase_merge_gather(ks, vs, wb, we, wb_rank, we_rank, w_ins, commit_off, *,
+                       cap: int):
+    """The gather merge (a referee): the news' positions follow from the
+    search's ranks (rank + index among news), one searchsorted gives "#news
+    at positions <= p", and the merged domain is built by gathers; a
+    stable 1-bit sort and two cap-row gathers compact it.  Returns
+    (new_ks, new_vs, new_count)."""
+    n = 2 * wb.shape[0]
+    u_rows, u_rank, is_beg, news_mask, resume_val = _union_sorted(
+        ks, vs, wb, we, wb_rank, we_rank, w_ins, cap=cap)
+    M = cap + n
+    j = _cumsum32(news_mask.to(torch.int32)) - 1
+    # news past a full state are dropped, not clamped (as phase_merge)
+    pos_new = torch.where(news_mask & (u_rank < cap), u_rank + j, M).to(torch.int32)
+    val_new = torch.where(is_beg, commit_off, resume_val).to(torch.int32)
+    order = lexsort([pos_new])
+    p = _arange(M, ks)
+    nb = torch.searchsorted(pos_new[order], p, right=True).to(torch.int32)
+    is_new = nb > torch.cat([nb.new_zeros(1), nb[:-1]])
+    src = order[torch.clamp(nb - 1, 0, n - 1).long()]
+    old_idx = torch.clamp(p - nb, 0, cap - 1).long()
+    mcov = _cumsum32(torch.where(is_new, torch.where(is_beg[src], 1, -1), 0)
+                     .to(torch.int32)) > 0
+    sent = ~is_new & (ks[old_idx, -1] == SENT_LANE)
+    val = torch.where(is_new, val_new[src],
+                      torch.where(mcov, commit_off, vs[old_idx])).to(torch.int32)
+    keep = ~sent
+    keep[1:] &= val[1:] != val[:-1]
+    new_count = keep.sum(dtype=torch.int32)
+    kperm = lexsort([(~keep).to(torch.int32)])[:cap]
+    q_live = _arange(cap, ks) < new_count
+    out = torch.where(is_new[kperm][:, None], u_rows[src[kperm]],
+                      ks[old_idx[kperm]])
+    new_ks = torch.where(q_live[:, None], out, SENT_LANE)
+    new_vs = torch.where(q_live, val[kperm], 0)
+    return new_ks, new_vs, new_count
+
+
+_MERGE_IMPLS = {
+    "scatter": phase_merge,
+    "sort": phase_merge_sort,
+    "gather": phase_merge_gather,
+}
+
+
+def resolve_core(ks, vs, bidx, count, rb, re_, r_tx, wb, we, w_tx, snap,
+                 active, commit_off, *, cap: int, n_txn: int,
+                 search_iters: int = FAST_SEARCH_ITERS,
+                 merge_impl: str = "scatter", search_impl: str = "bucket"):
+    """One legacy resolve of the flat layout: ONE state search of every
+    query class (bucketed, or the sort), history by range-max of vs, the
+    intra-batch fixpoint (kernel K2), and the committed writes merged into
+    the state.  `count` is an int or a device scalar.  Returns (verdict,
+    new_ks, new_vs, new_count, new_bidx, converged, fixpoint iterations
+    int32[1]); converged is a device bool (None for the sort search), and
+    new_count > cap means the merge dropped rows."""
+    B = n_txn
+    r_ok, r_idx, w_ok, w_idx = _batch_masks(r_tx, wb, w_tx, B)
+    if search_impl == "sort":
+        g_lo, g_hi, wb_rank, we_rank = phase_search_sort(ks, count, rb, re_, wb, we)
+        conv = None
+    else:
+        g_lo, g_hi, wb_rank, we_rank, conv = phase_search(
+            ks, bidx, count, rb, re_, wb, we, r_ok, w_ok, search_iters)
+    hist = phase_history(vs, g_lo, g_hi, snap, r_idx, r_ok, B)
+    intra, n_iters = phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx,
+                                 active, hist, B)
+    committed = active & ~hist & ~intra
+    new_ks, new_vs, new_count = _MERGE_IMPLS[merge_impl](
+        ks, vs, wb, we, wb_rank, we_rank, w_ok & committed[w_idx], commit_off,
+        cap=cap)
+    # the bucket index feeds only the bucketed search
+    new_bidx = bidx if search_impl == "sort" else _rebuild_buckets(new_ks)
+    return (_verdicts(active, committed), new_ks, new_vs, new_count, new_bidx,
+            conv, n_iters)
+
+
+def resolve_core_lsm(ks, hist_tab, bidx, count, rec_ks, rec_vs, rec_bidx,
+                     rec_count, rb, re_, r_tx, wb, we, w_tx, snap, active,
+                     commit_off, *, rec_cap: int, n_txn: int,
+                     search_iters: int = FAST_SEARCH_ITERS,
+                     rec_iters: int = FAST_SEARCH_ITERS,
+                     search_impl: str = "bucket", merge_impl: str = "scatter"):
+    """One legacy resolve of the LSM layout: main is read-only (reads
+    searched, history from its cached table), the recent level is searched
+    for every query class, history is main's ORed with the recent level's,
+    and the committed writes merge into the recent level only.  Returns
+    (verdict, rec_ks', rec_vs', rec_bidx', rec_count', converged, fixpoint
+    iterations int32[1])."""
+    B = n_txn
+    r_ok, r_idx, w_ok, w_idx = _batch_masks(r_tx, wb, w_tx, B)
+    g_lo_m, g_hi_m, conv = inc_search(ks, bidx, count, rb, re_, r_tx,
+                                      search_iters=search_iters,
+                                      search_impl=search_impl)
+    if search_impl == "sort":
+        g_lo_r, g_hi_r, wb_rank, we_rank = phase_search_sort(
+            rec_ks, rec_count, rb, re_, wb, we)
+    else:
+        g_lo_r, g_hi_r, wb_rank, we_rank, conv_r = phase_search(
+            rec_ks, rec_bidx, rec_count, rb, re_, wb, we, r_ok, w_ok, rec_iters)
+        conv = conv & conv_r
+    hist = (history_from_table(hist_tab, g_lo_m, g_hi_m, snap, r_idx, r_ok, B)
+            | phase_history(rec_vs, g_lo_r, g_hi_r, snap, r_idx, r_ok, B))
+    intra, n_iters = phase_intra(rb, re_, wb, we, r_ok, w_ok, r_idx, w_idx, w_tx,
+                                 active, hist, B)
+    committed = active & ~hist & ~intra
+    nrk, nrv, nrc = _MERGE_IMPLS[merge_impl](
+        rec_ks, rec_vs, wb, we, wb_rank, we_rank, w_ok & committed[w_idx],
+        commit_off, cap=rec_cap)
+    nrb = rec_bidx if search_impl == "sort" else _rebuild_buckets(nrk)
+    return _verdicts(active, committed), nrk, nrv, nrb, nrc, conv, n_iters
 
 
 # ---------------------------------------------------------------------------
@@ -804,26 +1172,49 @@ class BatchStager:
 # the conflict set
 
 
-class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
-    """ConflictSet backed by the torch/CUDA check above — the incremental
-    layouts of the reference's DeviceConflictSet, with the same duck-typed
-    surface the resolver role calls (resolve_batch, resolve_deferred,
-    remove_before, oldest_version, kernel_stats, ...).  `device=None` means
-    CUDA and raises without one; the CPU tests pass `device="cpu"`.
+def _check_choice(kind: str, value, choices) -> None:
+    if value not in choices:
+        raise ValueError(f"unknown {kind} {value!r}; choose one of {choices}")
 
-    `lsm` and `search_impl` take the reference constructor's defaults
-    (flat, sort search); `lsm=True, search_impl="bucket"` is bench.py's
-    best-known layout.  The split-phase resolve (`resolve_deferred`,
-    conflict/pipeline.py) dispatches batch N+1 before batch N's verdicts
-    are read, with snapshot/replay recovery when a deferred check fails."""
+
+def _check_flag(name: str, value) -> None:
+    if value not in (True, False):
+        raise ValueError(f"{name} must be True or False, got {value!r}")
+
+
+class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
+    """ConflictSet backed by the torch/CUDA check above — the reference's
+    DeviceConflictSet, with the same duck-typed surface the resolver role
+    calls (resolve_batch, resolve_deferred, remove_before, oldest_version,
+    kernel_stats, ...).  `device=None` means CUDA and raises without one;
+    the CPU tests pass `device="cpu"`.
+
+    The keywords are the reference constructor's, with its defaults and no
+    environment read: `incremental=True` appends each batch as a run (the
+    default), `incremental=False` merges it into the state every batch
+    (the legacy layouts); `lsm=True` caches main's history table and, on
+    the legacy path, merges into a recent level of `recent_capacity` rows
+    that compacts into main when full; `search_impl` picks the state
+    search, `merge_impl` the merge and fold ("scatter", or its referees
+    "sort" and "gather"); `rec_search_iters` is the recent level's
+    bucketed-search depth.  `lsm=True, search_impl="bucket"` is bench.py's
+    best-known layout.  `phase_timing=True` runs each synchronous
+    incremental resolve as three dispatches, search, check and append,
+    each waited out, and adds their wall times to `stats.sort_s`,
+    `scan_s` and `append_s` (profiling only: same verdicts and state).
+    The split-phase resolve (`resolve_deferred`, conflict/pipeline.py)
+    dispatches batch N+1 before batch N's verdicts are read, with
+    snapshot/replay recovery when a deferred check fails."""
 
     # everything a dispatch, GC, regrow or compaction can move: the
     # recovery snapshot of a pipelined window.  Safe as references because
     # every update rebinds these attributes and never writes a tensor in
     # place (conflict/pipeline.py says why).
     _PIPELINE_SNAPSHOT_ATTRS = (
-        "_ks", "_vs", "_bidx", "_tab", "_count", "_cap", "_dev_ok",
-        "_pipelined_since_check", "_last_commit", "_base", "_oldest",
+        "_ks", "_vs", "_bidx", "_tab", "_count", "_count_ub", "_dev_count",
+        "_cap", "_dev_ok", "_pipelined_since_check", "_last_commit", "_base",
+        "_oldest", "_rec_ks", "_rec_vs", "_rec_bidx", "_rec_count",
+        "_rec_count_ub", "_rec_dev_count", "_rec_cap",
         "_runs_b", "_runs_e", "_runs_ver", "_n_runs", "_run_rows_ub",
         "_run_cap",
     )
@@ -834,21 +1225,30 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         *,
         max_key_bytes: int = keymod.DEFAULT_MAX_KEY_BYTES,
         capacity: int = 1 << 16,
+        merge_impl: str = "scatter",     # "scatter" | "sort" | "gather"
         search_impl: str = "sort",       # "sort" | "bucket"
         lsm: bool = False,               # cache main's history table
+        recent_capacity: int = 1 << 13,  # LSM recent-level capacity
+        incremental: bool = True,        # run append + deferred merge
         run_slots: int = 8,              # K: deferred-merge compaction threshold
         run_capacity: int = 1 << 12,     # per-run interval capacity (auto-grows)
+        rec_search_iters: int = FAST_SEARCH_ITERS,  # recent-level search depth
+        phase_timing: bool = False,      # per-phase barriers and wall times
         device=None,
     ) -> None:
-        if search_impl not in SEARCH_IMPLS:
-            raise ValueError(
-                f"unknown search_impl {search_impl!r}; choose one of {SEARCH_IMPLS}"
-            )
-        if lsm not in (True, False):
-            raise ValueError(f"lsm must be True or False, got {lsm!r}")
+        _check_choice("search_impl", search_impl, SEARCH_IMPLS)
+        _check_choice("merge_impl", merge_impl, MERGE_IMPLS)
+        for name, flag in (("lsm", lsm), ("incremental", incremental),
+                           ("phase_timing", phase_timing)):
+            _check_flag(name, flag)
         self.device = resolve_device(device)
         self._search_impl = search_impl
+        self._merge_impl = merge_impl
         self._lsm = bool(lsm)
+        self._incremental = bool(incremental)
+        self._phase_timing = bool(phase_timing)
+        # a too-shallow depth costs a full-depth replay, never correctness
+        self._rec_iters = max(1, min(int(rec_search_iters), 32))
         self._K = run_slots
         self._max_key_bytes = max_key_bytes
         self._W = keymod.num_words(max_key_bytes)
@@ -856,35 +1256,80 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self._oldest = oldest_version
         self._last_commit = oldest_version
         self.stats = KernelStats(backend=self.device.type)
-        self.stats.merge_impl = "scatter"
+        self.stats.merge_impl = merge_impl
         self.search_fallbacks = 0  # bucketed searches replayed at full depth
         self.host_syncs = 0        # reads of a device value on the host
         # the fixpoint iterations of every resolve, summed on the device
         # (rebound, never updated in place)
         self._intra_iters = torch.zeros(1, dtype=torch.int64, device=self.device)
         # the pipelined stream's validity: the AND of every sync=False
-        # dispatch's search convergence since the last check
+        # dispatch's search convergence (and, legacy, capacity) since the
+        # last check
         self._dev_ok = torch.ones((), dtype=torch.bool, device=self.device)
         self._pipelined_since_check = 0
         self._pipeline_init()
         self._init_state(capacity)
-        self._init_runs(run_capacity)
+        self._rec_cap = recent_capacity
+        self._rec_ks = self._rec_vs = self._rec_bidx = self._rec_dev_count = None
+        self._rec_count = self._rec_count_ub = 0
+        if self._lsm:
+            self._init_recent(recent_capacity)
+        self._runs_b = self._runs_e = self._runs_ver = None
+        self._n_runs = self._run_rows_ub = 0
+        self._run_cap = run_capacity
+        if self._incremental:
+            self._init_runs(run_capacity)
 
     # -- state ---------------------------------------------------------------
+    def _floor_rows(self, n: int) -> np.ndarray:
+        """n sentinel rows (uint32 layout) but the first, the empty key."""
+        rows = np.full((n, self._W), _SENT_WORD, dtype=np.uint32)
+        rows[0] = keymod.encode_keys([b""], self._max_key_bytes)[0]
+        return rows
+
     def _init_state(self, capacity: int) -> None:
-        nks = np.full((capacity, self._W), _SENT_WORD, dtype=np.uint32)
-        nks[0] = keymod.encode_keys([b""], self._max_key_bytes)[0]
+        nks = self._floor_rows(capacity)
         self._cap = capacity
         self._ks = to_lanes(nks, self.device)
         self._vs = torch.zeros(capacity, dtype=torch.int32, device=self.device)
-        self._count = 1
+        # the live count: `_count` on the host, or, while a legacy pipelined
+        # stream is undrained, None and `_dev_count` on the device
+        self._count = self._count_ub = 1
+        self._dev_count = None
         self._bidx = torch.from_numpy(host_bucket_index(nks)).to(self.device)
         self._tab = self._history_table()
+
+    def _main_count(self):
+        return self._dev_count if self._count is None else self._count
 
     def _history_table(self):
         """The LSM layout's cached range-max table of main (None when flat:
         the check then builds it from vs every batch)."""
         return build_sparse_table(self._vs, torch.maximum, 0) if self._lsm else None
+
+    def _init_recent(self, rec_cap: int) -> None:
+        """A fresh recent level: the empty key at version 0.  Idle on the
+        incremental path, where the runs play its part."""
+        rk = self._floor_rows(rec_cap)
+        self._rec_cap = rec_cap
+        self._rec_ks = to_lanes(rk, self.device)
+        self._rec_vs = torch.zeros(rec_cap, dtype=torch.int32, device=self.device)
+        self._rec_bidx = torch.from_numpy(host_bucket_index(rk)).to(self.device)
+        self._rec_count = self._rec_count_ub = 1
+        self._rec_dev_count = None
+
+    def _rec_count_now(self):
+        return self._rec_dev_count if self._rec_count is None else self._rec_count
+
+    def _grow_recent(self, new_rec_cap: int) -> None:
+        """Sentinel-pad the recent level to new_rec_cap (no fold)."""
+        rk = torch.full((new_rec_cap, self._W), SENT_LANE, dtype=torch.int32,
+                        device=self.device)
+        rk[: self._rec_cap] = self._rec_ks
+        rv = torch.zeros(new_rec_cap, dtype=torch.int32, device=self.device)
+        rv[: self._rec_cap] = self._rec_vs
+        self._rec_cap, self._rec_ks, self._rec_vs = new_rec_cap, rk, rv
+        self._rec_bidx = _rebuild_buckets(rk)
 
     def _init_runs(self, run_cap: int) -> None:
         run_cap = _bucket(run_cap)  # the reference's stride math wants 2**k
@@ -921,60 +1366,87 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
 
     def export_state(self) -> dict:
         """The whole state as numpy, keys in the reference's uint32 layout
-        (what the reference set holds as _ks/_vs/_bidx/_tab/_runs_*/... );
-        `tab` only for the LSM layout.  Fresh arrays: nothing aliases the
+        (what the reference set holds as _ks/_vs/_bidx/_tab/_rec_*/_runs_*
+        ...): the runs only on the incremental path, `tab` and the recent
+        level only for the LSM layout.  Fresh arrays: nothing aliases the
         live tensors."""
         out = {
             "ks": from_lanes(self._ks),
             "vs": self._vs.cpu().numpy().copy(),
             "bidx": self._bidx.cpu().numpy().copy(),
-            "runs_b": from_lanes(self._runs_b),
-            "runs_e": from_lanes(self._runs_e),
-            "runs_ver": self._runs_ver.cpu().numpy().copy(),
-            "count": self._count,
-            "n_runs": self._n_runs,
+            "count": self._host_count(),
             "cap": self._cap,
-            "run_cap": self._run_cap,
-            "K": self._K,
             "base": self._base,
             "oldest": self._oldest,
             "last_commit": self._last_commit,
-            "run_rows_ub": self._run_rows_ub,
+            "merge_impl": self._merge_impl,
         }
+        if self._incremental:
+            out.update(
+                runs_b=from_lanes(self._runs_b), runs_e=from_lanes(self._runs_e),
+                runs_ver=self._runs_ver.cpu().numpy().copy(),
+                n_runs=self._n_runs, run_cap=self._run_cap, K=self._K,
+                run_rows_ub=self._run_rows_ub,
+            )
         if self._lsm:
-            out["tab"] = self._tab.cpu().numpy().copy()
+            out.update(
+                tab=self._tab.cpu().numpy().copy(),
+                rec_ks=from_lanes(self._rec_ks),
+                rec_vs=self._rec_vs.cpu().numpy().copy(),
+                rec_bidx=self._rec_bidx.cpu().numpy().copy(),
+                rec_count=self._host_rec_count(), rec_cap=self._rec_cap,
+            )
         return out
 
     def load_state(self, d: dict) -> None:
         """Adopt a state exported by `export_state` — or built from the
-        reference set's attributes — and continue from it.  bidx and tab
-        are functions of ks and vs, and are rebuilt from them."""
+        reference set's attributes — and continue from it.  tab is a
+        function of vs and is rebuilt; bidx (and rec_bidx) are adopted when
+        given, since the sort search leaves them as they were, and rebuilt
+        from ks when not."""
         self._drain_all()
         ks = np.asarray(d["ks"], dtype=np.uint32)
-        runs_b = np.asarray(d["runs_b"], dtype=np.uint32)
-        K, run_cap, W = runs_b.shape
+        W = ks.shape[1]
         if W != self._W or ks.shape != (int(d["cap"]), W):
             raise ValueError(
                 f"state of key width {W} / shape {ks.shape} does not fit "
                 f"this set (W={self._W})"
             )
-        if (K, run_cap) != (int(d["K"]), int(d["run_cap"])):
-            raise ValueError("runs shape disagrees with K / run_cap")
-        self._K = K
+        if self._incremental:
+            runs_b = np.asarray(d["runs_b"], dtype=np.uint32)
+            if runs_b.shape != (int(d["K"]), int(d["run_cap"]), W):
+                raise ValueError("runs shape disagrees with K / run_cap")
+        merge_impl = d.get("merge_impl", self._merge_impl)
+        _check_choice("merge_impl", merge_impl, MERGE_IMPLS)
+        self._merge_impl = self.stats.merge_impl = str(merge_impl)
         self._cap = int(d["cap"])
-        self._run_cap = run_cap
         self._ks = to_lanes(ks, self.device)
-        self._vs = torch.from_numpy(np.array(d["vs"], dtype=np.int32)).to(self.device)
-        self._bidx = _rebuild_buckets(self._ks)
+        self._vs = self._i32(d["vs"])
+        self._bidx = (self._i32(d["bidx"]) if "bidx" in d
+                      else _rebuild_buckets(self._ks))
         self._tab = self._history_table()
-        self._runs_b = to_lanes(runs_b, self.device)
-        self._runs_e = to_lanes(d["runs_e"], self.device)
-        self._runs_ver = torch.from_numpy(
-            np.array(d["runs_ver"], dtype=np.int32)
-        ).to(self.device)
-        for key in ("count", "n_runs", "base", "oldest", "last_commit",
-                    "run_rows_ub"):
+        self._count = self._count_ub = int(d["count"])
+        self._dev_count = None
+        for key in ("base", "oldest", "last_commit"):
             setattr(self, "_" + key, int(d[key]))
+        if self._incremental:
+            self._K, self._run_cap = int(d["K"]), int(d["run_cap"])
+            self._runs_b = to_lanes(runs_b, self.device)
+            self._runs_e = to_lanes(d["runs_e"], self.device)
+            self._runs_ver = self._i32(d["runs_ver"])
+            self._n_runs = int(d["n_runs"])
+            self._run_rows_ub = int(d["run_rows_ub"])
+        if self._lsm:
+            self._rec_cap = int(d["rec_cap"])
+            self._rec_ks = to_lanes(d["rec_ks"], self.device)
+            self._rec_vs = self._i32(d["rec_vs"])
+            self._rec_bidx = (self._i32(d["rec_bidx"]) if "rec_bidx" in d
+                              else _rebuild_buckets(self._rec_ks))
+            self._rec_count = self._rec_count_ub = int(d["rec_count"])
+            self._rec_dev_count = None
+
+    def _i32(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(self.device)
 
     # -- properties ----------------------------------------------------------
     @property
@@ -985,11 +1457,34 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     def capacity(self) -> int:
         return self._cap
 
+    def _host_count(self) -> int:
+        if self._count is None:
+            self._count = self._host_int(self._dev_count)
+        return self._count
+
+    def _host_rec_count(self) -> int:
+        if self._rec_count is None:
+            self._rec_count = self._host_int(self._rec_dev_count)
+        return self._rec_count
+
+    @property
+    def boundary_count(self) -> int:
+        """Live boundaries of main, plus the recent level's when `lsm`
+        (1 on the incremental path, where that level stays idle), plus an
+        upper bound on run rows (2*Wn per append) — the reference's count.
+        Reads a count on the host while a legacy pipelined stream is
+        undrained."""
+        n = self._host_count()
+        if self._lsm:
+            n += self._host_rec_count()
+        if self._incremental:
+            n += self._run_rows_ub
+        return n
+
     @property
     def node_count(self) -> int:
-        """Live boundaries of main plus an upper bound on run rows (2*Wn
-        per append) — the skip-list node-count analog."""
-        return self._count + self._run_rows_ub
+        """The skip-list node-count analog: `boundary_count`."""
+        return self.boundary_count
 
     def healthcheck(self) -> bool:
         """One tiny host<->device round trip through the live state."""
@@ -1011,6 +1506,10 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     def _host_numpy(self, t: torch.Tensor) -> np.ndarray:
         self.host_syncs += 1
         return t.cpu().numpy()
+
+    def _barrier(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _offset(self, version: int) -> int:
         off = version - self._base
@@ -1052,6 +1551,24 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         codes = self.resolve_arrays(commit_version, *packed[:8])
         return [Verdict(int(c)) for c in codes[:B]]
 
+    def _stage(self, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p):
+        """The batch as device tensors: a numpy batch staged in one copy,
+        or the tensors of a staged batch, checked to lie on this device."""
+        if isinstance(rtv, np.ndarray):
+            t_h2d = time.perf_counter()
+            batch = stage_batch(self.device, rbv, rev, rtv, wbv, wev, wtv,
+                                snap_p, active_p)
+            self.stats.h2d_s += time.perf_counter() - t_h2d
+            return batch
+        batch = (rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p)
+        for t in batch:
+            if t.device != self.device:
+                raise ValueError(
+                    f"a staged batch tensor is on {t.device}, the set on "
+                    f"{self.device}"
+                )
+        return batch
+
     def resolve_arrays(
         self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p,
         sync: bool = True,
@@ -1064,15 +1581,17 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         sync=True (default): returns the int32 verdicts of the padded batch
         as numpy.  A bucketed search that did not converge (a 16-bit-prefix
         bucket deeper than FAST_SEARCH_ITERS rounds reach) is replayed at
-        full depth, counted in `search_fallbacks`.
+        full depth, counted in `search_fallbacks`; a legacy merge that
+        outgrew its level regrows (flat) or compacts (LSM) and replays.
 
         sync=False: PIPELINED — dispatches and returns the verdicts as a
         device tensor without reading anything on the host (but a
         compaction's fold counts, on the batch that compacts).  The
-        search's convergence folds into a device flag; `check_pipelined()`
-        reads it, and raises if a batch since the last check did not
-        converge: its verdicts are wrong and the stream must be replayed
-        through sync=True (resolve_deferred does that itself)."""
+        search's convergence (and, legacy, the merged count's fit) folds
+        into a device flag; `check_pipelined()` reads it, and raises if a
+        batch since the last check failed: its verdicts are wrong and the
+        stream must be replayed through sync=True (resolve_deferred does
+        that itself)."""
         if sync and self._inflight:
             # a deferred window is open: settle it first so the sync
             # result (and any fallback replay) sees the final state
@@ -1081,52 +1600,36 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             raise ValueError(
                 f"commit_version {commit_version} not after last batch {self._last_commit}"
             )
-        Bp, R, Wn = snap_p.shape[0], rbv.shape[0], wbv.shape[0]
+        R, Wn = rbv.shape[0], wbv.shape[0]
         commit_off = self._offset(commit_version)
         t0 = time.perf_counter()
-        if 2 * Wn > self._run_cap:
-            self._grow_runs(_bucket(2 * Wn))
-        if self._n_runs >= self._K:
-            self._compact_runs()
-        host_batch = isinstance(rtv, np.ndarray)
-        if host_batch:
-            t_h2d = time.perf_counter()
-            batch = stage_batch(self.device, rbv, rev, rtv, wbv, wev, wtv,
-                                snap_p, active_p)
-            self.stats.h2d_s += time.perf_counter() - t_h2d
+        if self._incremental:
+            if 2 * Wn > self._run_cap:
+                self._grow_runs(_bucket(2 * Wn))
+            if self._n_runs >= self._K:
+                self._compact_runs()
+        elif self._lsm:
+            if 2 * Wn + 1 > self._rec_cap:  # a batch bigger than the level
+                self._grow_recent(_bucket(4 * Wn + 2))
+            if self._rec_count_ub + 2 * Wn > self._rec_cap:
+                self._compact()
+        elif not sync and self._count_ub + 2 * Wn > self._cap:
+            # the merge may outgrow main: learn the exact count, and if it
+            # really is near capacity, go through sync (which regrows)
+            self.check_pipelined()
+            if self._count_ub + 2 * Wn > self._cap:
+                v = self.resolve_arrays(commit_version, rbv, rev, rtv, wbv,
+                                        wev, wtv, snap_p, active_p)
+                return torch.from_numpy(v).to(self.device)
+        batch = self._stage(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p)
+        if self._incremental:
+            verdict, conv = self._resolve_inc(batch, commit_off, Wn, sync)
+        elif self._lsm:
+            verdict, conv = self._resolve_lsm(batch, commit_off, Wn, sync)
         else:
-            batch = (rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p)
-            for t in batch:
-                if t.device != self.device:
-                    raise ValueError(
-                        f"a staged batch tensor is on {t.device}, the set on "
-                        f"{self.device}"
-                    )
-        core, hist_base = ((resolve_core_inc_lsm, self._tab) if self._lsm
-                           else (resolve_core_inc, self._vs))
-        iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
-        while True:
-            verdict, nb, ne, nv, conv, n_iters = core(
-                self._ks, hist_base, self._bidx, self._count,
-                self._runs_b, self._runs_e, self._runs_ver, self._n_runs,
-                *batch, commit_off, n_txn=Bp, run_cap=self._run_cap,
-                search_iters=iters, search_impl=self._search_impl,
-            )
-            if not sync or conv is None or self._host_bool(conv):
-                break
-            # a bucket deeper than 2**iters (shared-prefix keys): replay at
-            # full search depth — nothing was written, so the replay is exact
-            self.search_fallbacks += 1
-            self.stats.search_fallbacks += 1
-            testcov("kernel.search_fallback.inc")
-            iters = _levels(self._cap) + 1
-        self._runs_b, self._runs_e, self._runs_ver = nb, ne, nv
-        self._intra_iters = self._intra_iters + n_iters
-        self._n_runs += 1
-        self._run_rows_ub += 2 * Wn
+            verdict, conv = self._resolve_flat(batch, commit_off, Wn, sync)
         self._last_commit = commit_version
-        self.stats.runs_appended += 1
-        if host_batch:  # counting rows of a staged batch would sync
+        if isinstance(rtv, np.ndarray):  # counting rows of a staged batch would sync
             self.stats.real_rows += int((rtv >= 0).sum()) + int((wtv >= 0).sum())
             self.stats.padded_rows += R + Wn
         if not sync:
@@ -1138,7 +1641,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             self.stats.note_batch(0, 0, time.perf_counter() - t0)  # dispatch only
             return verdict
         v_np = self._host_numpy(verdict)
-        if host_batch:
+        if isinstance(rtv, np.ndarray):
             active_np = np.asarray(active_p)
             n_txn = int(active_np.sum())
             aborted = int(((v_np == int(Verdict.CONFLICT)) & active_np).sum())
@@ -1147,11 +1650,172 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self.stats.note_batch(n_txn, aborted, time.perf_counter() - t0)
         return v_np
 
+    def _fell_back(self, site: str) -> None:
+        self.search_fallbacks += 1
+        self.stats.search_fallbacks += 1
+        testcov(site)
+
+    def _resolve_inc(self, batch, commit_off: int, Wn: int, sync: bool):
+        """The incremental resolve: main read-only, the committed writes
+        appended as run `_n_runs`.  Returns (verdict, the pipelined
+        validity to fold in, or None)."""
+        core, hist_base = ((resolve_core_inc_lsm, self._tab) if self._lsm
+                           else (resolve_core_inc, self._vs))
+        if sync and self._phase_timing:
+            verdict, nb, ne, nv, n_iters = self._resolve_inc_timed(
+                batch, commit_off, hist_base)
+            conv = None
+        else:
+            iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
+            while True:
+                verdict, nb, ne, nv, conv, n_iters = core(
+                    self._ks, hist_base, self._bidx, self._count,
+                    self._runs_b, self._runs_e, self._runs_ver, self._n_runs,
+                    *batch, commit_off, n_txn=batch[6].shape[0],
+                    run_cap=self._run_cap, search_iters=iters,
+                    search_impl=self._search_impl,
+                )
+                if not sync or conv is None or self._host_bool(conv):
+                    break
+                # a bucket deeper than 2**iters (shared-prefix keys): replay
+                # at full search depth — nothing was written, so it is exact
+                self._fell_back("kernel.search_fallback.inc")
+                iters = _levels(self._cap) + 1
+        self._runs_b, self._runs_e, self._runs_ver = nb, ne, nv
+        self._intra_iters = self._intra_iters + n_iters
+        self._n_runs += 1
+        self._run_rows_ub += 2 * Wn
+        self.stats.runs_appended += 1
+        return verdict, conv
+
+    def _resolve_inc_timed(self, batch, commit_off: int, hist_base):
+        """The split-phase synchronous resolve of `phase_timing`: search,
+        check and append dispatched one at a time, each waited out, their
+        wall times added to stats.sort_s / scan_s / append_s.  The same
+        functions as the fused resolve, so the same verdicts and state.
+        Returns (verdict, runs_b', runs_e', runs_ver', fixpoint
+        iterations)."""
+        rb, re_, r_tx, wb, we, w_tx, snap, active = batch
+        iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
+        while True:
+            t = time.perf_counter()
+            g_lo, g_hi, conv = inc_search(
+                self._ks, self._bidx, self._count, rb, re_, r_tx,
+                search_iters=iters, search_impl=self._search_impl,
+            )
+            self._barrier()
+            self.stats.sort_s += time.perf_counter() - t
+            if conv is None or self._host_bool(conv):
+                break
+            self._fell_back("kernel.search_fallback.inc_timed")
+            iters = _levels(self._cap) + 1
+        t = time.perf_counter()
+        verdict, w_ins, n_iters = inc_check(
+            self._tab if self._lsm else self._vs, g_lo, g_hi, rb, re_, r_tx,
+            wb, we, w_tx, snap, active, self._runs_b, self._runs_e,
+            self._runs_ver, n_txn=snap.shape[0], from_table=self._lsm,
+        )
+        self._barrier()
+        self.stats.scan_s += time.perf_counter() - t
+        t = time.perf_counter()
+        nb, ne, nv = inc_append(self._runs_b, self._runs_e, self._runs_ver,
+                                self._n_runs, wb, we, w_ins, commit_off,
+                                run_cap=self._run_cap)
+        self._barrier()
+        self.stats.append_s += time.perf_counter() - t
+        return verdict, nb, ne, nv, n_iters
+
+    def _resolve_flat(self, batch, commit_off: int, Wn: int, sync: bool):
+        """The legacy flat resolve: the whole state merges this batch's
+        committed writes.  Synchronous, a merge that outgrew main regrows
+        it from the pre-batch state (nothing was written) and replays.
+        Returns (verdict, the pipelined validity to fold in)."""
+        def dispatch(iters):
+            return resolve_core(
+                self._ks, self._vs, self._bidx, self._main_count(), *batch,
+                commit_off, cap=self._cap, n_txn=batch[6].shape[0],
+                search_iters=iters, merge_impl=self._merge_impl,
+                search_impl=self._search_impl,
+            )
+
+        fast = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
+        if not sync:
+            verdict, nk, nv, nc, nb, conv, n_iters = dispatch(fast)
+            self._ks, self._vs, self._bidx = nk, nv, nb
+            self._count, self._dev_count = None, nc
+            self._count_ub += 2 * Wn
+            fits = nc <= self._cap
+            ok = fits if conv is None else conv & fits
+        else:
+            while True:
+                iters = fast
+                while True:
+                    verdict, nk, nv, nc, nb, conv, n_iters = dispatch(iters)
+                    if conv is None or self._host_bool(conv):
+                        break
+                    self._fell_back("kernel.search_fallback.flat")
+                    iters = _levels(self._cap) + 1
+                nc_i = self._host_int(nc)
+                if nc_i <= self._cap:
+                    break
+                # the merge dropped boundaries: regrow and replay
+                self._grow_main(max(self._cap * 2, _bucket(nc_i)))
+            self._ks, self._vs, self._bidx = nk, nv, nb
+            self._count = self._count_ub = nc_i
+            self._dev_count = None
+            ok = None
+        self._intra_iters = self._intra_iters + n_iters
+        self.stats.full_merges += 1
+        return verdict, ok
+
+    def _resolve_lsm(self, batch, commit_off: int, Wn: int, sync: bool):
+        """The legacy LSM resolve: the committed writes merge into the
+        recent level.  Synchronous, a merge that outgrew the level (the
+        coalescing estimate beaten) compacts it into main and replays.
+        Returns (verdict, the pipelined validity to fold in)."""
+        def dispatch(iters, rec_iters):
+            return resolve_core_lsm(
+                self._ks, self._tab, self._bidx, self._count, self._rec_ks,
+                self._rec_vs, self._rec_bidx, self._rec_count_now(), *batch,
+                commit_off, rec_cap=self._rec_cap, n_txn=batch[6].shape[0],
+                search_iters=iters, rec_iters=rec_iters,
+                search_impl=self._search_impl, merge_impl=self._merge_impl,
+            )
+
+        while True:
+            iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
+            rec_iters = min(self._rec_iters, _levels(self._rec_cap) + 1)
+            if not sync:
+                verdict, nrk, nrv, nrb, nrc, conv, n_iters = dispatch(iters, rec_iters)
+                self._rec_count, self._rec_dev_count = None, nrc
+                self._rec_count_ub += 2 * Wn
+                fits = nrc <= self._rec_cap
+                ok = fits if conv is None else conv & fits
+                break
+            while True:
+                verdict, nrk, nrv, nrb, nrc, conv, n_iters = dispatch(iters, rec_iters)
+                if conv is None or self._host_bool(conv):
+                    break
+                self._fell_back("kernel.search_fallback.lsm")
+                iters = _levels(self._cap) + 1
+                rec_iters = _levels(self._rec_cap) + 1
+            nrc_i = self._host_int(nrc)
+            if nrc_i <= self._rec_cap:
+                self._rec_count = self._rec_count_ub = nrc_i
+                self._rec_dev_count = None
+                ok = None
+                break
+            self._compact()
+        self._rec_ks, self._rec_vs, self._rec_bidx = nrk, nrv, nrb
+        self._intra_iters = self._intra_iters + n_iters
+        self.stats.full_merges += 1
+        return verdict, ok
+
     def check_pipelined(self) -> None:
         """Read the deferred validity of the sync=False resolves since the
-        last check: ONE device flag, folded across the stream.  Raises if
-        any of them did not converge; the stream must then be replayed
-        through sync=True resolves."""
+        last check: ONE device flag, folded across the stream (and, on the
+        legacy path, the live count).  Raises if any of them failed; the
+        stream must then be replayed through sync=True resolves."""
         if self._pipelined_since_check == 0:
             return
         n = self._pipelined_since_check
@@ -1159,8 +1823,44 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         if not self._host_bool(self._dev_ok):
             raise RuntimeError(
                 f"a pipelined batch among the last {n} failed its deferred"
-                " search-convergence check; replay through sync=True"
+                " search-convergence/capacity check; replay through sync=True"
             )
+        if self._incremental:
+            return
+        if self._lsm:
+            self._rec_count_ub = self._host_rec_count()
+        else:
+            self._count_ub = self._host_count()
+
+    def _fold_all(self, rec_pairs) -> int:
+        """Fold each (rows, vals) step function into main in turn,
+        regrowing main and folding again when a fold's union outgrows it;
+        then rebuild bidx and the LSM table.  Returns the new count."""
+        for rows, vals in rec_pairs:
+            while True:
+                nk, nv, nc = compact_lsm(self._ks, self._vs, rows, vals,
+                                         cap=self._cap, merge_impl=self._merge_impl)
+                nc_i = self._host_int(nc)
+                if nc_i <= self._cap:
+                    break
+                self._grow_main(max(self._cap * 2, _bucket(nc_i)))
+            self._ks, self._vs = nk, nv
+        self._count = self._count_ub = nc_i
+        self._dev_count = None
+        self._bidx = _rebuild_buckets(self._ks)
+        self._tab = self._history_table()
+        return nc_i
+
+    def _note_fold(self, t0: float, before: int, after: int, site: str) -> float:
+        self.stats.compactions += 1
+        self.stats.rows_reclaimed += max(0, before - after)
+        dt = time.perf_counter() - t0
+        self.stats.merge_s += dt
+        self.stats.fold_wall_s[self._merge_impl] = (
+            self.stats.fold_wall_s.get(self._merge_impl, 0.0) + dt
+        )
+        testcov(site)
+        return dt
 
     def _compact_runs(self) -> None:
         """The deferred k-way merge: fold every appended run (a step
@@ -1170,35 +1870,24 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             return
         t0 = time.perf_counter()
         before = self._count + self._run_rows_ub
-        nc_i = self._count
         n = self._n_runs
         # every run as a step function (K4): its intervals at its version
         rows, vals = kernels.run_to_step_runs(
             self._runs_b[:n], self._runs_e[:n], self._runs_ver[:n]
         )
-        for s in range(n):
-            while True:
-                nk, nv, nc = compact_fold(
-                    self._ks, self._vs, rows[s], vals[s], cap=self._cap
-                )
-                nc_i = self._host_int(nc)
-                if nc_i <= self._cap:
-                    break
-                self._grow_main(max(self._cap * 2, _bucket(nc_i)))
-            self._ks, self._vs = nk, nv
-        self._count = nc_i
-        self._bidx = _rebuild_buckets(self._ks)
-        self._tab = self._history_table()
+        nc_i = self._fold_all(list(zip(rows, vals)))
         self._init_runs(self._run_cap)
-        self.stats.compactions += 1
-        self.stats.rows_reclaimed += max(0, before - nc_i)
-        dt = time.perf_counter() - t0
-        self.stats.compact_s += dt
-        self.stats.merge_s += dt
-        self.stats.fold_wall_s["scatter"] = (
-            self.stats.fold_wall_s.get("scatter", 0.0) + dt
-        )
-        testcov("kernel.run_compaction")
+        self.stats.compact_s += self._note_fold(t0, before, nc_i,
+                                                "kernel.run_compaction")
+
+    def _compact(self) -> None:
+        """The LSM compaction: fold the recent level into main (regrowing
+        main if the union does not fit) and start a fresh recent level."""
+        t0 = time.perf_counter()
+        before = self._count_ub + self._rec_count_ub
+        nc_i = self._fold_all([(self._rec_ks, self._rec_vs)])
+        self._init_recent(self._rec_cap)
+        self._note_fold(t0, before, nc_i, "kernel.lsm_compaction")
 
     def remove_before(self, version: int) -> None:
         if version <= self._oldest:
@@ -1212,9 +1901,12 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 # range-max commutes with the monotone clamp: the cached
                 # table is clamped, not rebuilt
                 self._tab = torch.clamp(self._tab - off, min=0)
-            # a run whose version falls out of the MVCC window clamps to 0
-            # and can never conflict again (snapshots are >= 0)
-            self._runs_ver = torch.clamp(self._runs_ver - off, min=0)
+                if not self._incremental:  # idle (all 0) on the incremental path
+                    self._rec_vs = torch.clamp(self._rec_vs - off, min=0)
+            if self._incremental:
+                # a run whose version falls out of the MVCC window clamps
+                # to 0 and can never conflict again (snapshots are >= 0)
+                self._runs_ver = torch.clamp(self._runs_ver - off, min=0)
             self._base = version
             self.stats.gc_calls += 1
             self.stats.merge_s += time.perf_counter() - t0

@@ -143,7 +143,8 @@ def test_every_module_imports_without_jax_or_the_reference():
     package gets loaded."""
     mods = _port_modules()
     for new in ("runtime.core", "runtime.knobs", "runtime.buggify",
-                "conflict.supervisor", "conflict.plugin", "conflict.native", "bench"):
+                "conflict.supervisor", "conflict.plugin", "conflict.native", "bench",
+                "parallel.sharded", "profile_kernel"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -185,3 +185,62 @@ def test_run_to_step_work_is_the_copy():
     n_bytes, n_ops, _ = chip_smoke.run_to_step_work(*args[0].shape)
     assert n_bytes == sum(t.numel() * t.element_size() for t in (*args, rows, vals))
     assert n_ops == 0
+
+
+def test_quartile_splits_share_the_pool_evenly():
+    """Phase 13's split keys: strictly increasing, a quarter of the key
+    pool in each partition."""
+    pool, _succ = chip_smoke.key_pool(np.random.default_rng(3), 4096)
+    splits = chip_smoke.quartile_splits(pool)
+    assert len(splits) == chip_smoke.SHARDS - 1 and splits == sorted(set(splits))
+    keys_b = [k.tobytes() for k in pool]
+    bounds = [b""] + splits + [None]
+    shares = [sum(lo <= k and (hi is None or k < hi) for k in keys_b)
+              for lo, hi in zip(bounds, bounds[1:])]
+    assert shares == [1024] * 4
+
+
+def test_multi_oracle_referee_matches_the_sharded_set():
+    """Phase 13's multi-oracle (the port's oracle per partition on clipped
+    ranges, merged with min) gives the port's sharded set's verdicts on a
+    reduced phase-8 stream, GC included."""
+    from foundationdb_tpu_torch.conflict import oracle
+    from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
+    from foundationdb_tpu_torch.parallel.sharded import ShardedDeviceConflictSet
+
+    stream = chip_smoke.oracle_batches(TxInfo, np.random.default_rng(5), n_batches=6,
+                                       txns=48)
+    referee = chip_smoke.MultiOracle(oracle, Verdict, chip_smoke.ORACLE_SPLITS)
+    cs = ShardedDeviceConflictSet(chip_smoke.ORACLE_SPLITS, capacity=1 << 6,
+                                  run_slots=2, devices=["cpu"])
+    for i, (version, txns) in enumerate(stream, start=1):
+        assert cs.resolve_batch(version, txns) == referee.resolve_batch(TxInfo, version, txns)
+        if i % 3 == 0:
+            cs.remove_before(version - 3)
+            referee.remove_before(version - 3)
+    assert cs.compactions >= 1
+
+
+def test_in_flight_drive_matches_the_sync_drive(monkeypatch):
+    """Phase 13's mode (c) (resolve_arrays(sync=False), two batches in
+    flight) against mode (b)'s synchronous drive on the CPU: the same
+    verdicts and the same state after the snapshot batch and at the end."""
+    from foundationdb_tpu_torch.conflict import pipeline
+    from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
+    from foundationdb_tpu_torch.parallel.sharded import ShardedDeviceConflictSet
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    fdb = dict(device=tdev, pipeline=pipeline, Verdict=Verdict)
+    pool, succ = chip_smoke.key_pool(np.random.default_rng(7), 512)
+    batches = chip_smoke.stream_batches(TxInfo, np.random.default_rng(8), pool, succ,
+                                        12, txns=32)
+    args = dict(chip_smoke.BEST_KNOWN, max_key_bytes=16, capacity=1 << 8,
+                run_slots=4, run_capacity=64, devices=["cpu"])
+    splits = chip_smoke.quartile_splits(pool)
+    sync, inflight = (ShardedDeviceConflictSet(splits, **args) for _ in range(2))
+    want, _w, want_snap = chip_smoke.drive_sync(torch, fdb, sync, batches, 4)
+    got, walls, snap = chip_smoke.drive_in_flight(torch, fdb, inflight, batches, 4)
+    assert got == want and len(walls) == len(batches)
+    chip_smoke.same_export(want_snap, snap, "snapshot")
+    chip_smoke.same_export(sync.export_state(), inflight.export_state(), "end")
+    assert sync.compactions >= 2

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain torch
 version on the same CUDA tensors (exact: all are integer functions),
-and the port's sets on "cuda" (the flat layout, and the best-known layout
-synchronous and pipelined) against the same sets on "cpu".
+and the port's sets on "cuda" (the flat layout, the best-known layout
+synchronous and pipelined, the legacy layouts, phase timing and the
+sharded set) against the same sets on "cpu".
 
 Marked `gpu`: every test asks the `cuda` fixture, which skips when no CUDA
 device is present (decided at run time, never at import or collection).
@@ -24,6 +25,7 @@ from foundationdb_tpu_torch.conflict import pipeline as tpipe
 from foundationdb_tpu_torch.conflict.api import TxInfo
 from foundationdb_tpu_torch.runtime import coverage
 from foundationdb_tpu_torch.ops import rmq
+from foundationdb_tpu_torch.parallel import sharded as tsh
 
 pytestmark = pytest.mark.gpu
 
@@ -534,3 +536,111 @@ def test_deferred_recovery_on_cuda(cuda):
         assert h.wait() == oracle.resolve_batch(v, t)
     assert coverage.hits("kernel.pipeline_recover") == recovers + 1
     assert s.search_fallbacks >= 1
+
+
+def _mixed_stream(seed, n_batches, n_txns=40):
+    """(version, txns, GC floor or None): variable-length keys, point and
+    short ranges, snapshots a few versions back, GC now and then."""
+    rng = random.Random(seed)
+
+    def key():
+        return bytes(rng.choice(b"abcdefgh") for _ in range(rng.randrange(7)))
+
+    def rng_range():
+        k = key()
+        return (k, k + b"\x00") if rng.random() < 0.6 else (k, k + key() + b"\x00")
+
+    version = oldest = 0
+    for _ in range(n_batches):
+        version += rng.randrange(1, 5)
+        txns = [TxInfo(rng.randrange(max(oldest, version - 12), version),
+                       [rng_range() for _ in range(rng.randrange(4))],
+                       [rng_range() for _ in range(rng.randrange(3))])
+                for _ in range(rng.randrange(1, n_txns))]
+        floor = version - 6 if rng.random() < 0.3 else None
+        oldest = max(oldest, floor or 0)
+        yield version, txns, floor
+
+
+def _same_state(a, b):
+    sa, sb = a.export_state(), b.export_state()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert np.array_equal(np.asarray(sa[k]), np.asarray(sb[k])), k
+
+
+def _twins(cls, stream, **args):
+    """The stream through `cls` on "cuda" and on "cpu": identical verdicts
+    every batch.  Returns (cuda set, cpu set, launches on the cuda run)."""
+    on_gpu, on_cpu = cls(device="cuda", **args), cls(device="cpu", **args)
+    kernels.reset_launches()
+    for version, txns, floor in stream:
+        assert on_gpu.resolve_batch(version, txns) == on_cpu.resolve_batch(version, txns)
+        if floor is not None:
+            on_gpu.remove_before(floor)
+            on_cpu.remove_before(floor)
+    torch.cuda.synchronize()
+    return on_gpu, on_cpu, dict(kernels.launches)
+
+
+@pytest.mark.parametrize("merge", ["scatter", "sort", "gather"])
+@pytest.mark.parametrize("lsm", [False, True], ids=["flat", "lsm"])
+def test_legacy_set_on_cuda_matches_cpu(cuda, lsm, merge):
+    """The legacy layouts on the card equal the CPU over a few batches
+    that regrow main (flat) or compact the recent level (LSM): K2 once a
+    batch, K3 once a compaction on the scatter and gather folds."""
+    args = dict(incremental=False, lsm=lsm, merge_impl=merge, capacity=16,
+                recent_capacity=129, search_impl="bucket")
+    on_gpu, on_cpu, launches = _twins(tdev.DeviceConflictSet, _mixed_stream(3, 10),
+                                      **args)
+    _same_state(on_gpu, on_cpu)
+    assert on_gpu.node_count == on_cpu.node_count
+    assert on_gpu.fixpoint_iterations() == on_cpu.fixpoint_iterations()
+    assert launches["intra_fixpoint"] >= 10 and launches["probe_fused"] == 0
+    if lsm:
+        assert on_gpu.stats.compactions >= 1
+        assert (launches["compact_ranks"] >= on_gpu.stats.compactions) == (merge != "sort")
+    else:
+        assert on_gpu.capacity > 16
+
+
+@pytest.mark.parametrize("mode", ["inc", "inc_lsm", "legacy", "legacy_lsm"])
+def test_sharded_set_on_cuda_matches_cpu(cuda, mode):
+    """The 4-partition set on the card equals the CPU, state per partition
+    included; K1 and K2 launch once a partition a batch on the incremental
+    path, K4 once a partition a compaction and K3 once a folded run."""
+    args = dict(incremental=mode.startswith("inc"), lsm=mode.endswith("lsm"),
+                capacity=16, run_slots=2, run_capacity=16, recent_capacity=33)
+    on_gpu, on_cpu = (tsh.ShardedDeviceConflictSet([b"b", b"d", b"f"], devices=[d], **args)
+                      for d in ("cuda", "cpu"))
+    kernels.reset_launches()
+    batches = list(_mixed_stream(9, 5))
+    for version, txns, floor in batches:
+        assert on_gpu.resolve_batch(version, txns) == on_cpu.resolve_batch(version, txns)
+        if floor is not None:
+            on_gpu.remove_before(floor)
+            on_cpu.remove_before(floor)
+    torch.cuda.synchronize()
+    _same_state(on_gpu, on_cpu)
+    assert on_gpu.fixpoint_iterations() == on_cpu.fixpoint_iterations()
+    n = len(batches)
+    assert kernels.launches["intra_fixpoint"] >= 4 * n
+    if args["incremental"]:
+        assert on_gpu.compactions >= 1
+        assert kernels.launches["probe_fused"] >= 4 * n
+        assert kernels.launches["run_to_step"] == 4 * on_gpu.compactions
+        assert kernels.launches["compact_ranks"] >= 4 * on_gpu.compactions
+
+
+def test_phase_timing_on_cuda_matches_untimed(cuda):
+    """phase_timing on the card: the same verdicts, state and iterations
+    as the untimed set, with the three phase times filled."""
+    args = dict(lsm=True, search_impl="bucket", capacity=1 << 8, run_slots=3,
+                run_capacity=64)
+    stream = list(_mixed_stream(4, 8))
+    plain, _cpu, _l = _twins(tdev.DeviceConflictSet, stream, **args)
+    timed, _cpu, _l = _twins(tdev.DeviceConflictSet, stream, phase_timing=True, **args)
+    _same_state(plain, timed)
+    assert plain.fixpoint_iterations() == timed.fixpoint_iterations()
+    phase = timed.kernel_stats()["phase"]
+    assert min(phase["sort_ms"], phase["scan_ms"], phase["merge_ms"]) > 0

@@ -63,18 +63,27 @@ def _rand_batch(rng, version, oldest, n):
 
 
 def jax_state(d) -> dict:
-    """The reference set's state in the port's export_state() layout (the
-    cached history table `tab` only for the LSM layout)."""
+    """The reference set's state in the port's export_state() layout: the
+    runs only on the incremental path, the cached history table `tab` and
+    the recent level only for the LSM layout."""
     out = dict(
         ks=np.asarray(d._ks), vs=np.asarray(d._vs), bidx=np.asarray(d._bidx),
-        runs_b=np.asarray(d._runs_b), runs_e=np.asarray(d._runs_e),
-        runs_ver=np.asarray(d._runs_ver), count=d._count, n_runs=d._n_runs,
-        cap=d._cap, run_cap=d._run_cap, K=d._K, base=d._base,
-        oldest=d._oldest, last_commit=d._last_commit,
-        run_rows_ub=d._run_rows_ub,
+        count=int(d._dev_count) if d._count is None else d._count,
+        cap=d._cap, base=d._base, oldest=d._oldest,
+        last_commit=d._last_commit, merge_impl=d._merge_impl,
     )
+    if d._incremental:
+        out.update(
+            runs_b=np.asarray(d._runs_b), runs_e=np.asarray(d._runs_e),
+            runs_ver=np.asarray(d._runs_ver), n_runs=d._n_runs,
+            run_cap=d._run_cap, K=d._K, run_rows_ub=d._run_rows_ub,
+        )
     if d._lsm:
-        out["tab"] = np.asarray(d._tab)
+        out.update(
+            tab=np.asarray(d._tab), rec_ks=np.asarray(d._rec_ks),
+            rec_vs=np.asarray(d._rec_vs), rec_bidx=np.asarray(d._rec_bidx),
+            rec_count=int(d._rec_dev_count), rec_cap=d._rec_cap,
+        )
     return out
 
 
@@ -346,14 +355,18 @@ def test_import_needs_neither_jax_nor_the_reference_package():
         "from foundationdb_tpu_torch.ops import rmq, search\n"
         "from foundationdb_tpu_torch.conflict import api, oracle, kernels, device, _build\n"
         "from foundationdb_tpu_torch.conflict import pipeline\n"
+        "from foundationdb_tpu_torch import profile_kernel\n"
+        "from foundationdb_tpu_torch.parallel import sharded\n"
         "from foundationdb_tpu_torch.runtime import coverage, metrics\n"
         "bad = sorted(m for m in set(sys.modules) - before\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'foundationdb_tpu'))\n"
         "assert not bad, bad\n"
         "s = device.DeviceConflictSet(device='cpu')\n"
         "print(s.resolve_batch(1, [api.TxInfo(0, [(b'a', b'b')], [(b'a', b'b')])]))\n"
+        "m = sharded.ShardedDeviceConflictSet([b'm'], devices=['cpu'])\n"
+        "print(m.resolve_batch(1, [api.TxInfo(0, [(b'a', b'z')], [(b'a', b'z')])]))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=REPO_ROOT)
     assert out.returncode == 0, out.stderr
-    assert "COMMITTED" in out.stdout
+    assert out.stdout.count("COMMITTED") == 2

@@ -138,6 +138,7 @@ def _held_against_jax(stream, pallas, **set_args):
         assert ref.resolve_batch(version, txns) == want
         assert port.resolve_batch(version, txns) == want, version
         assert_state_equal(jax_state(ref), port.export_state(), version)
+        assert port.node_count == ref.node_count, version
         assert port.search_fallbacks == ref.search_fallbacks, version
         assert port.stats.search_fallbacks == ref.stats.search_fallbacks
         assert port.stats.compactions == ref.compactions, version
@@ -200,3 +201,26 @@ def test_gc_clamps_the_cached_table_as_a_rebuild_would():
     port.remove_before(port._last_commit - 3)
     rebuilt = tdev.build_sparse_table(port._vs, torch.maximum, 0)
     assert torch.equal(port._tab, rebuilt)
+
+
+@pytest.mark.parametrize("incremental", [True, False], ids=["incremental", "legacy"])
+def test_node_count_matches_reference_on_the_lsm_layout(incremental):
+    """node_count (the reference's boundary_count) counts the recent
+    level's rows whenever `lsm` is set: its floor row on the incremental
+    path, where that level stays idle, and its live rows on the legacy
+    path.  Equal to the reference's on a fresh set and after every batch
+    and GC."""
+    args = dict(BEST, incremental=incremental, capacity=1 << 8, run_slots=3,
+                run_capacity=64, recent_capacity=65)
+    ref = jdev.DeviceConflictSet(**args)
+    port = tdev.DeviceConflictSet(device="cpu", **args)
+    assert port.node_count == ref.node_count == 2
+    for version, txns, floor in _stream(3, 12):
+        assert port.resolve_batch(version, txns) == ref.resolve_batch(version, txns)
+        assert port.node_count == ref.node_count, version
+        if floor is not None:
+            ref.remove_before(floor)
+            port.remove_before(floor)
+            assert port.node_count == ref.node_count, version
+    assert port.stats.compactions >= 1
+    assert port.kernel_stats()["node_count"] == ref.node_count
