@@ -94,11 +94,29 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               as often; checks/s, p50/p99 and (profiled) launches a batch
               beside phase 6's single set; then phase 8's stream against 4
               partition oracles merged with min.
+ 14. role     the port's resolver role (roles/resolver.py) serving phase
+              4's stream as a proxy sends it (ResolveTransactionBatchRequests
+              chained prev_version -> version) over the best-known set, its
+              MVCC window set through CoreKnobs to the stream's GC lag:
+              (a) on a seeded SimNetwork, every batch in flight at once,
+              sync and pipelined, on "cuda" and on "cpu": the replies equal
+              the set driven directly in the role's order (resolve_batch,
+              then remove_before(version - window)), the cuda and cpu runs
+              reply at identical virtual times and end in the same state,
+              K1/K2 once a batch, K4 once a compaction; (b) over loopback
+              TCP (two RealNetworks pumped by one WallDriver), the role
+              hosting the DeviceSupervisor with its wall watchdog armed,
+              16 batches one at a time: replies equal (a)'s, healthy, 0
+              trips, every batch served by the card.  Prints checks/s and
+              receipt->reply p50/p99 (host clock) beside phase 6's bare
+              set, the codec's encode/decode ms and bytes a batch
+              (WireStats), and (a) sync's launches and device-busy share
+              over 3 profiled batches.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
 (`launches`: K1-K4 on phase 4's stream, K5 and the per-query intra kernel
-in their referee roles; `launches_by_path` for every path, phases 11-13's
+in their referee roles; `launches_by_path` for every path, phases 11-14's
 included), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
@@ -727,11 +745,13 @@ def stream_phase(torch, fdb, batches, power):
     return launches, on_gpu, verdicts, iters
 
 
-def check_path_launches(launches, n_batches: int, compactions: int, where: str) -> None:
+def check_path_launches(launches, n_batches: int, compactions: int, where: str,
+                        expected_compactions: int = 2) -> None:
     """The main path's kernels: K1 and K2 once a batch, K4 once a
     compaction, K3 once a run it folds (8 a compaction, more on a regrow);
     the referees never."""
-    require(compactions == 2, f"{where}: {compactions} compactions, expected 2")
+    require(compactions == expected_compactions,
+            f"{where}: {compactions} compactions, expected {expected_compactions}")
     need = {"probe_fused": n_batches, "intra_fixpoint": n_batches,
             "run_to_step": compactions, "intra_query": 0, "probe": 0}
     for name, n in need.items():
@@ -1727,6 +1747,297 @@ def sharded_phase(torch, fdb, batches, extra, pool, oracle_stream, single, power
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the resolver role (roles/resolver.py) serving the stream
+
+ROLE_TCP_BATCHES = PREFILL_BATCHES + 8  # (b): 8 timed batches, one in flight
+ROLE_WALL_S = 300.0                      # (b): the host bound on one call
+
+
+def role_knobs(knobs_mod):
+    """CoreKnobs whose MVCC window is the stream's GC lag: 1 version a
+    second over a write lifetime of GC_LAG seconds."""
+    k = knobs_mod.CoreKnobs()
+    k.set_knob("VERSIONS_PER_SECOND", "1")
+    k.set_knob("MAX_WRITE_TRANSACTION_LIFE", str(GC_LAG))
+    require(k.mvcc_window_versions == GC_LAG, "the role's MVCC window is not the GC lag")
+    return k
+
+
+def role_requests(types_mod, batches, prev: int = 0):
+    """The stream as a proxy sends it: each batch a
+    ResolveTransactionBatchRequest chained to the one before
+    (prev_version → version), the first to `prev`."""
+    out = []
+    for version, txns in batches:
+        out.append(types_mod.ResolveTransactionBatchRequest(prev, version, txns))
+        prev = version
+    return out
+
+
+def role_order_verdicts(cs, batches, window: int):
+    """The role's order on a bare set, its referee: resolve_batch, then
+    remove_before(version - window) once the version passes the window;
+    the verdicts as the role replies them (ints)."""
+    out = []
+    for version, txns in batches:
+        out.append([int(v) for v in cs.resolve_batch(version, txns)])
+        if version > window:
+            cs.remove_before(version - window)
+    return out
+
+
+class RoleClock:
+    """Host-clock times of each batch a Resolver serves: receipt when its
+    `_resolve_one` task starts, reply when the reply leaves through the
+    network's `send`.  Wraps the two on the instances; nothing else."""
+
+    def __init__(self, role, net) -> None:
+        self.t_in: dict = {}
+        self.t_out: dict = {}
+        self._tokens: dict = {}
+        resolve_one, send = role._resolve_one, net.send
+
+        async def timed_resolve(req):
+            version = req.payload.version
+            self.t_in.setdefault(version, time.perf_counter())
+            self._tokens[req._reply_to.token] = version
+            await resolve_one(req)
+
+        def timed_send(src, endpoint, payload):
+            version = self._tokens.pop(endpoint.token, None)
+            if version is not None:
+                self.t_out[version] = time.perf_counter()
+            send(src, endpoint, payload)
+
+        role._resolve_one, net.send = timed_resolve, timed_send
+
+    def receipt_to_reply_ms(self, versions) -> list:
+        return [(self.t_out[v] - self.t_in[v]) * 1e3 for v in versions]
+
+    def service_ms(self, versions) -> list:
+        """Each batch's share of the host: from its receipt, or from its
+        predecessor's reply if that came later, to its reply."""
+        out, prev = [], None
+        for v in versions:
+            start = self.t_in[v] if prev is None else max(self.t_in[v], self.t_out[prev])
+            out.append((self.t_out[v] - start) * 1e3)
+            prev = v
+        return out
+
+
+def role_rates(clock, versions) -> dict:
+    """checks/s over the timed batches' service times, and their
+    receipt→reply p50/p99 (host clock)."""
+    timed = versions[PREFILL_BATCHES:]
+    service = clock.service_ms(timed)
+    lat = clock.receipt_to_reply_ms(timed)
+    return dict(checks_per_s=len(timed) * TXNS * (READS_PER_TXN + 1) / (sum(service) / 1e3),
+                p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)),
+                service_p50_ms=float(np.percentile(service, 50)), n=len(timed))
+
+
+def codec_share(n_batches: int, *wire_stats) -> dict:
+    """The wire codec's host time a batch (encode and decode, the replies'
+    included) and its bytes a batch, summed over the networks' WireStats."""
+    return dict(encode_ms=sum(w.encode_s for w in wire_stats) * 1e3 / n_batches,
+                decode_ms=sum(w.decode_s for w in wire_stats) * 1e3 / n_batches,
+                bytes_per_batch=sum(w.bytes_encoded for w in wire_stats) / n_batches)
+
+
+def sim_role_run(fdb, cs, requests, pipeline: bool, start_version: int = 0):
+    """A port EventLoop and SimNetwork (seeded), the port's Resolver on one
+    process over `cs`, and a client RequestStreamRef on another sending
+    every request at once.  Returns (role, net, clock, [(committed,
+    virtual reply time)] per request)."""
+    core, rpc = fdb["core"], fdb["rpc"]
+    loop = core.EventLoop()
+    net = rpc["network"].SimNetwork(loop, core.DeterministicRandom(SEED))
+    role = fdb["resolver"].Resolver(net.create_process("resolver"), loop,
+                                    role_knobs(fdb["knobs"]), cs,
+                                    start_version=start_version, pipeline=pipeline)
+    clock = RoleClock(role, net)
+    ref = rpc["stream"].RequestStreamRef(net, net.create_process("proxy"),
+                                         role.stream.endpoint)
+
+    async def one(req):
+        reply = await ref.get_reply(req)
+        return reply.committed, loop.now()
+
+    async def all_in_flight():
+        return await fdb["combinators"].wait_all([loop.spawn(one(r)) for r in requests])
+
+    replies = loop.run_until(loop.spawn(all_in_flight()))
+    return role, net, clock, replies
+
+
+def role_profile(torch, fdb, role_cs, requests, power) -> dict:
+    """(a) sync's device-busy share: the batches past the stream through a
+    fresh sync role over the run's set (wall: the role's service time),
+    and through a twin role over a twin set loaded from its state under
+    torch.profiler (device time, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    start = requests[0].prev_version
+    twin_cs = fdb["device"].DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda")
+    twin_cs.load_state(role_cs.export_state())
+    role, _net, clock, plain = sim_role_run(fdb, role_cs, requests, False, start)
+    walls = clock.service_ms([r.version for r in requests])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        twin, _n, _c, traced = sim_role_run(fdb, twin_cs, requests, False, start)
+        torch.cuda.synchronize()
+    role.stop()
+    twin.stop()
+    require([c for c, _t in traced] == [c for c, _t in plain],
+            "role profile: the profiled twin role's replies differ")
+    events = prof.key_averages()
+    busy = busy_ms(torch, events)
+    out = dict(busy_share=busy / sum(walls),
+               launches_per_batch=launch_calls(events) / len(requests),
+               syncs_per_batch=sync_calls(events) / len(requests))
+    log(f"role profile (a) sync: {len(requests)} batches past the stream, service "
+        f"{[round(w, 3) for w in walls]} ms, device busy {busy:.3f} ms = "
+        f"{100 * out['busy_share']:.1f}% on {power}; {out['launches_per_batch']:.1f} "
+        f"launches and {out['syncs_per_batch']:.2f} synchronize calls a batch")
+    return out
+
+
+def role_sim_phase(torch, fdb, batches, extra, power):
+    """Phase 14 (a): the stream through the port's Resolver on a
+    SimNetwork, all batches in flight, sync and pipelined, over the
+    best-known set on "cuda" and on "cpu".  Every run's replies equal the
+    set driven directly in the role's order on "cuda"; the cuda and cpu
+    runs of a mode reply at identical virtual times and end in the same
+    state; so the two modes agree.  Returns ({path: launches}, {mode:
+    metrics}, the verdicts)."""
+    tdev, kernels, types = fdb["device"], fdb["kernels"], fdb["types"]
+    requests = role_requests(types, batches)
+    versions = [r.version for r in requests]
+    want = role_order_verdicts(
+        tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda"), batches, GC_LAG)
+    request_bytes = len(fdb["serialize"].encode_payload(requests[0]))
+    out, metrics, sync_cs = {}, {}, None
+    for mode, pipeline in (("sync", False), ("pipelined", True)):
+        cs = tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cuda")
+        kernels.reset_launches()
+        role, net, clock, replies = sim_role_run(fdb, cs, requests, pipeline)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        role.stop()
+        where = f"role sim {mode}"
+        require([c for c, _t in replies] == want,
+                f"{where}: replies differ from the set driven in the role's order")
+        check_path_launches(launches, len(batches), cs.stats.compactions, where)
+        t = time.perf_counter()
+        cpu_cs = tdev.DeviceConflictSet(**SET_ARGS, **BEST_KNOWN, device="cpu")
+        cpu_role, _n, _c, cpu_replies = sim_role_run(fdb, cpu_cs, requests, pipeline)
+        cpu_role.stop()
+        cpu_s = time.perf_counter() - t
+        require(cpu_replies == replies,
+                f"{where}: the cpu role's replies or virtual reply times differ")
+        same_state(cs, cpu_cs, where)
+        m = dict(role_rates(clock, versions), **codec_share(len(requests), net.wire),
+                 request_bytes=request_bytes)
+        metrics[mode] = m
+        out[f"role_sim_{mode}"] = launches
+        if not pipeline:
+            sync_cs = cs
+        log(f"{where}: {len(batches)} batches x {TXNS} txns in flight at once, replies "
+            f"equal to the set driven in the role's order and to the cpu role's, at the "
+            f"same virtual times (last at {replies[-1][1]:.6f} s; cpu run {cpu_s:.1f} s), "
+            f"final state equal; checks/s={m['checks_per_s']:.1f} receipt->reply ms "
+            f"p50={m['p50_ms']:.3f} p99={m['p99_ms']:.3f} service p50="
+            f"{m['service_p50_ms']:.3f} (n={m['n']}, host clock) on {power}")
+        log(f"{where}: codec encode_ms={m['encode_ms']:.3f} decode_ms={m['decode_ms']:.3f} "
+            f"a batch (WireStats, request and reply); request {request_bytes} bytes; role "
+            f"counters {json.dumps(role.counters.snapshot())}; launches {json.dumps(launches)}")
+    metrics["sync"].update(role_profile(
+        torch, fdb, sync_cs, role_requests(types, extra, versions[-1]), power))
+    return out, metrics, want
+
+
+def role_tcp_phase(torch, fdb, batches, want, power):
+    """Phase 14 (b): two RealNetworks in this process on loopback, a
+    resolver side and a proxy side, pumped by one WallDriver; the port's
+    Resolver on the resolver side hosts the DeviceSupervisor over the
+    best-known set on "cuda" (the role arms its wall watchdog, since its
+    process is a RealProcess).  ROLE_TCP_BATCHES batches, one in flight at
+    a time: replies equal (a)'s, the supervisor ends healthy with 0 trips,
+    and every batch is served by the card (the native set resolves only
+    the first batch's parity check).  Returns (launches, metrics)."""
+    core, rpc, kernels = fdb["core"], fdb["rpc"], fdb["kernels"]
+    batches = batches[:ROLE_TCP_BATCHES]
+    requests = role_requests(fdb["types"], batches)
+    loop = core.EventLoop()
+    server = rpc["transport"].RealNetwork(loop, "resolver")
+    client = rpc["transport"].RealNetwork(loop, "proxy")
+    role, natives = None, []
+    try:
+        driver = rpc["transport"].WallDriver(loop, [server.pump, client.pump])
+        sup = supervised_set(fdb, natives)
+        kernels.reset_launches()
+        role = fdb["resolver"].Resolver(server.process, loop, role_knobs(fdb["knobs"]), sup)
+        require(sup._watchdog.wall, "role tcp: the role did not arm the wall watchdog")
+        clock = RoleClock(role, server)
+        ref = rpc["stream"].RequestStreamRef(client, client.process, role.stream.endpoint)
+
+        async def one(req):
+            return (await ref.get_reply(req)).committed
+
+        got, walls = [], []
+        for req in requests:
+            t0 = time.perf_counter()
+            got.append(driver.run_until(loop.spawn(one(req)), wall_timeout=ROLE_WALL_S))
+            walls.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        require(got == want[:len(batches)], "role tcp: replies differ from (a)'s")
+        h = sup.health()
+        require(h["state"] == "healthy" and h["serving"] == "device" and h["trips"] == 0
+                and h["consecutive_failures"] == 0,
+                f"role tcp: the supervisor degraded or failed: {h}")
+        require(served(natives) == 1 and sup._cpu is None,
+                f"role tcp: the native set served {served(natives)} batches, not only "
+                f"the first batch's parity check")
+        check_path_launches(launches, len(batches), sup._dev.stats.compactions,
+                            "role tcp", expected_compactions=1)
+        n = len(requests)
+        m = dict(role_rates(clock, [r.version for r in requests]),
+                 **codec_share(n, server.wire, client.wire),
+                 call_p50_ms=float(np.percentile(walls[PREFILL_BATCHES:], 50)),
+                 frames_per_flush=client.wire.snapshot()["frames_per_flush"])
+        log(f"role tcp supervised: {n} batches over loopback TCP one at a time, replies "
+            f"equal to (a)'s; health {json.dumps(h)}; the native set served the parity "
+            f"check only; checks/s={m['checks_per_s']:.1f} receipt->reply ms "
+            f"p50={m['p50_ms']:.3f} p99={m['p99_ms']:.3f} (n={m['n']}), the proxy's call "
+            f"p50 {m['call_p50_ms']:.3f} ms (host clock) on {power}")
+        log(f"role tcp supervised: codec encode_ms={m['encode_ms']:.3f} "
+            f"decode_ms={m['decode_ms']:.3f} a batch (both networks' WireStats), "
+            f"{m['bytes_per_batch']:.0f} bytes a batch; launches {json.dumps(launches)}")
+        return launches, m
+    finally:
+        if role is not None:
+            role.stop()  # flushes a parked batch, closes the supervised set
+        server.close()
+        client.close()
+
+
+def role_phase(torch, fdb, batches, extra, single, power):
+    """Phase 14: (a) and (b), then the role's numbers beside phase 6's bare
+    best-known set.  Returns {path: launches}."""
+    paths, metrics, want = role_sim_phase(torch, fdb, batches, extra, power)
+    paths["role_tcp_supervised"], metrics["tcp_supervised"] = role_tcp_phase(
+        torch, fdb, batches, want, power)
+    log(f"role: checks/s sim sync {metrics['sync']['checks_per_s']:.1f}, sim pipelined "
+        f"{metrics['pipelined']['checks_per_s']:.1f}, tcp supervised "
+        f"{metrics['tcp_supervised']['checks_per_s']:.1f}; phase 6's bare set (sync, turn "
+        f"1) {single['checks_per_s']:.1f} p50={single['p50_ms']:.3f} "
+        f"p99={single['p99_ms']:.3f} on {power}")
+    log("role summary " + json.dumps(metrics))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1746,14 +2057,20 @@ def main() -> int:
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
     from foundationdb_tpu_torch.ops import rmq
     from foundationdb_tpu_torch.parallel import sharded
-    from foundationdb_tpu_torch.runtime import buggify, coverage
+    from foundationdb_tpu_torch.roles import resolver, types
+    from foundationdb_tpu_torch.rpc import network, stream, transport
+    from foundationdb_tpu_torch.runtime import (
+        buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
 
     fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
                Verdict=Verdict, supervisor=supervisor, native=native,
                buggify=buggify, DeterministicRandom=DeterministicRandom,
-               bench=bench, sharded=sharded)
+               bench=bench, sharded=sharded, core=core, knobs=knobs,
+               combinators=combinators, serialize=serialize, types=types,
+               resolver=resolver,
+               rpc=dict(network=network, stream=stream, transport=transport))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -1833,6 +2150,9 @@ def main() -> int:
     new_paths.update(sharded_phase(torch, fdb, stream, extra, pool, oracle_stream,
                                    single, power))
     log(f"sharded phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(role_phase(torch, fdb, stream, extra, single, power))
+    log(f"role phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

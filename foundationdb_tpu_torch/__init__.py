@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of foundationdb_tpu's resolver conflict check.
 
 The JAX package `foundationdb_tpu` stays the reference; this package mirrors
-its module names (keys, ops/search, ops/rmq, conflict/api, conflict/oracle,
-conflict/device, conflict/pipeline, runtime/coverage, runtime/metrics) so
+its module names (keys, ops/, conflict/, parallel/sharded, runtime/ — the
+event loop, knobs, metrics, trace plane and wire codec —, rpc/network,
+rpc/stream, rpc/transport, roles/types, roles/sequencer, roles/resolver) so
 each counterpart is easy to find, and replaces the Pallas kernels of
 `foundationdb_tpu/conflict/pallas_kernel.py` with hand-written CUDA for
 Hopper (`csrc/conflict_kernels.cu`, bound by `conflict/kernels.py`).

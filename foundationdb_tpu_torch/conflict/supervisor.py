@@ -259,7 +259,7 @@ class DeviceSupervisor(ConflictSet):
     ``fallback_factory(oldest_version)`` builds the CPU reference
     (OracleConflictSet by default; conflict.native.NativeConflictSet where
     the C++ skip list is built).  ``knobs`` supplies the DEVICE_* family
-    (runtime/knobs.py ``DeviceKnobs`` by default; a reference cluster
+    (runtime/knobs.py ``CoreKnobs()`` by default; a reference cluster
     passes its own knobs); ``clock`` paces backoff/re-probe scheduling
     (time.monotonic by default — the Resolver rebinds it to the sim loop's
     virtual clock via ``bind_clock``, so supervision is deterministic under
@@ -276,7 +276,7 @@ class DeviceSupervisor(ConflictSet):
         wall_watchdog: bool = False,
         name: str = "device",
     ) -> None:
-        from ..runtime.knobs import DeviceKnobs
+        from ..runtime.knobs import CoreKnobs
         from .oracle import OracleConflictSet
 
         self.name = name
@@ -284,7 +284,7 @@ class DeviceSupervisor(ConflictSet):
         self._fallback_factory = fallback_factory or (
             lambda oldest=0: OracleConflictSet(oldest)
         )
-        k = knobs or DeviceKnobs()
+        k = knobs or CoreKnobs()
         self.watchdog_s = float(k.DEVICE_WATCHDOG_S)
         self.retry_limit = int(k.DEVICE_RETRY_LIMIT)
         self.backoff0 = float(k.DEVICE_RETRY_BACKOFF)

@@ -6,21 +6,21 @@ independently enabled per run (the reference's per-SBVar state,
 flow/flow.cpp:189-214): an enabled site fires with `fire_prob` each time.
 
 Every query also feeds a per-site census — armed vs fired counts for the
-run: a site that ARMS across a campaign but never FIRES is exactly the
-"fault injection silently stopped injecting" failure the reference's
-coveragetool discipline exists to catch.
+run — which `emit_coverage(trace)` lands in the trace plane as
+`CodeCoverage` events at sim teardown.  The reference's soak driver
+(tools/soak.py there) merges those across seeds: a site that ARMS across a campaign but never
+FIRES is exactly the "fault injection silently stopped injecting" failure
+the reference's coveragetool discipline exists to catch.
 
 Copy of the reference package's module, on the port's
 `DeterministicRandom`: the same `enable` seed and the same queries give
 the same armed and fired census in both packages.  The state is this
 module's own; a simulation of the reference package arms the reference's
-module, not this one.  The reference's trace-plane emission, its
-save/restore pair and its injected-delay helper come with the host stack
-(event loop and trace plane), which is not ported yet."""
+module, not this one."""
 
 from __future__ import annotations
 
-from .core import DeterministicRandom
+from .core import DeterministicRandom, TaskPriority
 
 _state: dict[str, bool] = {}
 _forced: dict[str, int] = {}
@@ -55,6 +55,10 @@ def force(site: str, times: int = 1) -> None:
     targeted simulation tests).  Only honored in simulation (enable()d);
     draws no randomness, so forcing never perturbs the seeded RNG stream."""
     _forced[site] = _forced.get(site, 0) + times
+
+
+def is_enabled() -> bool:
+    return _rng is not None
 
 
 def buggify(site: str) -> bool:
@@ -106,3 +110,47 @@ def census() -> dict[str, dict]:
         else:
             out[site] = {"armed": True, "fires": _fires.get(site, 0)}
     return out
+
+
+def snapshot() -> dict:
+    """Full module state, for save/restore around a test (conftest pairs
+    this with coverage.snapshot so census numbers are per-test)."""
+    return {
+        "state": dict(_state),
+        "forced": dict(_forced),
+        "fires": dict(_fires),
+        "rng": _rng,
+        "enable_prob": _enable_prob,
+        "fire_prob": _fire_prob,
+    }
+
+
+def restore(snap: dict) -> None:
+    global _rng, _enable_prob, _fire_prob
+    _state.clear()
+    _state.update(snap["state"])
+    _forced.clear()
+    _forced.update(snap["forced"])
+    _fires.clear()
+    _fires.update(snap["fires"])
+    _rng = snap["rng"]
+    _enable_prob = snap["enable_prob"]
+    _fire_prob = snap["fire_prob"]
+
+
+def emit_coverage(trace) -> None:
+    """One `CodeCoverage` trace event per queried site — the sim-teardown
+    emission (CODE_COVERAGE_SCHEMA in control/status.py) the soak driver
+    merges across seeds.  Emit BEFORE disable(): disabling clears the
+    census."""
+    for site, row in sorted(census().items()):
+        trace.trace("CodeCoverage", Name=site, Kind="buggify",
+                    Hits=row["fires"], Armed=row["armed"])
+
+
+async def maybe_delay(loop, site: str, seconds: float = 0.02) -> None:
+    """Rare injected delay at `site` (no-op outside simulation chaos mode).
+    The classic BUGGIFY(delay(...)) pattern the reference sprinkles through
+    every role (e.g. TLogServer.actor.cpp, MasterProxyServer.actor.cpp)."""
+    if buggify(site):
+        await loop.delay(seconds, TaskPriority.DEFAULT_ENDPOINT)

@@ -144,7 +144,9 @@ def test_every_module_imports_without_jax_or_the_reference():
     mods = _port_modules()
     for new in ("runtime.core", "runtime.knobs", "runtime.buggify",
                 "conflict.supervisor", "conflict.plugin", "conflict.native", "bench",
-                "parallel.sharded", "profile_kernel"):
+                "parallel.sharded", "profile_kernel", "runtime.combinators",
+                "runtime.trace", "runtime.serialize", "rpc.network", "rpc.stream",
+                "rpc.transport", "roles.types", "roles.sequencer", "roles.resolver"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

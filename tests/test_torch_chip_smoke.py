@@ -244,3 +244,65 @@ def test_in_flight_drive_matches_the_sync_drive(monkeypatch):
     chip_smoke.same_export(want_snap, snap, "snapshot")
     chip_smoke.same_export(sync.export_state(), inflight.export_state(), "end")
     assert sync.compactions >= 2
+
+
+def _role_fdb():
+    from foundationdb_tpu_torch.roles import resolver, types
+    from foundationdb_tpu_torch.rpc import network, stream
+    from foundationdb_tpu_torch.runtime import combinators, core, knobs
+
+    return dict(core=core, knobs=knobs, combinators=combinators, types=types,
+                resolver=resolver, rpc=dict(network=network, stream=stream))
+
+
+def _role_stream(seed, n=14, txns=24):
+    from foundationdb_tpu_torch.conflict.api import TxInfo
+
+    pool, succ = chip_smoke.key_pool(np.random.default_rng(seed), 256)
+    return chip_smoke.stream_batches(TxInfo, np.random.default_rng(seed + 1), pool,
+                                     succ, n, txns=txns)
+
+
+def test_role_requests_chain_the_stream():
+    """Phase 14's requests: one ResolveTransactionBatchRequest a batch,
+    each chained to the one before (the first to `prev`), carrying the
+    batch's own transactions."""
+    from foundationdb_tpu_torch.roles import types
+
+    batches = _role_stream(2, n=5, txns=3)
+    reqs = chip_smoke.role_requests(types, batches)
+    assert [(r.prev_version, r.version) for r in reqs] == [(0, 1), (1, 2), (2, 3), (3, 4),
+                                                           (4, 5)]
+    assert all(r.transactions is txns for r, (_v, txns) in zip(reqs, batches))
+    more = chip_smoke.role_requests(types, [(9, []), (12, [])], prev=5)
+    assert [(r.prev_version, r.version) for r in more] == [(5, 9), (9, 12)]
+    k = chip_smoke.role_knobs(_role_fdb()["knobs"])
+    assert k.mvcc_window_versions == chip_smoke.GC_LAG
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_role_order_referee_is_what_the_role_replies(pipeline):
+    """Phase 14's referee (the bare set in the role's order: resolve_batch,
+    then remove_before(version - window)) replies what the port's Resolver
+    over the same layout replies on a SimNetwork with every batch in
+    flight, TOO_OLD verdicts past the window included; and the role's
+    host-clock service times are one a batch."""
+    from foundationdb_tpu_torch.conflict.api import Verdict
+
+    batches = _role_stream(4)
+    args = dict(chip_smoke.BEST_KNOWN, max_key_bytes=16, capacity=1 << 8,
+                run_slots=4, run_capacity=64, device="cpu")
+    want = chip_smoke.role_order_verdicts(tdev.DeviceConflictSet(**args), batches,
+                                          chip_smoke.GC_LAG)
+    fdb = _role_fdb()
+    cs = tdev.DeviceConflictSet(**args)
+    role, net, clock, replies = chip_smoke.sim_role_run(
+        fdb, cs, chip_smoke.role_requests(fdb["types"], batches), pipeline)
+    role.stop()
+    assert [c for c, _t in replies] == want
+    assert any(int(Verdict.TOO_OLD) in c for c in want)
+    versions = [v for v, _t in batches]
+    service = clock.service_ms(versions)
+    assert len(service) == len(versions) and min(service) >= 0
+    assert all(a >= b for a, b in zip(clock.receipt_to_reply_ms(versions), service))
+    assert net.wire.snapshot()["pickle_fallbacks"] == 0

@@ -644,3 +644,98 @@ def test_phase_timing_on_cuda_matches_untimed(cuda):
     assert plain.fixpoint_iterations() == timed.fixpoint_iterations()
     phase = timed.kernel_stats()["phase"]
     assert min(phase["sort_ms"], phase["scan_ms"], phase["merge_ms"]) > 0
+
+
+def _role_stream(n=12, txns=200):
+    """Seeded version-chained batches of 2 point reads and 1 point write
+    over 2**10 16-byte keys (phase 14's stream, small)."""
+    import chip_smoke
+
+    pool, succ = chip_smoke.key_pool(np.random.default_rng(14), 1 << 10)
+    return chip_smoke.stream_batches(TxInfo, np.random.default_rng(15), pool, succ, n,
+                                     txns=txns)
+
+
+def _role_fdb():
+    from foundationdb_tpu_torch.roles import resolver, types
+    from foundationdb_tpu_torch.rpc import network, stream, transport
+    from foundationdb_tpu_torch.runtime import combinators, core, knobs
+
+    return dict(core=core, knobs=knobs, combinators=combinators, types=types,
+                resolver=resolver,
+                rpc=dict(network=network, stream=stream, transport=transport))
+
+
+ROLE_SET = dict(lsm=True, search_impl="bucket", max_key_bytes=16, capacity=1 << 12,
+                run_slots=4, run_capacity=1024)
+
+
+@pytest.mark.parametrize("pipeline", [False, True], ids=["sync", "pipelined"])
+def test_role_on_cuda_matches_the_role_on_cpu(cuda, pipeline):
+    """The port's Resolver on a SimNetwork, every batch in flight, over the
+    best-known set on "cuda" and on "cpu": the same replies at the same
+    virtual times, the same final state, K1 and K2 once a batch."""
+    import chip_smoke
+
+    batches = _role_stream()
+    fdb = _role_fdb()
+    requests = chip_smoke.role_requests(fdb["types"], batches)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        cs = tdev.DeviceConflictSet(**ROLE_SET, device=dev)
+        kernels.reset_launches()
+        role, _net, _clock, replies = chip_smoke.sim_role_run(fdb, cs, requests, pipeline)
+        torch.cuda.synchronize()
+        out[dev] = (replies, dict(kernels.launches), cs)
+        role.stop()
+    assert out["cuda"][0] == out["cpu"][0]
+    launches = out["cuda"][1]
+    assert launches["probe_fused"] == launches["intra_fixpoint"] == len(batches)
+    assert launches["run_to_step"] == out["cuda"][2].stats.compactions >= 2
+    chip_smoke.same_state(out["cuda"][2], out["cpu"][2], "role")
+
+
+def test_supervised_role_over_loopback_tcp_serves_from_the_card(cuda):
+    """The port's Resolver on a RealNetwork hosting the DeviceSupervisor
+    over the best-known set on "cuda" (the role arms the wall watchdog),
+    a proxy RealNetwork sending one batch at a time through one
+    WallDriver: the replies are the set's in the role's order on "cpu",
+    the supervisor stays healthy with 0 trips, and the card serves every
+    batch."""
+    import chip_smoke
+    from foundationdb_tpu_torch.conflict.supervisor import DeviceSupervisor
+
+    batches = _role_stream(n=10)
+    fdb = _role_fdb()
+    want = chip_smoke.role_order_verdicts(
+        tdev.DeviceConflictSet(**ROLE_SET, device="cpu"), batches, chip_smoke.GC_LAG)
+    transport, core = fdb["rpc"]["transport"], fdb["core"]
+    loop = core.EventLoop()
+    server = transport.RealNetwork(loop, "resolver")
+    client = transport.RealNetwork(loop, "proxy")
+    role = None
+    try:
+        sup = DeviceSupervisor(lambda oldest=0: tdev.DeviceConflictSet(
+            oldest, **ROLE_SET, device="cuda"))
+        kernels.reset_launches()
+        role = fdb["resolver"].Resolver(server.process, loop,
+                                        chip_smoke.role_knobs(fdb["knobs"]), sup)
+        assert sup._watchdog.wall
+        ref = fdb["rpc"]["stream"].RequestStreamRef(client, client.process,
+                                                    role.stream.endpoint)
+        driver = transport.WallDriver(loop, [server.pump, client.pump])
+
+        async def one(req):
+            return (await ref.get_reply(req)).committed
+
+        got = [driver.run_until(loop.spawn(one(r)), wall_timeout=120.0)
+               for r in chip_smoke.role_requests(fdb["types"], batches)]
+        assert got == want
+        h = sup.health()
+        assert h["state"] == "healthy" and h["serving"] == "device" and h["trips"] == 0
+        assert kernels.launches["probe_fused"] == len(batches)
+    finally:
+        if role is not None:
+            role.stop()
+        server.close()
+        client.close()

@@ -1,8 +1,8 @@
 """The port's runtime pieces against the reference's, same seed for same
 seed: DeterministicRandom (runtime/core.py) gives the same draws, splits
 included; buggify (runtime/buggify.py) the same armed and fired census for
-the same enable seed and site queries, forced sites included; DeviceKnobs
-(runtime/knobs.py) the reference CoreKnobs' DEVICE_* defaults, and the
+the same enable seed and site queries, forced sites included; the port's
+CoreKnobs (runtime/knobs.py) the reference CoreKnobs' DEVICE_* defaults, and the
 port's supervisor reads a reference cluster's randomized knobs as the
 reference's supervisor does."""
 
@@ -93,8 +93,9 @@ DEVICE_KNOBS = ("DEVICE_WATCHDOG_S", "DEVICE_RETRY_LIMIT", "DEVICE_RETRY_BACKOFF
 def test_device_knobs_match_the_reference_defaults():
     want = jknobs.CoreKnobs()
     for name in DEVICE_KNOBS:
-        assert getattr(knobs.DeviceKnobs(), name) == getattr(want, name), name
-    assert sorted(n for n in vars(knobs.DeviceKnobs) if n.isupper()) == sorted(DEVICE_KNOBS)
+        assert getattr(knobs.CoreKnobs(), name) == getattr(want, name), name
+    assert sorted(n for n in knobs.CoreKnobs().names()
+                  if n.startswith("DEVICE_")) == sorted(DEVICE_KNOBS)
 
 
 def _supervised_knobs(sup):
