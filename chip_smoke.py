@@ -112,12 +112,35 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               set, the codec's encode/decode ms and bytes a batch
               (WireStats), and (a) sync's launches and device-busy share
               over 3 profiled batches.
+ 15. cluster  the commit path: the port's SimCluster (client -> commit
+              proxy -> resolver -> TLog -> storage server) driven by the
+              ReadWrite workload (2 point reads + 1 point write a
+              transaction, uniform over 65536 rw/ keys filled by its
+              setup).  (a) BASELINE.json config 1: 8192 clients, one
+              resolver hosting the best-known set (capacity 2**19, keys up
+              to 24 bytes: the client's self-conflict keys are 22), 1 TLog,
+              1 storage server, at least 8 x 8192 commits; (b) config 5:
+              2048 clients, 4 resolvers (the best-known set, 2**17 each)
+              split at the key pool's quartiles, 4 storage shards split
+              there too, 2 TLogs; (c) 512 clients on the cluster's default
+              backend (DeviceConflictSet(device=...), 2**16) on "cuda" and
+              on "cpu".  Every resolver batch goes through the card (K1/K2
+              once a resolve pass: a batch, plus its full-depth replay when
+              the bucketed search falls back; K4 once a compaction), every
+              batch's verdicts equal the port's OracleConflictSet fed the
+              same log, every key an acknowledged commit wrote reads back
+              its newest acknowledged value, and (c)'s two runs are
+              identical (ReadWrite metrics, end virtual time, storage
+              contents, verdict stream).  Prints commits, retries, host
+              wall and txn/s, batch sizes, resolve_batch p50/p99, the
+              ReadWrite metrics, launches, and (a)'s device-busy share
+              over a profiled window of 4 full batches.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
 (`launches`: K1-K4 on phase 4's stream, K5 and the per-query intra kernel
-in their referee roles; `launches_by_path` for every path, phases 11-14's
-included), then
+in their referee roles; `launches_by_path` for every path, phases 11-15's
+included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -2038,6 +2061,385 @@ def role_phase(torch, fdb, batches, extra, single, power):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the commit path (cluster.py): ReadWrite through the port's SimCluster
+
+RW_KEYS = 65536          # rw/%06d, filled by the workload's own setup
+RW_SPLITS = [b"rw/%06d" % (q * RW_KEYS // 4) for q in (1, 2, 3)]  # the pool's quartiles
+# the keys the client puts in conflict ranges: rw/ keys and their key_after
+# (9-10 bytes), and each transaction's self-conflict key \xff/SC/ + 16 hex
+# digits and its key_after (21-22 bytes)
+CLUSTER_KEY_BYTES = 24
+CLUSTER_SET = dict(SET_ARGS, **BEST_KNOWN, max_key_bytes=CLUSTER_KEY_BYTES)
+CLUSTER_PARTS = (  # (name, clients, virtual seconds, cluster keywords, set capacity)
+    ("a", 8192, 0.32, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
+    ("b", 2048, 0.3, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
+                          resolver_splits=RW_SPLITS, storage_splits=RW_SPLITS), 1 << 17),
+)
+CLUSTER_MIN_COMMITS = 8 * 8192   # (a)
+CLUSTER_DET_CLIENTS = 512        # (c): the default backend, cuda against cpu
+CLUSTER_DET_SECONDS = 0.25
+CLUSTER_PROFILE = (3, 4)  # the window: from the 3rd batch of >= clients/8 txns, 4 batches
+READBACK_CHUNK = 8192
+
+
+class RecordedSet:
+    """A resolver's conflict set on the cluster path, unchanged: each call
+    passes to the inner set, and is logged in order (the batch, its
+    transactions, verdicts and host time; each GC floor) for the oracle
+    referee, the verdict stream and the batch statistics; the kernel
+    launches its batches made are summed beside it."""
+
+    def __init__(self, kernels, inner, index: int, log: list, window=None) -> None:
+        self.kernels, self.inner = kernels, inner
+        self.index, self.log, self.window = index, log, window
+        self.launches = dict.fromkeys(kernels.launches, 0)
+        self.batches = 0
+
+    def resolve_batch(self, version, txns):
+        if self.window is not None:
+            self.window.before(len(txns))
+        before = dict(self.kernels.launches)
+        t0 = time.perf_counter()
+        out = self.inner.resolve_batch(version, txns)
+        ms = (time.perf_counter() - t0) * 1e3
+        for name, n in self.kernels.launches.items():
+            self.launches[name] += n - before[name]
+        if txns:
+            self.batches += 1
+        self.log.append(("batch", self.index, version, txns, [int(v) for v in out], ms))
+        if self.window is not None:
+            self.window.after(len(txns))
+        return out
+
+    def remove_before(self, version):
+        self.inner.remove_before(version)
+        self.log.append(("gc", self.index, version))
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class ProfileWindow:
+    """torch.profiler over a few full batches of a running cluster: starts
+    before the `first`-th batch of at least `size` transactions and stops
+    after `n` such batches; the device's busy share of that stretch of the
+    cluster's host time."""
+
+    def __init__(self, torch, size: int, first: int, n: int) -> None:
+        self.torch, self.size, self.first, self.n = torch, size, first, n
+        self.seen, self.prof, self.events, self.wall_ms = 0, None, None, None
+
+    def before(self, n_txns: int) -> None:
+        if n_txns < self.size:
+            return
+        self.seen += 1
+        if self.seen == self.first:
+            from torch.profiler import ProfilerActivity, profile
+
+            self.torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+
+    def after(self, n_txns: int) -> None:
+        if self.prof is None or self.events is not None or n_txns < self.size:
+            return
+        if self.seen == self.first + self.n - 1:
+            self.torch.cuda.synchronize()
+            self.wall_ms = (time.perf_counter() - self.t0) * 1e3
+            self.prof.stop()
+            self.events = self.prof.key_averages()
+
+    def share(self) -> dict:
+        require(self.events is not None, "cluster profile: the window never closed")
+        busy = busy_ms(self.torch, self.events)
+        return dict(busy_ms=busy, wall_ms=self.wall_ms, busy_share=busy / self.wall_ms,
+                    launches_per_batch=launch_calls(self.events) / self.n)
+
+
+def acked_writes(db, acked: list) -> None:
+    """Every transaction this Database creates records, when its commit is
+    acknowledged, its commit version and its mutations."""
+    create = db.create_transaction
+
+    def create_recorded():
+        tr = create()
+        commit = tr.commit
+
+        async def recorded_commit():
+            version = await commit()
+            if tr._mutations:
+                acked.append((version, list(tr._mutations)))
+            return version
+
+        tr.commit = recorded_commit
+        return tr
+
+    db.create_transaction = create_recorded
+
+
+def expected_values(types_mod, acked: list) -> dict:
+    """Each key's value after the acknowledged writes (ReadWrite's only
+    mutation is a set): the newest version's write.  Two acknowledged
+    writes of one key at one version (one batch) must agree."""
+    out, at = {}, {}
+    for version, muts in sorted(acked, key=lambda e: e[0]):
+        for m in muts:
+            require(m.type == types_mod.MutationType.SET_VALUE,
+                    f"cluster: an acknowledged {m.type!r}, not a set")
+            require(at.get(m.key) != version or out[m.key] == m.value,
+                    f"cluster: two writes of {m.key!r} at version {version} disagree")
+            out[m.key], at[m.key] = m.value, version
+    return out
+
+
+def read_back(fdb, c, db) -> dict:
+    """Every rw/ key and its value, read through one fresh transaction."""
+    keys_mod = fdb["keys"]
+
+    async def scan():
+        tr = db.create_transaction()
+        out, begin = {}, b"rw/"
+        while True:
+            rows = await tr.get_range(begin, b"rw0", limit=READBACK_CHUNK)
+            out.update(rows)
+            if len(rows) < READBACK_CHUNK:
+                return out
+            begin = keys_mod.key_after(rows[-1][0])
+
+    return c.run_until(c.loop.spawn(scan()))
+
+
+def storage_dump(ss) -> tuple:
+    """A storage server's tag, versions and every key/value live at its
+    newest version (the base store merged with the MVCC overlay)."""
+    v = ss.version.get()
+    live = ss._live_keys(v, b"", b"\xff\xff", 1 << 30)
+    return (ss.tag, v, ss.durable_version,
+            [(k, ss.overlay.get(k, v, ss.store.get)) for k in live])
+
+
+def oracle_referee(fdb, log: list, n_resolvers: int) -> int:
+    """The log replayed into one port OracleConflictSet a resolver, in the
+    order the resolvers saw it; returns the batches whose verdicts
+    differ."""
+    oracles = [fdb["oracle"].OracleConflictSet() for _ in range(n_resolvers)]
+    bad = 0
+    for entry in log:
+        if entry[0] == "gc":
+            oracles[entry[1]].remove_before(entry[2])
+            continue
+        _kind, i, version, txns, got, _ms = entry
+        want = [int(v) for v in oracles[i].resolve_batch(version, txns)]
+        bad += want != got
+    return bad
+
+
+def cluster_run(torch, fdb, part: str, clients: int, seconds: float, make_set=None,
+                window=None, device="cuda", **cluster_kw):
+    """One seeded ReadWrite run (2 point reads + 1 point write a
+    transaction, uniform over RW_KEYS keys) through the port's SimCluster.
+    `make_set(index)` builds each resolver's set; without it the cluster's
+    default backend on `device` serves.  Returns the run's record."""
+    cl, rw_mod, base, kernels = (fdb["cluster"], fdb["readwrite"], fdb["workloads_base"],
+                                 fdb["kernels"])
+    log, sets = [], []
+
+    def backend():
+        sets.append(RecordedSet(kernels, make_set(len(sets)), len(sets), log, window))
+        return sets[-1]
+
+    c = cl.SimCluster(seed=SEED, conflict_backend=backend if make_set else None,
+                      device=device, **cluster_kw)
+    if make_set is None:
+        for r in c.resolvers:
+            sets.append(RecordedSet(kernels, r.cs, len(sets), log))
+            r.cs = sets[-1]
+    acked = []
+    cluster_db = c.database
+
+    def database(process=None):
+        db = cluster_db(process)
+        acked_writes(db, acked)
+        return db
+
+    c.database = database
+    w = rw_mod.ReadWriteWorkload(keys=RW_KEYS, clients=clients, duration=seconds,
+                                 reads_per_tx=READS_PER_TXN, writes_per_tx=1)
+    walls = {}
+    start = w.start
+
+    async def timed_start(cluster, rng):
+        walls["first_entry"] = len(log)  # the setup's batches come before
+        t0 = time.perf_counter()
+        await start(cluster, rng)
+        walls["start"] = time.perf_counter() - t0
+
+    w.start = timed_start
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = base.run_workloads(c, [w], deadline=1e6)["ReadWrite"]
+    walls["run"] = time.perf_counter() - t0
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    end = c.loop.now()
+    dump = [storage_dump(ss) for ss in c.storage]
+    t0 = time.perf_counter()
+    got = read_back(fdb, c, c.database())
+    walls["read_back"] = time.perf_counter() - t0
+    counters = [r.counters.snapshot() for r in c.resolvers]
+    c.stop()
+    want = expected_values(fdb["types"], acked)
+    require(len(want) == RW_KEYS and got == want,
+            f"cluster {part}: {sum(got.get(k) != v for k, v in want.items())} of "
+            f"{len(want)} acknowledged keys read back wrong ({len(got)} read)")
+    t0 = time.perf_counter()
+    mismatches = oracle_referee(fdb, log, len(sets))
+    walls["referee"] = time.perf_counter() - t0
+    require(mismatches == 0,
+            f"cluster {part}: {mismatches} resolver batches differ from the oracle")
+    batches = [e for e in log if e[0] == "batch"]
+    return dict(metrics=metrics, end=end, dump=dump, sets=sets, launches=launches,
+                walls=walls, acked=len(acked), counters=counters,
+                verdicts=[(i, v, got) for _k, i, v, _t, got, _ms in batches],
+                batch_ms=[(len(t), ms) for _k, _i, _v, t, _g, ms in batches],
+                workload_batch_ms=[(len(e[3]), e[5]) for e in log[walls["first_entry"]:]
+                                   if e[0] == "batch"])
+
+
+def check_cluster_launches(rec: dict, where: str) -> None:
+    """K1 and K2 once a resolve pass on every resolver: once a non-empty
+    batch, and once more for each batch whose bucketed search is replayed
+    at full depth (`search_fallbacks`: a 16-bit key prefix shared by more
+    boundaries than the fast search reaches, as the rw/ keys are); K4 once
+    a compaction, K3 at least once a run it folds, the referees never."""
+    total = dict.fromkeys(rec["launches"], 0)
+    for i, cs in enumerate(rec["sets"]):
+        comp = cs.inner.stats.compactions
+        passes = cs.batches + cs.inner.search_fallbacks
+        need = {"probe_fused": passes, "intra_fixpoint": passes,
+                "run_to_step": comp, "intra_query": 0, "probe": 0}
+        for name, n in need.items():
+            require(cs.launches[name] == n, f"{where} resolver {i}: {name} launched "
+                    f"{cs.launches[name]} times in {cs.batches} batches "
+                    f"({cs.inner.search_fallbacks} replayed), not {n}")
+        require(cs.launches["compact_ranks"] >= cs.inner._K * comp,
+                f"{where} resolver {i}: compact_ranks launched {cs.launches['compact_ranks']}")
+        require(cs.batches > 0, f"{where} resolver {i}: no batch reached the card")
+        for name, n in cs.launches.items():
+            total[name] += n
+    require(total == rec["launches"], f"{where}: launches outside the resolvers' batches")
+
+
+def check_backend_device(rec: dict, dev: str) -> None:
+    """The cluster's default backend is the port's DeviceConflictSet on
+    the device the caller asked for."""
+    for cs in rec["sets"]:
+        require(type(cs.inner).__name__ == "DeviceConflictSet" and
+                cs.inner.device.type == dev,
+                f"cluster c: a resolver's default backend is {type(cs.inner).__name__} "
+                f"on {getattr(cs.inner, 'device', None)}, not DeviceConflictSet on {dev}")
+
+
+def cluster_summary(rec: dict, power: str) -> dict:
+    """(a)'s and (b)'s printed numbers: the workload's, and the card's
+    batches (the non-empty ones: an empty batch launches nothing), all of
+    them and the workload's own (after its setup's fill)."""
+    sizes = [n for n, _ms in rec["batch_ms"] if n]
+    ms = [t for n, t in rec["batch_ms"] if n]
+    work = [n for n, _ms in rec["workload_batch_ms"] if n]
+    work_ms = [t for n, t in rec["workload_batch_ms"] if n]
+    m = rec["metrics"]
+    return dict(
+        committed=m["committed"], retries=m["retries"], acked=rec["acked"],
+        wall_s=rec["walls"]["run"], start_wall_s=rec["walls"]["start"],
+        tx_per_s_host=m["committed"] / rec["walls"]["start"],
+        batches=len(sizes), batch_min=min(sizes), batch_median=float(np.median(sizes)),
+        batch_max=max(sizes), service_p50_ms=float(np.percentile(ms, 50)),
+        service_p99_ms=float(np.percentile(ms, 99)),
+        workload_batches=len(work), workload_batch_min=min(work),
+        workload_batch_median=float(np.median(work)), workload_batch_max=max(work),
+        workload_service_p50_ms=float(np.percentile(work_ms, 50)),
+        workload_service_p99_ms=float(np.percentile(work_ms, 99)),
+        compactions=sum(cs.inner.stats.compactions for cs in rec["sets"]),
+        search_fallbacks=sum(cs.inner.search_fallbacks for cs in rec["sets"]),
+        readwrite=m, read_back_s=rec["walls"]["read_back"],
+        referee_s=rec["walls"]["referee"], end_virtual_s=rec["end"], power=power)
+
+
+def cluster_phase(torch, fdb, power):
+    """Phase 15: (a) BASELINE config 1 and (b) config 5 through the port's
+    SimCluster on the card, then (c) the default backend on "cuda" against
+    "cpu".  Returns {path: launches}."""
+    tdev = fdb["device"]
+    paths, summary = {}, {}
+    for part, clients, seconds, kw, cap in CLUSTER_PARTS:
+        window = ProfileWindow(torch, clients // 8, *CLUSTER_PROFILE) if part == "a" else None
+        rec = cluster_run(
+            torch, fdb, part, clients, seconds, window=window,
+            make_set=lambda _i, cap=cap: tdev.DeviceConflictSet(
+                **dict(CLUSTER_SET, capacity=cap), device="cuda"), **kw)
+        where = f"cluster {part}"
+        check_cluster_launches(rec, where)
+        out = cluster_summary(rec, power)
+        if window is not None:
+            out.update(window.share())
+            require(out["committed"] >= CLUSTER_MIN_COMMITS,
+                    f"{where}: {out['committed']} transactions committed, fewer than "
+                    f"{CLUSTER_MIN_COMMITS}")
+        summary[part] = out
+        paths[f"cluster_{part}"] = rec["launches"]
+        log(f"{where}: {clients} clients, {len(rec['sets'])} resolver(s) on the card, "
+            f"{out['committed']} committed + {out['retries']} retries in "
+            f"{out['wall_s']:.1f} s host wall ({out['start_wall_s']:.1f} s of workload: "
+            f"{out['tx_per_s_host']:.1f} txn/s host clock); {out['batches']} resolver "
+            f"batches of {out['batch_min']}/{out['batch_median']:.0f}/{out['batch_max']} "
+            f"txns (min/median/max), service p50={out['service_p50_ms']:.3f} "
+            f"p99={out['service_p99_ms']:.3f} ms (resolve_batch, host clock); of them "
+            f"the workload's {out['workload_batches']} batches of "
+            f"{out['workload_batch_min']}/{out['workload_batch_median']:.0f}/"
+            f"{out['workload_batch_max']} txns, service p50="
+            f"{out['workload_service_p50_ms']:.3f} p99="
+            f"{out['workload_service_p99_ms']:.3f} ms; "
+            f"{out['compactions']} compactions, {out['search_fallbacks']} batches replayed "
+            f"at full search depth; 0 verdict mismatches against the oracle "
+            f"({out['referee_s']:.1f} s), all {RW_KEYS} keys read back as the "
+            f"{out['acked']} acknowledged commits wrote them; on {power}")
+        log(f"{where}: ReadWrite (virtual time) {json.dumps(out['readwrite'])}; "
+            f"launches {json.dumps(rec['launches'])}; resolver counters "
+            f"{json.dumps(rec['counters'])}")
+        if window is not None:
+            log(f"{where}: profiled window of {CLUSTER_PROFILE[1]} full batches: device "
+                f"busy {out['busy_ms']:.3f} ms of {out['wall_ms']:.3f} ms host = "
+                f"{100 * out['busy_share']:.2f}%, {out['launches_per_batch']:.1f} "
+                f"launches a batch, on {power}")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = cluster_run(torch, fdb, f"c {dev}", CLUSTER_DET_CLIENTS,
+                                CLUSTER_DET_SECONDS, device=dev)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check_cluster_launches(gpu, "cluster c cuda")
+    for dev, rec in runs.items():
+        check_backend_device(rec, dev)
+    for key in ("metrics", "end", "dump", "verdicts"):
+        require(gpu[key] == cpu[key], f"cluster c: the cuda and cpu runs' {key} differ")
+    paths["cluster_c_cuda"] = gpu["launches"]
+    summary["c"] = dict(committed=gpu["metrics"]["committed"], end_virtual_s=gpu["end"],
+                        batches=len(gpu["verdicts"]), cuda_wall_s=gpu["walls"]["run"],
+                        cpu_wall_s=cpu["walls"]["run"])
+    log(f"cluster c: {CLUSTER_DET_CLIENTS} clients on the default backend "
+        f"(DeviceConflictSet(device=...)), cuda and cpu: identical ReadWrite metrics, end "
+        f"virtual time {gpu['end']:.6f} s, storage dump ({len(gpu['dump'][0][3])} keys) and "
+        f"verdict stream ({len(gpu['verdicts'])} batches); wall {gpu['walls']['run']:.1f} s "
+        f"cuda, {cpu['walls']['run']:.1f} s cpu")
+    log("cluster summary " + json.dumps(summary))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2051,7 +2453,7 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from foundationdb_tpu_torch import bench, keys
+    from foundationdb_tpu_torch import bench, cluster, keys
     from foundationdb_tpu_torch.conflict import (
         _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
@@ -2062,6 +2464,8 @@ def main() -> int:
     from foundationdb_tpu_torch.runtime import (
         buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
+    from foundationdb_tpu_torch.workloads import base as workloads_base
+    from foundationdb_tpu_torch.workloads import readwrite
 
     fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
@@ -2069,7 +2473,8 @@ def main() -> int:
                buggify=buggify, DeterministicRandom=DeterministicRandom,
                bench=bench, sharded=sharded, core=core, knobs=knobs,
                combinators=combinators, serialize=serialize, types=types,
-               resolver=resolver,
+               resolver=resolver, cluster=cluster, readwrite=readwrite,
+               workloads_base=workloads_base,
                rpc=dict(network=network, stream=stream, transport=transport))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2153,6 +2558,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(role_phase(torch, fdb, stream, extra, single, power))
     log(f"role phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(cluster_phase(torch, fdb, power))
+    log(f"cluster phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

@@ -34,23 +34,27 @@ class _StepFunction:
     def assign(self, begin: bytes, end: bytes, version: int) -> None:
         """Set value over [begin, end) to `version` (plain assignment with
         boundary splitting; callers guarantee monotonically increasing
-        versions — enforced in resolve_batch)."""
+        versions — enforced in resolve_batch).  The lists stay coalesced
+        (no two neighbours hold the same value), so only the two new
+        boundaries can be redundant, and the splice touches one slice."""
         if begin >= end:
             return
         ks, vs = self._keys, self._vals
         # value just right of `end` must be preserved: split at end
-        hi = bisect.bisect_right(ks, end) - 1
-        end_val = vs[hi]
-        lo = bisect.bisect_right(ks, begin) - 1
-        # remove boundaries strictly inside (begin, end), insert begin/end
-        i0 = lo + 1 if ks[lo] < begin else lo
-        new_keys = ks[:i0] + [begin, end]
-        new_vals = vs[:i0] + [version, end_val]
         j = bisect.bisect_right(ks, end)  # boundaries strictly after end kept
-        new_keys += ks[j:]
-        new_vals += vs[j:]
-        self._keys, self._vals = new_keys, new_vals
-        self._coalesce()
+        end_val = vs[j - 1]
+        lo = bisect.bisect_right(ks, begin) - 1
+        # remove boundaries inside [begin, end], insert begin/end
+        i0 = lo + 1 if ks[lo] < begin else lo
+        new_keys, new_vals = [], []
+        if i0 == 0 or vs[i0 - 1] != version:
+            new_keys.append(begin)
+            new_vals.append(version)
+        if end_val != version:
+            new_keys.append(end)
+            new_vals.append(end_val)
+        ks[i0:j] = new_keys
+        vs[i0:j] = new_vals
 
     def _coalesce(self) -> None:
         ks, vs = self._keys, self._vals

@@ -176,6 +176,21 @@ class KeyTooLongError(ValueError):
     pass
 
 
+def key_after(key: bytes) -> bytes:
+    """First key strictly after ``key``: key + b'\\x00' (reference:
+    fdbclient/FDBTypes.h keyAfter)."""
+    return key + b"\x00"
+
+
+def strinc(key: bytes) -> bytes:
+    """First key not prefixed by ``key`` (reference: flow strinc): strip
+    trailing 0xFF bytes then increment the last byte."""
+    k = key.rstrip(b"\xff")
+    if not k:
+        raise ValueError("strinc of all-0xFF key has no upper bound")
+    return k[:-1] + bytes([k[-1] + 1])
+
+
 def to_lanes(rows: np.ndarray, device=None) -> torch.Tensor:
     """uint32 lane rows (the numpy encoding) -> int32 tensor of flipped
     lanes, on `device` (CPU when None).  Always a fresh buffer: the XOR

@@ -146,7 +146,12 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "conflict.supervisor", "conflict.plugin", "conflict.native", "bench",
                 "parallel.sharded", "profile_kernel", "runtime.combinators",
                 "runtime.trace", "runtime.serialize", "rpc.network", "rpc.stream",
-                "rpc.transport", "roles.types", "roles.sequencer", "roles.resolver"):
+                "rpc.transport", "roles.types", "roles.sequencer", "roles.resolver",
+                "keys", "utils.rangemap", "roles.errors", "roles.storage_metrics",
+                "roles.tlog", "roles.storage", "roles.proxy", "client.snapshot_cache",
+                "client.transaction", "client.ryw", "cluster", "workloads.base",
+                "workloads.cycle", "workloads.bank", "workloads.increment",
+                "workloads.conflict_range", "workloads.readwrite"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

@@ -306,3 +306,140 @@ def test_role_order_referee_is_what_the_role_replies(pipeline):
     assert len(service) == len(versions) and min(service) >= 0
     assert all(a >= b for a, b in zip(clock.receipt_to_reply_ms(versions), service))
     assert net.wire.snapshot()["pickle_fallbacks"] == 0
+
+
+def _cluster_fdb():
+    from foundationdb_tpu_torch import cluster
+    from foundationdb_tpu_torch.conflict import oracle
+    from foundationdb_tpu_torch.roles import types
+    from foundationdb_tpu_torch.workloads import base, readwrite
+
+    return dict(keys=keys, device=tdev, kernels=kernels, oracle=oracle, types=types,
+                cluster=cluster, readwrite=readwrite, workloads_base=base)
+
+
+@pytest.fixture
+def small_cluster(monkeypatch):
+    """Phase 15 at a small size on the CPU: the key pool, its quartiles,
+    the clients and the sets cut down; "cuda" sets and the default backend
+    placed on the CPU; and counting wrappers standing in for the kernels'
+    launch counts (the plain path counts none)."""
+    from foundationdb_tpu_torch import cluster
+
+    class CpuSet(tdev.DeviceConflictSet):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, device="cpu"))
+
+    monkeypatch.setattr(tdev, "DeviceConflictSet", CpuSet)
+    monkeypatch.setattr(cluster, "DeviceConflictSet", CpuSet)
+    monkeypatch.setattr(cluster, "resolve_device", lambda _d: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    for fn, name in (("probe_fused", "probe_fused"), ("intra_fixpoint", "intra_fixpoint"),
+                     ("compact_ranks", "compact_ranks"), ("run_to_step_runs", "run_to_step")):
+        def counted(*a, _real=getattr(kernels, fn), _name=name, **k):
+            kernels.launches[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(kernels, fn, counted)
+    n = 512
+    splits = [b"rw/%06d" % (q * n // 4) for q in (1, 2, 3)]
+    monkeypatch.setattr(chip_smoke, "RW_KEYS", n)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_SET",
+                        dict(chip_smoke.CLUSTER_SET, run_capacity=64, run_slots=3))
+    monkeypatch.setattr(chip_smoke, "CLUSTER_PARTS", (
+        ("a", 24, 0.1, dict(n_resolvers=1), 1 << 11),
+        ("b", 16, 0.1, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
+                            resolver_splits=splits, storage_splits=splits), 1 << 10)))
+    monkeypatch.setattr(chip_smoke, "CLUSTER_MIN_COMMITS", 100)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_DET_CLIENTS", 8)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_DET_SECONDS", 0.05)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_PROFILE", (1, 2))
+    return _cluster_fdb()
+
+
+def test_cluster_phase_names_its_paths(small_cluster, monkeypatch):
+    """Phase 15 end to end at a small size: (a), (b) and (c) pass their
+    referee, read-back, launch and cuda-against-cpu checks, and their
+    launch counts come back as the `cluster_*` paths of launches_by_path."""
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_backend_device",
+                        lambda rec, dev: seen.append((dev, type(rec["sets"][0].inner))))
+    paths = chip_smoke.cluster_phase(torch, small_cluster, "cpu")
+    assert sorted(paths) == ["cluster_a", "cluster_b", "cluster_c_cuda"]
+    for name, launches in paths.items():
+        assert launches["probe_fused"] > 0 and launches["intra_fixpoint"] > 0, name
+        assert launches["probe"] == launches["intra_query"] == 0, name
+    assert paths["cluster_a"]["run_to_step"] > 0
+    assert [d for d, _t in seen] == ["cuda", "cpu"]
+    assert all(issubclass(t, tdev.DeviceConflictSet) for _d, t in seen)
+
+
+def test_cluster_referee_catches_a_wrong_verdict(small_cluster):
+    """A set that answers one batch wrong fails the oracle referee."""
+    class Lying:
+        def __init__(self):
+            self.inner = tdev.DeviceConflictSet(**dict(chip_smoke.CLUSTER_SET,
+                                                       capacity=1 << 11))
+            self.n = 0
+
+        def resolve_batch(self, version, txns):
+            out = self.inner.resolve_batch(version, txns)
+            self.n += 1
+            if self.n == 5 and out:
+                out = [type(out[0])(2 - int(out[0]))] + out[1:]  # COMMITTED <-> CONFLICT
+            return out
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    with pytest.raises(RuntimeError, match="resolver batches differ from the oracle"):
+        chip_smoke.cluster_run(torch, small_cluster, "lie", 8, 0.05,
+                               make_set=lambda _i: Lying())
+
+
+def test_acknowledged_writes_are_the_expected_values():
+    """The read-back's expectation: the newest acknowledged write of each
+    key; two writes of one key at one version must agree."""
+    from foundationdb_tpu_torch.roles import types
+
+    def s(k, v):
+        return types.Mutation(types.MutationType.SET_VALUE, k, v)
+
+    acked = [(5, [s(b"a", b"x"), s(b"b", b"x")]), (3, [s(b"a", b"old")]),
+             (9, [s(b"b", b"y")]), (9, [s(b"b", b"y")])]
+    assert chip_smoke.expected_values(types, acked) == {b"a": b"x", b"b": b"y"}
+    with pytest.raises(RuntimeError, match="disagree"):
+        chip_smoke.expected_values(types, acked + [(9, [s(b"b", b"z")])])
+    with pytest.raises(RuntimeError, match="not a set"):
+        chip_smoke.expected_values(types, [(1, [types.Mutation(
+            types.MutationType.ADD, b"n", b"\x01")])])
+
+
+def test_a_lost_write_fails_the_read_back(small_cluster, monkeypatch):
+    """A storage read that loses one acknowledged key fails phase 15."""
+    real = chip_smoke.read_back
+
+    def lossy(fdb, c, db):
+        got = real(fdb, c, db)
+        got.pop(next(iter(sorted(got))))
+        return got
+
+    monkeypatch.setattr(chip_smoke, "read_back", lossy)
+    with pytest.raises(RuntimeError, match="acknowledged keys read back wrong"):
+        chip_smoke.cluster_run(torch, small_cluster, "lossy", 8, 0.05,
+                               make_set=lambda _i: tdev.DeviceConflictSet(
+                                   **dict(chip_smoke.CLUSTER_SET, capacity=1 << 11)))
+
+
+def test_no_handler_swallows_a_phase():
+    """chip_smoke.py catches nothing: a failing phase ends the run (only
+    try/finally clean-ups), and it imports nothing of the JAX package."""
+    import ast
+    from pathlib import Path
+
+    tree = ast.parse(Path(chip_smoke.__file__).read_text())
+    assert not [n.lineno for n in ast.walk(tree) if isinstance(n, ast.ExceptHandler)]
+    names = {a.name for n in ast.walk(tree) if isinstance(n, (ast.Import, ast.ImportFrom))
+             for a in n.names} | {n.module for n in ast.walk(tree)
+                                  if isinstance(n, ast.ImportFrom) and n.module}
+    assert not {m for m in names if m.split(".")[0] in ("jax", "jaxlib", "foundationdb_tpu")}
+    assert "cluster" in names and "foundationdb_tpu_torch.workloads" in names
