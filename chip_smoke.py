@@ -135,12 +135,37 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               wall and txn/s, batch sizes, resolve_batch p50/p99, the
               ReadWrite metrics, launches, and (a)'s device-busy share
               over a profiled window of 4 full batches.
+ 16. durable  the durable, recoverable cluster: the port's RecoverableCluster
+              in FoundationDB's `configure new double ssd` deployment (one
+              shard on a team of two storage servers on the B-tree engine,
+              3 coordinators, 2 TLogs on disk queues, 2 commit proxies, 1
+              resolver hosting phase 15's best-known set at 2**19), driven
+              by phase 15's ReadWrite at 2048 clients over 65536 keys while
+              an AttritionWorkload kills 2 pipeline processes: each recovery
+              builds a new set on the card at its recovery version.  Then a
+              power-off and a restart from the same SimFilesystem (another
+              new set).  Every batch of every generation equals the port's
+              OracleConflictSet fed the same log from that generation's
+              version; K1/K2 once a resolve pass and K4 once a compaction in
+              every generation; every key an acknowledged commit wrote reads
+              back from the restarted cluster through the client; its
+              \xff\xff/status/json validates with kernel.backend "cuda"; the
+              card's memory_allocated after the second recovery is no higher
+              than after the first.  (c) a reduced twin (512 clients, 1 kill)
+              on the default backend, "cuda" against "cpu": identical metrics,
+              end virtual time, recoveries, storage, verdict stream and every
+              file byte for byte.  Prints commits, retries, recoveries and
+              the virtual time each took, host wall and txn/s, resolve_batch
+              p50/p99 and launches per generation, bytes on the simulated
+              disks, memory_allocated after each recovery, and the device's
+              busy share over a profiled window of 4 full batches.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
 (`launches`: K1-K4 on phase 4's stream, K5 and the per-query intra kernel
 in their referee roles; `launches_by_path` for every path, phases 11-15's
-included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`), then
+included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
+16's as `durable_a`, `durable_restart`, `durable_c_cuda`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -149,6 +174,7 @@ script, it exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -2071,8 +2097,8 @@ RW_SPLITS = [b"rw/%06d" % (q * RW_KEYS // 4) for q in (1, 2, 3)]  # the pool's q
 CLUSTER_KEY_BYTES = 24
 CLUSTER_SET = dict(SET_ARGS, **BEST_KNOWN, max_key_bytes=CLUSTER_KEY_BYTES)
 CLUSTER_PARTS = (  # (name, clients, virtual seconds, cluster keywords, set capacity)
-    ("a", 8192, 0.32, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
-    ("b", 2048, 0.3, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
+    ("a", 8192, 0.28, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
+    ("b", 2048, 0.2, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
                           resolver_splits=RW_SPLITS, storage_splits=RW_SPLITS), 1 << 17),
 )
 CLUSTER_MIN_COMMITS = 8 * 8192   # (a)
@@ -2089,13 +2115,35 @@ class RecordedSet:
     referee, the verdict stream and the batch statistics; the kernel
     launches its batches made are summed beside it."""
 
-    def __init__(self, kernels, inner, index: int, log: list, window=None) -> None:
+    def __init__(self, kernels, inner, index: int, log: list, window=None,
+                 on_first=None) -> None:
         self.kernels, self.inner = kernels, inner
         self.index, self.log, self.window = index, log, window
         self.launches = dict.fromkeys(kernels.launches, 0)
         self.batches = 0
+        self.on_first, self.retired = on_first, None  # on_first(index): before batch 1
+
+    def facts(self) -> dict:
+        """What the checks read of the set: its compactions, the batches
+        its bucketed search replayed at full depth, its run slots, its
+        class and device (kept when the set is retired)."""
+        if self.retired is not None:
+            return self.retired
+        cs = self.inner
+        return dict(compactions=cs.stats.compactions, fallbacks=cs.search_fallbacks,
+                    K=cs._K, kind=type(cs).__name__, device=cs.device.type)
+
+    def retire(self) -> None:
+        """The set's generation is over: keep its facts, and let the set go
+        (a recovery must leave the deposed generation's set to the
+        collector; this record must not be what holds it)."""
+        if self.retired is None:
+            self.retired, self.inner = self.facts(), None
 
     def resolve_batch(self, version, txns):
+        if self.on_first is not None and txns:
+            self.on_first(self.index)
+            self.on_first = None
         if self.window is not None:
             self.window.before(len(txns))
         before = dict(self.kernels.launches)
@@ -2157,9 +2205,12 @@ class ProfileWindow:
                     launches_per_batch=launch_calls(self.events) / self.n)
 
 
-def acked_writes(db, acked: list) -> None:
+def acked_writes(db, acked: list, unknown: list | None = None) -> None:
     """Every transaction this Database creates records, when its commit is
-    acknowledged, its commit version and its mutations."""
+    acknowledged, its commit version and its mutations; and into `unknown`
+    the mutations of each commit whose outcome the cluster could not tell
+    (CommitUnknownResult: a pipeline process died with it in flight, so
+    it may or may not have landed)."""
     create = db.create_transaction
 
     def create_recorded():
@@ -2167,7 +2218,13 @@ def acked_writes(db, acked: list) -> None:
         commit = tr.commit
 
         async def recorded_commit():
-            version = await commit()
+            try:
+                version = await commit()
+            finally:
+                err = sys.exc_info()[1]
+                if (unknown is not None and tr._mutations and
+                        type(err).__name__ == "CommitUnknownResult"):
+                    unknown.append(list(tr._mutations))
             if tr._mutations:
                 acked.append((version, list(tr._mutations)))
             return version
@@ -2191,6 +2248,36 @@ def expected_values(types_mod, acked: list) -> dict:
                     f"cluster: two writes of {m.key!r} at version {version} disagree")
             out[m.key], at[m.key] = m.value, version
     return out
+
+
+def timed_readwrite(fdb, c, clients: int, seconds: float, log: list, walls: dict,
+                    acked: list, unknown: list | None = None):
+    """Phase 15's ReadWrite (2 point reads + 1 point write a transaction,
+    uniform over RW_KEYS keys) for cluster `c`.  Every Database the
+    cluster hands out records its acknowledged writes (and, given
+    `unknown`, its commits of unknown result); the workload's start is
+    timed into `walls`, with `first_entry` the log's length when the
+    setup's fill is done."""
+    cluster_db = c.database
+
+    def database(*args):
+        db = cluster_db(*args)
+        acked_writes(db, acked, unknown)
+        return db
+
+    c.database = database
+    w = fdb["readwrite"].ReadWriteWorkload(keys=RW_KEYS, clients=clients, duration=seconds,
+                                           reads_per_tx=READS_PER_TXN, writes_per_tx=1)
+    start = w.start
+
+    async def timed_start(cluster, rng):
+        walls["first_entry"] = len(log)  # the setup's batches come before
+        t0 = time.perf_counter()
+        await start(cluster, rng)
+        walls["start"] = time.perf_counter() - t0
+
+    w.start = timed_start
+    return w
 
 
 def read_back(fdb, c, db) -> dict:
@@ -2220,12 +2307,16 @@ def storage_dump(ss) -> tuple:
 
 
 def oracle_referee(fdb, log: list, n_resolvers: int) -> int:
-    """The log replayed into one port OracleConflictSet a resolver, in the
-    order the resolvers saw it; returns the batches whose verdicts
+    """The log replayed into one port OracleConflictSet a resolver (or a
+    set, each from the version its ("new", index, oldest) entry names), in
+    the order the resolvers saw it; returns the batches whose verdicts
     differ."""
     oracles = [fdb["oracle"].OracleConflictSet() for _ in range(n_resolvers)]
     bad = 0
     for entry in log:
+        if entry[0] == "new":  # a set built at a recovery version
+            oracles[entry[1]] = fdb["oracle"].OracleConflictSet(entry[2])
+            continue
         if entry[0] == "gc":
             oracles[entry[1]].remove_before(entry[2])
             continue
@@ -2241,8 +2332,7 @@ def cluster_run(torch, fdb, part: str, clients: int, seconds: float, make_set=No
     transaction, uniform over RW_KEYS keys) through the port's SimCluster.
     `make_set(index)` builds each resolver's set; without it the cluster's
     default backend on `device` serves.  Returns the run's record."""
-    cl, rw_mod, base, kernels = (fdb["cluster"], fdb["readwrite"], fdb["workloads_base"],
-                                 fdb["kernels"])
+    cl, base, kernels = fdb["cluster"], fdb["workloads_base"], fdb["kernels"]
     log, sets = [], []
 
     def backend():
@@ -2255,27 +2345,8 @@ def cluster_run(torch, fdb, part: str, clients: int, seconds: float, make_set=No
         for r in c.resolvers:
             sets.append(RecordedSet(kernels, r.cs, len(sets), log))
             r.cs = sets[-1]
-    acked = []
-    cluster_db = c.database
-
-    def database(process=None):
-        db = cluster_db(process)
-        acked_writes(db, acked)
-        return db
-
-    c.database = database
-    w = rw_mod.ReadWriteWorkload(keys=RW_KEYS, clients=clients, duration=seconds,
-                                 reads_per_tx=READS_PER_TXN, writes_per_tx=1)
-    walls = {}
-    start = w.start
-
-    async def timed_start(cluster, rng):
-        walls["first_entry"] = len(log)  # the setup's batches come before
-        t0 = time.perf_counter()
-        await start(cluster, rng)
-        walls["start"] = time.perf_counter() - t0
-
-    w.start = timed_start
+    acked, walls = [], {}
+    w = timed_readwrite(fdb, c, clients, seconds, log, walls, acked)
     if device == "cuda":
         torch.cuda.synchronize()
     kernels.reset_launches()
@@ -2318,15 +2389,16 @@ def check_cluster_launches(rec: dict, where: str) -> None:
     a compaction, K3 at least once a run it folds, the referees never."""
     total = dict.fromkeys(rec["launches"], 0)
     for i, cs in enumerate(rec["sets"]):
-        comp = cs.inner.stats.compactions
-        passes = cs.batches + cs.inner.search_fallbacks
+        facts = cs.facts()
+        comp = facts["compactions"]
+        passes = cs.batches + facts["fallbacks"]
         need = {"probe_fused": passes, "intra_fixpoint": passes,
                 "run_to_step": comp, "intra_query": 0, "probe": 0}
         for name, n in need.items():
             require(cs.launches[name] == n, f"{where} resolver {i}: {name} launched "
                     f"{cs.launches[name]} times in {cs.batches} batches "
-                    f"({cs.inner.search_fallbacks} replayed), not {n}")
-        require(cs.launches["compact_ranks"] >= cs.inner._K * comp,
+                    f"({facts['fallbacks']} replayed), not {n}")
+        require(cs.launches["compact_ranks"] >= facts["K"] * comp,
                 f"{where} resolver {i}: compact_ranks launched {cs.launches['compact_ranks']}")
         require(cs.batches > 0, f"{where} resolver {i}: no batch reached the card")
         for name, n in cs.launches.items():
@@ -2338,10 +2410,10 @@ def check_backend_device(rec: dict, dev: str) -> None:
     """The cluster's default backend is the port's DeviceConflictSet on
     the device the caller asked for."""
     for cs in rec["sets"]:
-        require(type(cs.inner).__name__ == "DeviceConflictSet" and
-                cs.inner.device.type == dev,
-                f"cluster c: a resolver's default backend is {type(cs.inner).__name__} "
-                f"on {getattr(cs.inner, 'device', None)}, not DeviceConflictSet on {dev}")
+        facts = cs.facts()
+        require(facts["kind"] == "DeviceConflictSet" and facts["device"] == dev,
+                f"a resolver's default backend is {facts['kind']} on {facts['device']}, "
+                f"not DeviceConflictSet on {dev}")
 
 
 def cluster_summary(rec: dict, power: str) -> dict:
@@ -2364,8 +2436,8 @@ def cluster_summary(rec: dict, power: str) -> dict:
         workload_batch_median=float(np.median(work)), workload_batch_max=max(work),
         workload_service_p50_ms=float(np.percentile(work_ms, 50)),
         workload_service_p99_ms=float(np.percentile(work_ms, 99)),
-        compactions=sum(cs.inner.stats.compactions for cs in rec["sets"]),
-        search_fallbacks=sum(cs.inner.search_fallbacks for cs in rec["sets"]),
+        compactions=sum(cs.facts()["compactions"] for cs in rec["sets"]),
+        search_fallbacks=sum(cs.facts()["fallbacks"] for cs in rec["sets"]),
         readwrite=m, read_back_s=rec["walls"]["read_back"],
         referee_s=rec["walls"]["referee"], end_virtual_s=rec["end"], power=power)
 
@@ -2440,6 +2512,285 @@ def cluster_phase(torch, fdb, power):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: the durable, recoverable cluster (control/recoverable.py)
+
+# FoundationDB's `configure new double ssd`: every shard on a team of two
+# storage servers, each on the B-tree engine; 3 coordinators, 2 TLogs on disk
+# queues, 2 commit proxies, 1 resolver
+DURABLE = dict(redundancy="double", storage_engine="ssd", n_coordinators=3, n_tlogs=2,
+               n_proxies=2, n_resolvers=1, n_storage_shards=1)
+# (clients, virtual seconds of ReadWrite, (kills, first kill, interval)).  A
+# kill stalls every client: each has a commit in flight by the time the
+# recovery ends, and waits out the client's COMMIT_TIMEOUT (5 virtual s)
+# before it retries on the new generation.  So the kills are 5.25 s apart
+# and the run lasts 5.2 s past the last one: every generation serves
+# traffic, ~0.1-0.4 virtual s of it each
+DURABLE_RUN = (2048, 10.45, (2, 0.05, 5.25))
+DURABLE_DET = (512, 5.3, (1, 0.05, 5.0))  # (c): the reduced twin, cuda against cpu
+DURABLE_PROFILE = (2, 4)  # the window: from the 2nd batch of >= clients/8 txns, 4 batches
+DURABLE_PROBE = b"durable/restarted"     # one commit after the restart's read-back
+STATUS_KEY = b"\xff\xff/status/json"
+
+
+def fs_files(fs) -> dict:
+    """Every file of a SimFilesystem: its contents as a reader sees them
+    and its crash-surviving (synced) prefix."""
+    out = {}
+    for path in fs.list():
+        f = fs.open(path, None)
+        out[path] = (f.read_all(), f.read_durable())
+    return out
+
+
+def recovery_spans(states: list) -> list:
+    """(start, end) virtual times of each recovery the controller ran:
+    from its reading_cstate to its fully_recovered."""
+    spans, start = [], None
+    for t, state in states:
+        if state == "reading_cstate":
+            start = t
+        elif state == "fully_recovered" and start is not None:
+            spans.append((start, t))
+            start = None
+    return spans
+
+
+def generation_stats(log: list, sets: list) -> list:
+    """Each set (a generation's resolver set): the version it was built
+    at, its batches, transactions and resolve_batch p50/p99 (host clock)."""
+    oldest = {e[1]: e[2] for e in log if e[0] == "new"}
+    out = []
+    for cs in sets:
+        ms = [e[5] for e in log if e[0] == "batch" and e[1] == cs.index and e[3]]
+        out.append(dict(index=cs.index, oldest=oldest[cs.index], batches=cs.batches,
+                        txns=sum(len(e[3]) for e in log if e[0] == "batch" and e[1] == cs.index),
+                        p50_ms=float(np.percentile(ms, 50)) if ms else None,
+                        p99_ms=float(np.percentile(ms, 99)) if ms else None,
+                        launches=dict(cs.launches)))
+    return out
+
+
+def check_read_back(got: dict, want: dict, unknown: list, where: str) -> None:
+    """Every key an acknowledged commit wrote holds its newest acknowledged
+    value, or the value of a commit whose outcome the cluster could not
+    tell (it may have landed after it); no other key is there."""
+    maybe: dict = {}
+    for muts in unknown:
+        for m in muts:
+            maybe.setdefault(m.key, set()).add(m.value)
+    wrong = [k for k, v in want.items() if got.get(k) != v and got.get(k) not in maybe.get(k, ())]
+    require(len(want) == RW_KEYS and set(got) == set(want) and not wrong,
+            f"{where}: {len(wrong)} of {len(want)} acknowledged keys read back wrong "
+            f"({len(got)} read)")
+
+
+def durable_run(torch, fdb, part: str, clients: int, seconds: float, kills: tuple,
+                device="cuda", make_set=None, window=None, restart=False):
+    """One seeded ReadWrite run (phase 15's traffic over RW_KEYS keys) with
+    an AttritionWorkload killing pipeline processes, through the port's
+    RecoverableCluster in the DURABLE deployment.  `make_set(oldest)`
+    builds each generation's resolver set (conflict_backend=); without it
+    the cluster's default backend on `device` serves.  Each set is recorded
+    as it is built, with the version it starts at, and retired when the
+    next generation's is built.  With `restart`, the cluster is then powered
+    off and restarted from its SimFilesystem (a new set on the card), every
+    key is read back through the client, one more transaction commits, and
+    the status document is read through its special key; otherwise the keys
+    are read back from the running cluster.  Returns the run's record."""
+    rc, att_mod, base, kernels = (fdb["recoverable"], fdb["attrition"],
+                                  fdb["workloads_base"], fdb["kernels"])
+    log, sets, memory = [], [], []
+
+    def on_first(index: int) -> None:
+        if index and device == "cuda":  # a recovered generation's first batch
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append((index, torch.cuda.memory_allocated()))
+
+    def build(inner, oldest: int):
+        for old in sets:
+            old.retire()
+        rec = RecordedSet(kernels, inner, len(sets), log, window, on_first)
+        log.append(("new", rec.index, oldest))
+        sets.append(rec)
+        return rec
+
+    real_set = rc.DeviceConflictSet
+    if make_set is not None:
+        cluster_kw = dict(conflict_backend=lambda oldest=0: build(make_set(oldest), oldest))
+    else:  # the default backend, each set it builds recorded
+        cluster_kw = dict(device=device)
+        rc.DeviceConflictSet = lambda oldest=0, **kw: build(real_set(oldest, **kw), oldest)
+    try:
+        c = rc.RecoverableCluster(seed=SEED, **DURABLE, **cluster_kw)
+        states, kills_at = [], []
+        set_state, trace = c.controller._set_state, c.trace.trace
+
+        def traced_state(state):
+            states.append((c.loop.now(), state))
+            set_state(state)
+
+        def traced(event_type, *a, **kw):
+            if event_type == "AttritionKill":
+                kills_at.append((c.loop.now(), kw.get("Process")))
+            return trace(event_type, *a, **kw)
+
+        c.controller._set_state, c.trace.trace = traced_state, traced
+        acked, unknown, walls = [], [], {}
+        w = timed_readwrite(fdb, c, clients, seconds, log, walls, acked, unknown)
+        n_kills, first_kill, interval = kills
+        attrition = att_mod.AttritionWorkload(kills=n_kills, start_delay=first_kill,
+                                              interval=interval)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = base.run_workloads(c, [w, attrition], deadline=1e6)["ReadWrite"]
+        walls["run"] = time.perf_counter() - t0
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = dict(kernels.launches)
+        rec = dict(metrics=metrics, end=c.loop.now(), recoveries=c.controller.recoveries,
+                   epoch=c.controller.epoch, dump=[storage_dump(ss) for ss in c.storage],
+                   files=fs_files(c.fs), states=states, kills=kills_at, memory=memory,
+                   launches=launches, walls=walls, acked=len(acked), unknown=len(unknown))
+        n_run_sets = len(sets)
+        t0 = time.perf_counter()
+        if restart:
+            fs = c.power_off()
+            rec["disk"] = {p: len(durable) for p, (_all, durable) in fs_files(fs).items()}
+            c = None  # the powered-off cluster and its set go
+            for old in sets:
+                old.retire()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            kernels.reset_launches()
+            c = rc.RecoverableCluster(seed=SEED + 1, fs=fs, restart=True, **DURABLE,
+                                      **cluster_kw)
+            got = read_back(fdb, c, c.database())
+            db = c.database()
+
+            async def probe_and_status():
+                tr = db.create_transaction()
+                tr.set(DURABLE_PROBE, b"1")
+                await tr.commit()
+                return await db.create_transaction().get(STATUS_KEY)
+
+            status = json.loads(c.run_until(c.loop.spawn(probe_and_status())))
+            if device == "cuda":
+                torch.cuda.synchronize()
+            rec.update(restart_launches=dict(kernels.launches), status=status,
+                       restart_epoch=c.controller.epoch, restart_end=c.loop.now())
+        else:
+            got = read_back(fdb, c, c.database())
+        walls["read_back"] = time.perf_counter() - t0
+        c.stop()
+    finally:
+        rc.DeviceConflictSet = real_set
+    for cs in sets:
+        cs.retire()
+    check_read_back(got, expected_values(fdb["types"], acked), unknown, f"durable {part}")
+    t0 = time.perf_counter()
+    mismatches = oracle_referee(fdb, log, len(sets))
+    walls["referee"] = time.perf_counter() - t0
+    require(mismatches == 0,
+            f"durable {part}: {mismatches} resolver batches differ from the oracle")
+    batches = [e for e in log if e[0] == "batch"]
+    rec.update(sets=sets[:n_run_sets], restart_sets=sets[n_run_sets:],
+               generations=generation_stats(log, sets),
+               verdicts=[(i, v, got_) for _k, i, v, _t, got_, _ms in batches],
+               news=[e for e in log if e[0] == "new"],
+               batch_ms=[(len(t), ms) for _k, i, _v, t, _g, ms in batches if i < n_run_sets],
+               workload_batch_ms=[(len(e[3]), e[5]) for e in log[walls["first_entry"]:]
+                                  if e[0] == "batch" and e[1] < n_run_sets])
+    return rec
+
+
+def durable_phase(torch, fdb, power):
+    """Phase 16: (a) the DURABLE deployment under ReadWrite with two
+    pipeline kills, every generation's set on the card, then a power-off
+    and a restart from the files; (c) the reduced twin on the default
+    backend, "cuda" against "cpu".  Returns {path: launches}."""
+    tdev = fdb["device"]
+    clients, seconds, kills = DURABLE_RUN
+    window = ProfileWindow(torch, clients // 8, *DURABLE_PROFILE)
+    rec = durable_run(torch, fdb, "a", clients, seconds, kills, window=window, restart=True,
+                      make_set=lambda oldest: tdev.DeviceConflictSet(
+                          oldest, **CLUSTER_SET, device="cuda"))
+    require(rec["recoveries"] >= kills[0] and len(rec["kills"]) == kills[0],
+            f"durable a: {rec['recoveries']} recoveries after {len(rec['kills'])} kills")
+    news = rec["news"]
+    require(len(rec["sets"]) >= kills[0] + 1 and all(o > 0 for _n, _i, o in news[1:]),
+            f"durable a: sets built at {[o for _n, _i, o in news]}, not a new set at each "
+            f"recovery version")
+    check_cluster_launches(rec, "durable a")
+    check_cluster_launches(dict(sets=rec["restart_sets"], launches=rec["restart_launches"]),
+                           "durable restart")
+    mem = rec["memory"]
+    require(len(mem) >= 2 and mem[1][1] <= mem[0][1],
+            f"durable a: card memory after the recoveries {mem}: it grew from the first "
+            f"recovery to the second")
+    status = rec["status"]
+    fdb["status"].validate_status(status)
+    require(status["kernel"]["backend"] == "cuda",
+            f"durable restart: status kernel.backend is {status['kernel']['backend']!r}")
+    out = cluster_summary(rec, power)
+    out.update(window.share())
+    spans = recovery_spans(rec["states"])
+    out.update(recoveries=rec["recoveries"], kills=rec["kills"],
+               recovery_s=[round(b - a, 6) for a, b in spans],
+               kill_to_recovered_s=[round(spans[i][1] - t, 6) for i, (t, _p) in
+                                    enumerate(rec["kills"]) if i < len(spans)],
+               memory_allocated=mem, generations=rec["generations"],
+               disk_bytes=sum(rec["disk"].values()), disk_files=len(rec["disk"]),
+               unknown_results=rec["unknown"], restart_epoch=rec["restart_epoch"])
+    paths = {"durable_a": rec["launches"], "durable_restart": rec["restart_launches"]}
+    log(f"durable a: {DURABLE} ({clients} clients, {seconds} virtual s, "
+        f"AttritionWorkload(kills={kills[0]})): {out['committed']} committed + "
+        f"{out['retries']} retries in {out['wall_s']:.1f} s host wall "
+        f"({out['start_wall_s']:.1f} s of workload: {out['tx_per_s_host']:.1f} txn/s host "
+        f"clock); {len(rec['sets'])} generations' sets on the card, {out['batches']} "
+        f"resolver batches, {out['compactions']} compactions; recoveries "
+        f"{rec['recoveries']} (kills {rec['kills']}; each took {out['recovery_s']} virtual "
+        f"s, {out['kill_to_recovered_s']} from its kill); memory_allocated after each "
+        f"recovery {mem}; 0 verdict mismatches against the oracle ({out['referee_s']:.1f} s); "
+        f"{out['disk_bytes']} bytes on {out['disk_files']} simulated disks after the "
+        f"power-off; restart (epoch {rec['restart_epoch']}): all {RW_KEYS} keys read back "
+        f"as the {out['acked']} acknowledged commits wrote them ({rec['unknown']} commits "
+        f"of unknown result), status validates with kernel.backend 'cuda'; on {power}")
+    for g in rec["generations"]:
+        log(f"durable a: set {g['index']} (built at version {g['oldest']}): "
+            f"{g['batches']} batches, {g['txns']} txns, resolve_batch p50={g['p50_ms']} "
+            f"p99={g['p99_ms']} ms, launches {json.dumps(g['launches'])}")
+    log(f"durable a: ReadWrite (virtual time) {json.dumps(out['readwrite'])}; profiled "
+        f"window of {DURABLE_PROFILE[1]} full batches: device busy {out['busy_ms']:.3f} ms "
+        f"of {out['wall_ms']:.3f} ms host = {100 * out['busy_share']:.2f}%, "
+        f"{out['launches_per_batch']:.1f} launches a batch, on {power}")
+    clients, seconds, kills = DURABLE_DET
+    runs = {dev: durable_run(torch, fdb, f"c {dev}", clients, seconds, kills, device=dev)
+            for dev in ("cuda", "cpu")}
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check_cluster_launches(gpu, "durable c cuda")
+    for dev, r in runs.items():
+        check_backend_device(r, dev)
+    for key in ("metrics", "end", "recoveries", "epoch", "dump", "verdicts", "news", "files"):
+        require(gpu[key] == cpu[key], f"durable c: the cuda and cpu runs' {key} differ")
+    paths["durable_c_cuda"] = gpu["launches"]
+    summary = dict(a=out, c=dict(
+        committed=gpu["metrics"]["committed"], end_virtual_s=gpu["end"],
+        recoveries=gpu["recoveries"], batches=len(gpu["verdicts"]), files=len(gpu["files"]),
+        cuda_wall_s=gpu["walls"]["run"], cpu_wall_s=cpu["walls"]["run"]))
+    log(f"durable c: {clients} clients, 1 kill, the default backend "
+        f"(DeviceConflictSet(oldest, device=...)), cuda and cpu: identical ReadWrite "
+        f"metrics, end virtual time {gpu['end']:.6f} s, {gpu['recoveries']} recoveries, "
+        f"storage, verdict stream ({len(gpu['verdicts'])} batches) and all "
+        f"{len(gpu['files'])} files byte for byte; wall {gpu['walls']['run']:.1f} s cuda, "
+        f"{cpu['walls']['run']:.1f} s cpu")
+    log("durable summary " + json.dumps(summary, default=str))
+    return paths
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -2457,6 +2808,7 @@ def main() -> int:
     from foundationdb_tpu_torch.conflict import (
         _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
+    from foundationdb_tpu_torch.control import recoverable, status
     from foundationdb_tpu_torch.ops import rmq
     from foundationdb_tpu_torch.parallel import sharded
     from foundationdb_tpu_torch.roles import resolver, types
@@ -2464,8 +2816,8 @@ def main() -> int:
     from foundationdb_tpu_torch.runtime import (
         buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
+    from foundationdb_tpu_torch.workloads import attrition, readwrite
     from foundationdb_tpu_torch.workloads import base as workloads_base
-    from foundationdb_tpu_torch.workloads import readwrite
 
     fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
@@ -2474,7 +2826,8 @@ def main() -> int:
                bench=bench, sharded=sharded, core=core, knobs=knobs,
                combinators=combinators, serialize=serialize, types=types,
                resolver=resolver, cluster=cluster, readwrite=readwrite,
-               workloads_base=workloads_base,
+               workloads_base=workloads_base, recoverable=recoverable, status=status,
+               attrition=attrition,
                rpc=dict(network=network, stream=stream, transport=transport))
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -2561,6 +2914,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(cluster_phase(torch, fdb, power))
     log(f"cluster phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(durable_phase(torch, fdb, power))
+    log(f"durable phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

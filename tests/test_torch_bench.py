@@ -151,7 +151,14 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "roles.tlog", "roles.storage", "roles.proxy", "client.snapshot_cache",
                 "client.transaction", "client.ryw", "cluster", "workloads.base",
                 "workloads.cycle", "workloads.bank", "workloads.increment",
-                "workloads.conflict_range", "workloads.readwrite"):
+                "workloads.conflict_range", "workloads.readwrite",
+                "rpc.failmon", "rpc.policy", "storage.files", "storage.pagecache",
+                "storage.diskqueue", "storage.kvstore", "storage.btree",
+                "roles.logrouter", "roles.backup", "roles.worker", "client.management",
+                "control.coordination", "control.region", "control.logsystem",
+                "control.ratekeeper", "control.distribution", "control.controller",
+                "control.recoverable", "control.status", "tools.trace_tool",
+                "tools.timeline", "workloads.attrition"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

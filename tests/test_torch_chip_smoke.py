@@ -14,6 +14,7 @@ from foundationdb_tpu_torch.conflict import device as tdev
 from foundationdb_tpu_torch.conflict import kernels
 from foundationdb_tpu_torch.ops import rmq
 from foundationdb_tpu_torch.ops.search import lower_bound
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 W = 5
 SENT = 0xFFFFFFFF
@@ -443,3 +444,125 @@ def test_no_handler_swallows_a_phase():
                                   if isinstance(n, ast.ImportFrom) and n.module}
     assert not {m for m in names if m.split(".")[0] in ("jax", "jaxlib", "foundationdb_tpu")}
     assert "cluster" in names and "foundationdb_tpu_torch.workloads" in names
+
+
+@pytest.fixture
+def small_durable(small_cluster, monkeypatch):
+    """Phase 16 at a small size on the CPU, over phase 15's fixture: the
+    recoverable cluster's default backend placed on the CPU too, the card's
+    memory counter stubbed, and the CPU sets naming themselves as the
+    card's in the status roll-up (they stand in for them)."""
+    from foundationdb_tpu_torch.control import recoverable, status
+    from foundationdb_tpu_torch.workloads import attrition
+
+    card_set = tdev.DeviceConflictSet
+
+    class StandIn(card_set):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.stats.backend = "cuda"
+
+    monkeypatch.setattr(tdev, "DeviceConflictSet", StandIn)
+    monkeypatch.setattr(recoverable, "DeviceConflictSet", card_set)
+    monkeypatch.setattr(recoverable, "resolve_device", lambda _d: torch.device("cpu"))
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "CLUSTER_SET",
+                        dict(chip_smoke.CLUSTER_SET, capacity=1 << 11))
+    monkeypatch.setattr(chip_smoke, "DURABLE_RUN", (16, 10.45, (2, 0.05, 5.25)))
+    monkeypatch.setattr(chip_smoke, "DURABLE_DET", (8, 5.3, (1, 0.05, 5.0)))
+    monkeypatch.setattr(chip_smoke, "DURABLE_PROFILE", (1, 2))
+    return dict(small_cluster, recoverable=recoverable, status=status, attrition=attrition)
+
+
+def test_durable_phase_names_its_paths(small_durable, monkeypatch):
+    """Phase 16 end to end at a small size: the main run's two recoveries
+    (each generation's set launches), the restart's read-back, probe
+    commit and status, and the twin's cuda-against-cpu identity, with the
+    launch counts returned as the `durable_*` paths."""
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_backend_device",
+                        lambda rec, dev: seen.append((dev, rec["sets"][0].facts()["kind"])))
+    paths = chip_smoke.durable_phase(torch, small_durable, "cpu")
+    assert sorted(paths) == ["durable_a", "durable_c_cuda", "durable_restart"]
+    for name, launches in paths.items():
+        assert launches["probe_fused"] > 0 and launches["intra_fixpoint"] > 0, name
+        assert launches["probe"] == launches["intra_query"] == 0, name
+    assert [d for d, _k in seen] == ["cuda", "cpu"]
+    assert {k for _d, k in seen} == {small_durable["recoverable"].DeviceConflictSet.__name__}
+
+
+def _durable(fdb, part, make_set):
+    clients, seconds, kills = chip_smoke.DURABLE_RUN
+    return chip_smoke.durable_run(torch, fdb, part, clients, seconds, kills, restart=True,
+                                  make_set=make_set)
+
+
+def test_durable_referee_catches_a_wrong_verdict_in_a_recovered_generation(small_durable):
+    """A set built at a recovery (a non-zero version) that answers one
+    batch wrong fails the referee, which starts each generation's oracle at
+    that generation's version."""
+    class Lying:
+        def __init__(self, oldest):
+            self.inner = tdev.DeviceConflictSet(oldest, **chip_smoke.CLUSTER_SET)
+            self.lie = oldest > 0
+
+        def resolve_batch(self, version, txns):
+            out = self.inner.resolve_batch(version, txns)
+            if self.lie and len(out) > 2 and int(out[-1]) == 0:
+                self.lie = False  # one workload transaction aborted for nothing
+                out = out[:-1] + [type(out[-1])(2)]
+            return out
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    with pytest.raises(RuntimeError, match="resolver batches differ from the oracle"):
+        _durable(small_durable, "lie", Lying)
+
+
+@pytest.mark.parametrize("loss", ["key", "value"])
+def test_durable_read_back_catches_a_write_lost_across_the_restart(small_durable,
+                                                                   monkeypatch, loss):
+    """The restarted cluster's read-back missing a key, or serving one
+    key's setup value where acknowledged writes overwrote it, fails the
+    phase."""
+    real = chip_smoke.read_back
+
+    def lossy(fdb, c, db):
+        got = real(fdb, c, db)
+        if loss == "key":
+            got.pop(next(iter(sorted(got))))
+        else:
+            key = next(k for k, v in sorted(got.items()) if v == b"y" * 16)
+            got[key] = b"x" * 16
+        return got
+
+    monkeypatch.setattr(chip_smoke, "read_back", lossy)
+    with pytest.raises(RuntimeError, match="acknowledged keys read back wrong"):
+        _durable(small_durable, "lossy", lambda oldest: tdev.DeviceConflictSet(
+            oldest, **chip_smoke.CLUSTER_SET))
+
+
+def test_read_back_allows_only_unknown_results():
+    """A key may hold the value of a commit of unknown result instead of
+    its newest acknowledged value; any other difference fails."""
+    from foundationdb_tpu_torch.roles import types
+
+    want = {b"a": b"x", b"b": b"y"}
+    unknown = [[types.Mutation(types.MutationType.SET_VALUE, b"a", b"y")]]
+    keys_ = chip_smoke.RW_KEYS
+    chip_smoke.RW_KEYS = 2
+    try:
+        chip_smoke.check_read_back({b"a": b"y", b"b": b"y"}, want, unknown, "t")
+        with pytest.raises(RuntimeError, match="read back wrong"):
+            chip_smoke.check_read_back({b"a": b"x", b"b": b"x"}, want, unknown, "t")
+        with pytest.raises(RuntimeError, match="read back wrong"):
+            chip_smoke.check_read_back({b"a": b"x"}, want, unknown, "t")
+    finally:
+        chip_smoke.RW_KEYS = keys_
+
+
+def test_recovery_spans_pair_each_recovery():
+    states = [(0.0, "reading_cstate"), (0.1, "fully_recovered"), (3.0, "reading_cstate"),
+              (3.01, "recruiting"), (3.02, "fully_recovered")]
+    assert chip_smoke.recovery_spans(states) == [(0.0, 0.1), (3.0, 3.02)]

@@ -27,6 +27,7 @@ from foundationdb_tpu_torch.conflict import device as tdev
 from foundationdb_tpu_torch.conflict import supervisor as tsup
 from foundationdb_tpu_torch.conflict.native import NativeConflictSet
 from tests.test_chaos_sweep import DEVICE_SITES, _RefereedConflictSet
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

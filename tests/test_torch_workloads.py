@@ -29,6 +29,7 @@ from foundationdb_tpu_torch import cluster
 from foundationdb_tpu_torch.conflict import device, oracle
 from foundationdb_tpu_torch.workloads import (
     bank, base, conflict_range, cycle, increment, readwrite)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PORT = SimpleNamespace(
     cluster=cluster, base=base, cycle=cycle, bank=bank, increment=increment,
