@@ -159,13 +159,50 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               p50/p99 and launches per generation, bytes on the simulated
               disks, memory_allocated after each recovery, and the device's
               busy share over a profiled window of 4 full batches.
+ 17. backup   fdbbackup, fdbrestore and fdbdr (client/backup.py, client/dr.py)
+              in phase 16's deployment, phase 15's ReadWrite at 2048 clients
+              over 65536 keys and one pipeline kill.  (a) a BackupAgent
+              captures the source into a blob:// container (SimBlobTransport
+              over its SimFilesystem): start and a snapshot in 500-row
+              chunks once the keys are filled, then the traffic with the
+              kill landing while the log streams, then the log to the final
+              read version; restore() into a destination of the same deployment
+              on the same loop (300 writes a transaction): its user keyspace
+              equals the source's final one and the container's fold
+              (apply_backup), holds every acknowledged write, and passes
+              ConsistencyCheck.  (d) the source powered off, its disks saved
+              as a restart image in a temporary directory, loaded, restored
+              and restarted on the card: it serves the same keyspace, commits
+              once through a new set, and a container reopened there reads
+              the same chunks and log.  (b) DR from a primary to a secondary
+              on one loop: DRAgent.start once the keys are filled (the
+              initial copy in 500-row transactions), a direct write to the
+              locked secondary raises DatabaseLocked, the traffic with the
+              kill on the primary while the stream applies, then failover(): the
+              secondary's keyspace equals the primary's, holds every
+              acknowledged write and commits once unlocked; the card's
+              memory_allocated with both clusters up, and after both stop no
+              higher than before.  (c) (a) at 512 clients on the default
+              backend, "cuda" against "cpu": identical metrics, end virtual
+              time, recoveries, verdict stream, restored keyspace and every
+              file of both clusters byte for byte (the blob objects among
+              them), its cpu run in a spawned process beside (b) and the
+              cuda run (phases 15 and 16 run their (c) cpu twins so too).
+              Every set of every cluster equals the port's
+              OracleConflictSet fed its log, with K1/K2 once a resolve pass
+              and K4 once a compaction, counted per set.  Prints commits,
+              retries, the backup's lag, blob objects and bytes, the
+              restore's and DR's transactions, batch sizes and resolve_batch
+              p50/p99 per cluster, host wall and txn/s.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
 (`launches`: K1-K4 on phase 4's stream, K5 and the per-query intra kernel
 in their referee roles; `launches_by_path` for every path, phases 11-15's
 included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
-16's as `durable_a`, `durable_restart`, `durable_c_cuda`), then
+16's as `durable_a`, `durable_restart`, `durable_c_cuda`, phase 17's as
+`backup_src`, `backup_dst`, `backup_restart`, `dr_primary`, `dr_secondary`,
+`backup_c_cuda`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -178,6 +215,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2087,6 +2125,35 @@ def role_phase(torch, fdb, batches, extra, single, power):
 
 
 # ---------------------------------------------------------------------------
+# phases 15-17's (c): a run on "cuda" against the same run on "cpu"
+
+
+def twin_pool():
+    """A pool of one process for a (c) run on "cpu", spawned (it inherits
+    no CUDA state) so that it runs beside the same run on "cuda": both are
+    host-bound, and the card's host has cores to spare."""
+    import concurrent.futures
+    import multiprocessing
+
+    return concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+
+
+def cpu_twin(run: str, keys: tuple, *args) -> dict:
+    """One of phases 15-17's (c) runs (`run`: "cluster", "durable" or
+    "backup") on the default backend on "cpu", in the pool's process; its
+    backend checked.  Returns what the cuda run is held to (`keys`) and the
+    host walls."""
+    import torch
+
+    torch.set_num_threads(1)
+    fn = dict(cluster=cluster_run, durable=durable_run, backup=backup_run)[run]
+    rec = fn(torch, port_modules(), *args, device="cpu")
+    check_backend_device(rec, "cpu")
+    return dict({key: rec[key] for key in keys}, walls=rec["walls"])
+
+
+# ---------------------------------------------------------------------------
 # phase 15: the commit path (cluster.py): ReadWrite through the port's SimCluster
 
 RW_KEYS = 65536          # rw/%06d, filled by the workload's own setup
@@ -2098,7 +2165,7 @@ CLUSTER_KEY_BYTES = 24
 CLUSTER_SET = dict(SET_ARGS, **BEST_KNOWN, max_key_bytes=CLUSTER_KEY_BYTES)
 CLUSTER_PARTS = (  # (name, clients, virtual seconds, cluster keywords, set capacity)
     ("a", 8192, 0.28, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
-    ("b", 2048, 0.2, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
+    ("b", 2048, 0.1, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
                           resolver_splits=RW_SPLITS, storage_splits=RW_SPLITS), 1 << 17),
 )
 CLUSTER_MIN_COMMITS = 8 * 8192   # (a)
@@ -2488,15 +2555,16 @@ def cluster_phase(torch, fdb, power):
                 f"busy {out['busy_ms']:.3f} ms of {out['wall_ms']:.3f} ms host = "
                 f"{100 * out['busy_share']:.2f}%, {out['launches_per_batch']:.1f} "
                 f"launches a batch, on {power}")
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        runs[dev] = cluster_run(torch, fdb, f"c {dev}", CLUSTER_DET_CLIENTS,
-                                CLUSTER_DET_SECONDS, device=dev)
-    gpu, cpu = runs["cuda"], runs["cpu"]
+    keys = ("metrics", "end", "dump", "verdicts")
+    with twin_pool() as pool:  # the cpu run beside the cuda run, in a process of its own
+        pending = pool.submit(cpu_twin, "cluster", keys, "c cpu", CLUSTER_DET_CLIENTS,
+                              CLUSTER_DET_SECONDS)
+        gpu = cluster_run(torch, fdb, "c cuda", CLUSTER_DET_CLIENTS, CLUSTER_DET_SECONDS,
+                          device="cuda")
+        check_backend_device(gpu, "cuda")
+        cpu = pending.result()
     check_cluster_launches(gpu, "cluster c cuda")
-    for dev, rec in runs.items():
-        check_backend_device(rec, dev)
-    for key in ("metrics", "end", "dump", "verdicts"):
+    for key in keys:
         require(gpu[key] == cpu[key], f"cluster c: the cuda and cpu runs' {key} differ")
     paths["cluster_c_cuda"] = gpu["launches"]
     summary["c"] = dict(committed=gpu["metrics"]["committed"], end_virtual_s=gpu["end"],
@@ -2767,13 +2835,14 @@ def durable_phase(torch, fdb, power):
         f"of {out['wall_ms']:.3f} ms host = {100 * out['busy_share']:.2f}%, "
         f"{out['launches_per_batch']:.1f} launches a batch, on {power}")
     clients, seconds, kills = DURABLE_DET
-    runs = {dev: durable_run(torch, fdb, f"c {dev}", clients, seconds, kills, device=dev)
-            for dev in ("cuda", "cpu")}
-    gpu, cpu = runs["cuda"], runs["cpu"]
+    keys = ("metrics", "end", "recoveries", "epoch", "dump", "verdicts", "news", "files")
+    with twin_pool() as pool:  # the cpu run beside the cuda run, in a process of its own
+        pending = pool.submit(cpu_twin, "durable", keys, "c cpu", clients, seconds, kills)
+        gpu = durable_run(torch, fdb, "c cuda", clients, seconds, kills, device="cuda")
+        check_backend_device(gpu, "cuda")
+        cpu = pending.result()
     check_cluster_launches(gpu, "durable c cuda")
-    for dev, r in runs.items():
-        check_backend_device(r, dev)
-    for key in ("metrics", "end", "recoveries", "epoch", "dump", "verdicts", "news", "files"):
+    for key in keys:
         require(gpu[key] == cpu[key], f"durable c: the cuda and cpu runs' {key} differ")
     paths["durable_c_cuda"] = gpu["launches"]
     summary = dict(a=out, c=dict(
@@ -2791,6 +2860,580 @@ def durable_phase(torch, fdb, power):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: backup, restore and DR (client/backup.py, client/dr.py) in the
+# DURABLE deployment
+
+# (clients, virtual seconds of ReadWrite, (kills, first kill, interval)): one
+# pipeline kill on the source (the primary) 0.05 virtual s into the traffic,
+# after the snapshot (DR's initial copy), while the log (the stream) runs;
+# each client then waits out its 5 s COMMIT_TIMEOUT, so the run ends 0.25 s
+# past that
+BACKUP_RUN = (2048, 5.3, (1, 0.05, 5.0))  # (a) and (b)
+BACKUP_DET = (512, 5.3, (1, 0.05, 5.0))   # (c): the reduced twin, cuda against cpu
+BACKUP_CHUNK_ROWS = 500  # the snapshot's and DR's initial copy's rows a transaction
+BACKUP_URL = "blob://bk"
+BACKUP_PROBE = b"backup/restarted"  # one commit on the restarted source
+DR_PROBE = b"dr/promoted"           # one commit on the secondary after failover
+USER_END = b"\xff"                  # a backup covers the user keyspace [b"", \xff)
+
+
+class SetLog:
+    """Every conflict set the clusters of one path build, recorded into one
+    log (RecordedSet, each under its own index), tagged with the cluster it
+    serves; a cluster's older sets are retired when it builds a new one, so
+    each cluster's referee and launch checks read its own sets."""
+
+    def __init__(self, kernels) -> None:
+        self.kernels, self.log, self.sets = kernels, [], []
+
+    def add(self, cluster: str, inner, oldest: int):
+        for old in self.of(cluster):
+            old.retire()
+        rec = RecordedSet(self.kernels, inner, len(self.sets), self.log)
+        rec.cluster = cluster
+        self.log.append(("new", rec.index, oldest))
+        self.sets.append(rec)
+        return rec
+
+    def of(self, cluster: str) -> list:
+        return [s for s in self.sets if s.cluster == cluster]
+
+    def launches(self, cluster: str) -> dict:
+        out = dict.fromkeys(self.kernels.launches, 0)
+        for s in self.of(cluster):
+            for name, n in s.launches.items():
+                out[name] += n
+        return out
+
+    def batch_stats(self, cluster: str) -> dict:
+        """The cluster's non-empty resolver batches: how many, their sizes
+        (min/median/max txns) and resolve_batch p50/p99 (host clock)."""
+        mine = {s.index for s in self.of(cluster)}
+        rows = [(len(e[3]), e[5]) for e in self.log
+                if e[0] == "batch" and e[1] in mine and e[3]]
+        sizes, ms = [n for n, _t in rows], [t for _n, t in rows]
+        return dict(batches=len(rows), txns=sum(sizes), size_min=min(sizes),
+                    size_median=float(np.median(sizes)), size_max=max(sizes),
+                    p50_ms=float(np.percentile(ms, 50)), p99_ms=float(np.percentile(ms, 99)),
+                    sets=len(mine), compactions=sum(s.facts()["compactions"]
+                                                    for s in self.of(cluster)))
+
+    def check(self, fdb, paths: dict, where: str, on_card: bool = True) -> dict:
+        """The oracle referee over every set of every cluster, each from the
+        version it was built at; then, for sets on the card, for each
+        cluster K1/K2 once a resolve pass and K4 once a compaction in every
+        set, with the launches of `paths` ({cluster: the kernels' counts
+        over its window}) equal to its sets' own.  Returns {cluster: its
+        sets' launches}."""
+        for s in self.sets:
+            s.retire()
+        mismatches = oracle_referee(fdb, self.log, len(self.sets))
+        require(mismatches == 0,
+                f"{where}: {mismatches} resolver batches differ from the oracle")
+        out = {}
+        for cluster, launches in paths.items():
+            if on_card:
+                check_cluster_launches(dict(sets=self.of(cluster), launches=launches),
+                                       f"{where} {cluster}")
+            out[cluster] = self.launches(cluster)
+        return out
+
+
+def read_user(fdb, c, db) -> dict:
+    """The whole user keyspace [b"", \\xff), read through one transaction."""
+    keys_mod = fdb["keys"]
+
+    async def scan():
+        tr = db.create_transaction()
+        out, begin = {}, b""
+        while True:
+            rows = await tr.get_range(begin, USER_END, limit=READBACK_CHUNK)
+            out.update(rows)
+            if len(rows) < READBACK_CHUNK:
+                return out
+            begin = keys_mod.key_after(rows[-1][0])
+
+    return c.run_until(c.loop.spawn(scan()))
+
+
+def rw_writes(acked: list) -> list:
+    """The acknowledged commits' writes of rw/ keys (ReadWrite's and its
+    setup's; the agents' own system-key writes left out)."""
+    return [(v, [m for m in muts if m.key.startswith(b"rw/")]) for v, muts in acked]
+
+
+def blob_container(fdb, c):
+    """A blob:// container over a SimBlobTransport on the cluster's
+    SimFilesystem, as BlobBackupWorkload._container builds it (its object
+    names drawn from a split of the cluster's rng)."""
+    bs, task_priority = fdb["blobstore"], fdb["core"].TaskPriority
+    rng = c.rng.split()
+    store = bs.BlobObjectStore(bs.SimFSBacking(c.fs))
+    uid_rng = rng.split()
+    client = bs.BlobStoreClient(
+        bs.SimBlobTransport(store, c.loop, rng.split()), knobs=c.knobs, trace=c.trace,
+        sleep=lambda s: c.loop.delay(s, task_priority.DEFAULT_DELAY),
+        nonce=f"c{uid_rng.random_unique_id()[:6]}")
+    return fdb["backup"].backup_container(
+        BACKUP_URL, blob_client=client, uid=lambda: uid_rng.random_unique_id()[:8])
+
+
+def blob_objects(fs) -> tuple:
+    """The completed objects of the blob store on `fs`: count and bytes."""
+    files = fs_files(fs)
+    sizes = [len(data) for path, (data, _d) in files.items() if path.startswith("blob/o/")]
+    return len(sizes), sum(sizes)
+
+
+async def commit_error(loop, tr):
+    """The class name of the error `tr.commit()` ends with, None if it commits."""
+    t = loop.spawn(tr.commit())
+    while not t.done():
+        await loop.delay(0.001)
+    return None if t.exception() is None else type(t.exception()).__name__
+
+
+def agent_workload(fdb, name: str, body):
+    """A workload whose setup is `body(cluster)`: the backup or DR agent,
+    started once ReadWrite's setup has filled its keys and before its
+    traffic, so the snapshot (the initial copy) reads a quiet cluster:
+    under 2048 clients of traffic it stretches over seconds of virtual
+    traffic, each tens of seconds of host, and neither agent retries its
+    chunk reads, so a kill during them ends it with the GRV's TimedOut."""
+    class Agent(fdb["workloads_base"].Workload):
+        description = name
+
+        async def setup(self, cluster, rng):
+            await body(cluster)
+
+        async def start(self, cluster, rng):
+            pass
+
+    return Agent()
+
+
+def durable_cluster(fdb, sets: SetLog, name: str, seed: int, make_set, device,
+                    default_set=None, **kw):
+    """The DURABLE deployment, each set recorded under `name`: built by
+    `make_set(oldest)`, or by the default backend on `device` (its module
+    global, `default_set`, swapped for a recording one until the next
+    cluster is built: the sets built after that are the next cluster's)."""
+    rc = fdb["recoverable"]
+    if make_set is not None:
+        return rc.RecoverableCluster(
+            seed=seed, **DURABLE, conflict_backend=lambda oldest=0: sets.add(
+                name, make_set(oldest), oldest), **kw)
+    rc.DeviceConflictSet = lambda oldest=0, **k: sets.add(name, default_set(oldest, **k),
+                                                          oldest)
+    return rc.RecoverableCluster(seed=seed, **DURABLE, device=device, **kw)
+
+
+def card_sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def backup_run(torch, fdb, part: str, clients: int, seconds: float, kills: tuple,
+               device="cuda", make_set=None, restart=False):
+    """(a): a BackupAgent captures the source into a blob:// container:
+    start and a snapshot of 500-row chunks once ReadWrite's setup has
+    filled the keys, then ReadWrite's traffic with one pipeline kill while
+    the log streams (the worker rejoins the new generation by its tag, as
+    in tests/test_backup.py), then the log to the final read version; and
+    restore() into a destination of the same deployment on the same loop.
+    The destination's user keyspace must equal the source's final one and the
+    container's fold (apply_backup), hold every acknowledged write, and
+    pass ConsistencyCheck.  With `restart`, (d): the source powered off,
+    its disks saved as a restart image on the host, loaded and restarted on
+    the card; it serves the same keyspace, commits once, and a container
+    reopened there reads the same chunks and log.  Returns the run's record."""
+    rc, kernels, backup = fdb["recoverable"], fdb["kernels"], fdb["backup"]
+    sets, real_set = SetLog(kernels), rc.DeviceConflictSet
+    try:
+        src = durable_cluster(fdb, sets, "src", SEED, make_set, device, real_set)
+        acked, unknown, walls, bk = [], [], {}, {}
+        w = timed_readwrite(fdb, src, clients, seconds, sets.log, walls, acked, unknown)
+        container = blob_container(fdb, src)
+        agent = backup.BackupAgent(src)
+
+        n_kills, first_kill, interval = kills
+        attrition = fdb["attrition"].AttritionWorkload(kills=n_kills, start_delay=first_kill,
+                                                       interval=interval)
+
+        async def take_backup(cluster):
+            bk["start_version"] = await agent.start(container)
+            bk["snapshot_version"] = await agent.snapshot(container,
+                                                          chunk_rows=BACKUP_CHUNK_ROWS)
+            bk["snapshot_done_s"] = cluster.loop.now()
+            bk["kill_s"] = cluster.loop.now() + first_kill
+
+        work = [w, agent_workload(fdb, "Backup", take_backup), attrition]
+        db = src.database()
+
+        async def drain():
+            v = await db.create_transaction().get_read_version()
+            t = src.loop.now()
+            await agent.wait_backed_up_to(v, timeout=120.0)
+            bk["final_version"], bk["lag_s"] = v, src.loop.now() - t
+            await agent.stop()
+
+        card_sync(torch, device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        metrics = fdb["workloads_base"].run_workloads(src, work, deadline=1e6)["ReadWrite"]
+        src.run_until(src.loop.spawn(drain()))
+        walls["run"] = time.perf_counter() - t0
+        card_sync(torch, device)
+        paths = {"src": dict(kernels.launches)}
+        want = read_user(fdb, src, db)
+        chunks, log = src.run_until(src.loop.spawn(container.read()))
+        folded = backup.apply_backup(chunks, log)
+        rec = dict(metrics=metrics, end=src.loop.now(), recoveries=src.controller.recoveries,
+                   killed=attrition.killed, backup=bk, acked=len(acked),
+                   unknown=len(unknown), walls=walls, chunks=len(chunks),
+                   log_versions=len(log), objects=blob_objects(src.fs))
+
+        dst = durable_cluster(fdb, sets, "dst", SEED + 2, make_set, device, real_set,
+                              loop=src.loop)
+        db2, restored = dst.database(), []
+        acked_writes(db2, restored)
+        card_sync(torch, device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        target = dst.run_until(dst.loop.spawn(backup.restore(db2, container)))
+        walls["restore"] = time.perf_counter() - t0
+        card_sync(torch, device)
+        paths["dst"] = dict(kernels.launches)
+        got = read_user(fdb, dst, db2)
+        cc = fdb["consistency"].ConsistencyCheckWorkload()
+        consistent = dst.run_until(dst.loop.spawn(cc.check(dst, dst.rng.split())))
+        rec.update(restore_target=target, restored=got, restore_txns=len(restored),
+                   restore_writes=[len(m) for _v, m in restored], end_restore=dst.loop.now(),
+                   consistency=cc.metrics(), files=(fs_files(src.fs), fs_files(dst.fs)))
+        dst.stop()
+        if restart:
+            rec.update(restart_run(torch, fdb, sets, src, make_set, (chunks, log), want))
+            paths["restart"] = rec.pop("restart_launches")
+        else:
+            src.stop()
+    finally:
+        rc.DeviceConflictSet = real_set
+    require(want == got, f"backup {part}: the restored keyspace differs from the source's "
+            f"final one in {len(set(want) ^ set(got))} keys "
+            f"({sum(got.get(k) != v for k, v in want.items())} differ)")
+    require(folded == want, f"backup {part}: apply_backup of the container differs from the "
+            f"source's keyspace")
+    require(consistent, f"backup {part}: ConsistencyCheck failed on the destination")
+    check_read_back({k: v for k, v in got.items() if k.startswith(b"rw/")},
+                    expected_values(fdb["types"], rw_writes(acked)), unknown,
+                    f"backup {part} restore")
+    rec.update(launches=sets.check(fdb, paths, f"backup {part}", device == "cuda"),
+               sets=sets.sets,
+               stats={name: sets.batch_stats(name) for name in paths},
+               verdicts=[(i, v, g) for _k, i, v, _t, g, _ms in
+                         (e for e in sets.log if e[0] == "batch")],
+               news=[e for e in sets.log if e[0] == "new"])
+    return rec
+
+
+def restart_run(torch, fdb, sets: SetLog, src, make_set, read: tuple, want: dict) -> dict:
+    """(d): power off the source, save its disks as a restart image on the
+    host, load it back, and restart on the card from it."""
+    image, kernels = fdb["image"], fdb["kernels"]
+    fs = src.power_off()
+    for s in sets.of("src"):
+        s.retire()
+    with tempfile.TemporaryDirectory() as tmp:
+        saved = image.save_image(fs, str(Path(tmp) / "image"), {"seed": SEED, "phase": 17})
+        files, manifest = image.load_image(saved)
+    card_sync(torch, "cuda")
+    kernels.reset_launches()
+    c = durable_cluster(fdb, sets, "restart", SEED + 3, make_set, "cuda",
+                        fs=image.restore_filesystem(files), restart=True)
+    db = c.database()
+
+    async def probe():
+        tr = db.create_transaction()
+        tr.set(BACKUP_PROBE, b"1")
+        await tr.commit()
+
+    c.run_until(c.loop.spawn(probe()))
+    card_sync(torch, "cuda")
+    launches = dict(kernels.launches)
+    served = read_user(fdb, c, db)
+    container = blob_container(fdb, c)
+    reread = c.run_until(c.loop.spawn(container.read()))
+    c.stop()
+    served.pop(BACKUP_PROBE, None)
+    require(served == want, "backup restart: the restarted source serves another keyspace")
+    require(reread == read, "backup restart: the reopened container reads other chunks or log")
+    return dict(restart_launches=launches, image_files=len(files),
+                image_bytes=sum(len(d) for d in files.values()),
+                image_format=manifest["format"])
+
+
+def dr_run(torch, fdb, clients: int, seconds: float, kills: tuple, make_set) -> dict:
+    """(b): a primary and a secondary of the DURABLE deployment on one
+    loop; DRAgent.start once ReadWrite's setup has filled the primary (the
+    initial copy in 500-row transactions), a direct write to the secondary
+    refused with DatabaseLocked, then ReadWrite's traffic with one
+    pipeline kill on the primary while the stream applies (the DR tag
+    rejoins the new generation), then failover().  The secondary's
+    keyspace must equal the primary's final one and hold every
+    acknowledged write; it commits once it is unlocked.  Returns the run's
+    record; every set it built is retired (its card memory let go) by the
+    time it returns."""
+    kernels, clear_range = fdb["kernels"], fdb["types"].MutationType.CLEAR_RANGE
+    sets = SetLog(kernels)
+    primary = durable_cluster(fdb, sets, "primary", SEED + 4, make_set, "cuda")
+    secondary = durable_cluster(fdb, sets, "secondary", SEED + 5, make_set, "cuda",
+                                loop=primary.loop)
+    acked, unknown, walls, dr = [], [], {}, {}
+    w = timed_readwrite(fdb, primary, clients, seconds, sets.log, walls, acked, unknown)
+    applied = []
+    sec_database = secondary.database
+
+    def recorded_database(*args):
+        db = sec_database(*args)
+        acked_writes(db, applied)
+        return db
+
+    secondary.database = recorded_database
+    agent = fdb["dr"].DRAgent(primary, secondary)
+
+    n_kills, first_kill, interval = kills
+    attrition = fdb["attrition"].AttritionWorkload(kills=n_kills, start_delay=first_kill,
+                                                   interval=interval)
+
+    async def start_dr(cluster):
+        loop = cluster.loop
+        dr["start_version"] = await agent.start(chunk_rows=BACKUP_CHUNK_ROWS)
+        dr["copy_done_s"] = loop.now()
+        for _ in range(100):
+            gen = secondary.controller.generation
+            if gen is not None and all(p.locked for p in gen.proxies):
+                break
+            await loop.delay(0.1)
+        tr = secondary.database().create_transaction()
+        tr.set(b"dr/rogue", b"x")
+        dr["rogue"] = await commit_error(loop, tr)
+        dr["kill_s"] = loop.now() + first_kill
+
+    work = [w, agent_workload(fdb, "DR", start_dr), attrition]
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    metrics = fdb["workloads_base"].run_workloads(primary, work, deadline=1e6)["ReadWrite"]
+    dr["lag_versions"] = agent.lag_versions
+    t = primary.loop.now()
+    dr["final_version"] = primary.run_until(primary.loop.spawn(agent.failover(timeout=240.0)))
+    dr["failover_s"] = primary.loop.now() - t
+    walls["run"] = time.perf_counter() - t0
+    pri = read_user(fdb, primary, primary.database())
+    sec_db = secondary.database()
+    sec = read_user(fdb, secondary, sec_db)
+
+    async def probe():
+        tr = sec_db.create_transaction()
+        tr.set(DR_PROBE, b"1")
+        await tr.commit()
+        return await sec_db.create_transaction().get(DR_PROBE)
+
+    dr["probe"] = secondary.run_until(secondary.loop.spawn(probe()))
+    torch.cuda.synchronize()
+    window = dict(kernels.launches)
+    gc.collect()
+    torch.cuda.synchronize()
+    dr["memory_both_up"] = torch.cuda.memory_allocated()
+    rec = dict(metrics=metrics, end=primary.loop.now(),
+               recoveries=primary.controller.recoveries, dr=dr, walls=walls,
+               acked=len(acked), unknown=len(unknown), keys=len(sec),
+               copy_rows=[len(m) - 1 for _v, m in applied if any(
+                   mu.type == clear_range for mu in m)],
+               apply_txns=sum(any(mu.key == fdb["dr"].APPLIED_KEY for mu in m)
+                              for _v, m in applied))
+    secondary.stop()
+    primary.stop()
+    require(dr["rogue"] == "DatabaseLocked",
+            f"dr: a direct write to the locked secondary ended with {dr['rogue']!r}")
+    require(sec == pri, f"dr: the secondary's keyspace differs from the primary's in "
+            f"{len(set(sec) ^ set(pri))} keys ({sum(sec.get(k) != v for k, v in pri.items())} "
+            f"values differ)")
+    check_read_back({k: v for k, v in sec.items() if k.startswith(b"rw/")},
+                    expected_values(fdb["types"], rw_writes(acked)), unknown,
+                    "dr secondary")
+    require(dr["probe"] == b"1", "dr: the promoted secondary did not commit")
+    # both clusters' sets shared the window: each cluster's sets must sum to
+    # their own launches, and together to the window's
+    both = {name: sets.launches(name) for name in ("primary", "secondary")}
+    require(all(window[k] == both["primary"][k] + both["secondary"][k] for k in window),
+            f"dr: launches outside the two clusters' sets ({window} against {both})")
+    rec.update(launches=sets.check(fdb, both, "dr"),
+               stats={name: sets.batch_stats(name) for name in both})
+    return rec
+
+
+def dr_part(torch, fdb, make_set, power) -> tuple:
+    """(b), run, checked and printed: the card's memory before the phase's
+    two clusters, with both up, and after both stopped.  Returns its paths
+    and summary."""
+    clients, seconds, kills = BACKUP_RUN
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    b = dr_run(torch, fdb, clients, seconds, kills, make_set)
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    wall_b = time.perf_counter() - t
+    dr, m, st = b["dr"], b["metrics"], b["stats"]
+    require(after <= before, f"dr: card memory {after} B after both clusters stopped, above "
+            f"the {before} B before the phase")
+    require(b["recoveries"] >= kills[0],
+            f"dr: {b['recoveries']} primary recoveries after {kills[0]} kills")
+    log(f"dr b: primary and secondary {DURABLE} on one loop ({clients} clients on the "
+        f"primary, {seconds} virtual s, AttritionWorkload(kills={kills[0]}) on the primary): "
+        f"{m['committed']} committed + {m['retries']} retries in {b['walls']['run']:.1f} s "
+        f"host wall ({b['walls']['start']:.1f} s of workload: "
+        f"{m['committed'] / b['walls']['start']:.1f} txn/s host clock), {b['recoveries']} "
+        f"primary recoveries; initial copy: {len(b['copy_rows'])} transactions of "
+        f"{min(b['copy_rows'])}/{max(b['copy_rows'])} writes (done at "
+        f"{dr['copy_done_s']:.6f} virtual s), then {b['apply_txns']} apply transactions; a "
+        f"direct write to the secondary: {dr['rogue']}; lag before failover "
+        f"{dr['lag_versions']} versions, failover {dr['failover_s']:.6f} virtual s to version "
+        f"{dr['final_version']}; the secondary's {b['keys']} user keys equal the primary's, "
+        f"every acknowledged write among them; probe commit after unlock ok; card "
+        f"memory_allocated {before} B before, {dr['memory_both_up']} B with both up, {after} B "
+        f"after both stopped; 0 verdict mismatches against the oracle; on {power}")
+    for name in ("primary", "secondary"):
+        s = st[name]
+        log(f"dr b {name}: {s['sets']} sets, {s['batches']} batches of "
+            f"{s['size_min']}/{s['size_median']:.0f}/{s['size_max']} txns, resolve_batch "
+            f"p50={s['p50_ms']:.3f} p99={s['p99_ms']:.3f} ms (host clock), "
+            f"{s['compactions']} compactions, launches {json.dumps(b['launches'][name])}")
+    return ({"dr_primary": b["launches"]["primary"],
+             "dr_secondary": b["launches"]["secondary"]},
+            dict(metrics=m, dr=dr, recoveries=b["recoveries"], walls=b["walls"], stats=st,
+                 memory=(before, dr["memory_both_up"], after), wall_s=wall_b))
+
+
+def backup_phase(torch, fdb, power):
+    """Phase 17: (a) backup into a blob:// container and restore, with (d)
+    the restart image; (b) DR between two live clusters with the card's
+    memory across both; (c) (a)'s reduced twin on the default backend,
+    "cuda" against "cpu".  Returns {path: launches}."""
+    tdev = fdb["device"]
+
+    def make_set(oldest):
+        return tdev.DeviceConflictSet(oldest, **CLUSTER_SET, device="cuda")
+
+    clients, seconds, kills = BACKUP_RUN
+    t = time.perf_counter()
+    a = backup_run(torch, fdb, "a", clients, seconds, kills, make_set=make_set, restart=True)
+    wall_a = time.perf_counter() - t
+    require(a["recoveries"] >= kills[0],
+            f"backup a: {a['recoveries']} recoveries after {kills[0]} kills")
+    require(len(a["killed"]) == kills[0], f"backup a: killed {a['killed']}")
+    m, bk, st = a["metrics"], a["backup"], a["stats"]
+    log(f"backup a: {DURABLE} ({clients} clients, {seconds} virtual s, "
+        f"AttritionWorkload(kills={kills[0]})): {m['committed']} committed + {m['retries']} "
+        f"retries in {a['walls']['run']:.1f} s host wall ({a['walls']['start']:.1f} s of "
+        f"workload: {m['committed'] / a['walls']['start']:.1f} txn/s host clock), "
+        f"{a['recoveries']} recoveries; the backup started at version {bk['start_version']}, "
+        f"snapshot of {a['chunks']} chunks at version {bk['snapshot_version']} (done at "
+        f"{bk['snapshot_done_s']:.6f} virtual s; {a['killed']} killed at {bk['kill_s']:.6f}), "
+        f"log of "
+        f"{a['log_versions']} versions, lag {bk['lag_s']:.6f} virtual s behind the final "
+        f"read version; {a['objects'][0]} blob objects, {a['objects'][1]} bytes; restore: "
+        f"{a['restore_txns']} transactions of {min(a['restore_writes'])}/"
+        f"{np.median(a['restore_writes']):.0f}/{max(a['restore_writes'])} writes "
+        f"(min/median/max) in {a['walls']['restore']:.1f} s host wall, to version "
+        f"{a['restore_target']}; all {len(a['restored'])} user keys equal the source's and "
+        f"apply_backup's, ConsistencyCheck {json.dumps(a['consistency'])}; restart image: "
+        f"{a['image_files']} files, {a['image_bytes']} bytes, same chunks and log read back; "
+        f"0 verdict mismatches against the oracle; on {power}")
+    for name in ("src", "dst", "restart"):
+        s = st[name]
+        log(f"backup a {name}: {s['sets']} sets, {s['batches']} batches of "
+            f"{s['size_min']}/{s['size_median']:.0f}/{s['size_max']} txns, resolve_batch "
+            f"p50={s['p50_ms']:.3f} p99={s['p99_ms']:.3f} ms (host clock), "
+            f"{s['compactions']} compactions, launches {json.dumps(a['launches'][name])}")
+    paths = {"backup_src": a["launches"]["src"], "backup_dst": a["launches"]["dst"],
+             "backup_restart": a["launches"]["restart"]}
+    summary = dict(a=dict(metrics=m, backup=bk, recoveries=a["recoveries"],
+                          chunks=a["chunks"], log_versions=a["log_versions"],
+                          objects=a["objects"], restore_txns=a["restore_txns"],
+                          walls=a["walls"], stats=st, wall_s=wall_a, power=power))
+    del a
+
+    clients, seconds, kills = BACKUP_DET
+    keys = ("metrics", "end", "recoveries", "verdicts", "news", "restored", "files",
+            "end_restore", "backup")
+    with twin_pool() as pool:
+        # (c)'s cpu run, in a process of its own, beside (b) and (c)'s cuda
+        # run: (b)'s host walls are taken with it busy on another core
+        pending = pool.submit(cpu_twin, "backup", keys, "c cpu", clients, seconds, kills)
+        dr_paths, summary["b"] = dr_part(torch, fdb, make_set, power)
+        paths.update(dr_paths)
+        gpu = backup_run(torch, fdb, "c cuda", clients, seconds, kills, device="cuda")
+        check_backend_device(gpu, "cuda")
+        cpu = pending.result()
+    for key in keys:
+        require(gpu[key] == cpu[key], f"backup c: the cuda and cpu runs' {key} differ")
+    paths["backup_c_cuda"] = {k: gpu["launches"]["src"][k] + gpu["launches"]["dst"][k]
+                              for k in gpu["launches"]["src"]}
+    summary["c"] = dict(committed=gpu["metrics"]["committed"], end_virtual_s=gpu["end"],
+                        recoveries=gpu["recoveries"], batches=len(gpu["verdicts"]),
+                        files=[len(f) for f in gpu["files"]],
+                        cuda_wall_s=gpu["walls"]["run"] + gpu["walls"]["restore"],
+                        cpu_wall_s=cpu["walls"]["run"] + cpu["walls"]["restore"])
+    log(f"backup c: {clients} clients, 1 kill, the default backend "
+        f"(DeviceConflictSet(oldest, device=...)), cuda and cpu: identical ReadWrite "
+        f"metrics, end virtual time {gpu['end']:.6f} s, {gpu['recoveries']} recoveries, "
+        f"verdict stream ({len(gpu['verdicts'])} batches), restored keyspace "
+        f"({len(gpu['restored'])} keys) and all {sum(summary['c']['files'])} files of both "
+        f"clusters byte for byte (the blob store's {gpu['objects'][0]} objects among them); "
+        f"wall {summary['c']['cuda_wall_s']:.1f} s cuda, "
+        f"{summary['c']['cpu_wall_s']:.1f} s cpu")
+    log("backup summary " + json.dumps(summary, default=str))
+    return paths
+
+
+# ---------------------------------------------------------------------------
+
+
+def port_modules() -> dict:
+    """The port's modules the phases drive, by the names they use."""
+    sys.path.insert(0, str(ROOT))
+    from foundationdb_tpu_torch import bench, cluster, keys
+    from foundationdb_tpu_torch.conflict import (
+        _build, device, kernels, native, oracle, pipeline, supervisor)
+    from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
+    from foundationdb_tpu_torch.client import backup, dr
+    from foundationdb_tpu_torch.control import recoverable, status
+    from foundationdb_tpu_torch.ops import rmq
+    from foundationdb_tpu_torch.parallel import sharded
+    from foundationdb_tpu_torch.roles import resolver, types
+    from foundationdb_tpu_torch.rpc import network, stream, transport
+    from foundationdb_tpu_torch.runtime import (
+        buggify, combinators, core, coverage, knobs, serialize)
+    from foundationdb_tpu_torch.runtime.core import DeterministicRandom
+    from foundationdb_tpu_torch.storage import blobstore, image
+    from foundationdb_tpu_torch.workloads import attrition, consistency, readwrite
+    from foundationdb_tpu_torch.workloads import base as workloads_base
+
+    return dict(build=_build, keys=keys, device=device, kernels=kernels, oracle=oracle,
+                pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
+                Verdict=Verdict, supervisor=supervisor, native=native,
+                buggify=buggify, DeterministicRandom=DeterministicRandom,
+                bench=bench, sharded=sharded, core=core, knobs=knobs,
+                combinators=combinators, serialize=serialize, types=types,
+                resolver=resolver, cluster=cluster, readwrite=readwrite,
+                workloads_base=workloads_base, recoverable=recoverable, status=status,
+                attrition=attrition, backup=backup, dr=dr, blobstore=blobstore, image=image,
+                consistency=consistency,
+                rpc=dict(network=network, stream=stream, transport=transport))
 
 
 def main() -> int:
@@ -2803,32 +3446,9 @@ def main() -> int:
         print("chip_smoke: the foundationdb_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
-    from foundationdb_tpu_torch import bench, cluster, keys
-    from foundationdb_tpu_torch.conflict import (
-        _build, device, kernels, native, oracle, pipeline, supervisor)
-    from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
-    from foundationdb_tpu_torch.control import recoverable, status
-    from foundationdb_tpu_torch.ops import rmq
-    from foundationdb_tpu_torch.parallel import sharded
-    from foundationdb_tpu_torch.roles import resolver, types
-    from foundationdb_tpu_torch.rpc import network, stream, transport
-    from foundationdb_tpu_torch.runtime import (
-        buggify, combinators, core, coverage, knobs, serialize)
-    from foundationdb_tpu_torch.runtime.core import DeterministicRandom
-    from foundationdb_tpu_torch.workloads import attrition, readwrite
-    from foundationdb_tpu_torch.workloads import base as workloads_base
-
-    fdb = dict(keys=keys, device=device, kernels=kernels, oracle=oracle,
-               pipeline=pipeline, rmq=rmq, coverage=coverage, TxInfo=TxInfo,
-               Verdict=Verdict, supervisor=supervisor, native=native,
-               buggify=buggify, DeterministicRandom=DeterministicRandom,
-               bench=bench, sharded=sharded, core=core, knobs=knobs,
-               combinators=combinators, serialize=serialize, types=types,
-               resolver=resolver, cluster=cluster, readwrite=readwrite,
-               workloads_base=workloads_base, recoverable=recoverable, status=status,
-               attrition=attrition,
-               rpc=dict(network=network, stream=stream, transport=transport))
+    fdb = port_modules()
+    _build, kernels, keys = fdb["build"], fdb["kernels"], fdb["keys"]
+    device, TxInfo = fdb["device"], fdb["TxInfo"]
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -2917,6 +3537,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(durable_phase(torch, fdb, power))
     log(f"durable phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(backup_phase(torch, fdb, power))
+    log(f"backup phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

@@ -158,7 +158,11 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "control.coordination", "control.region", "control.logsystem",
                 "control.ratekeeper", "control.distribution", "control.controller",
                 "control.recoverable", "control.status", "tools.trace_tool",
-                "tools.timeline", "workloads.attrition"):
+                "tools.timeline", "workloads.attrition", "client.tuple_layer",
+                "client.directory_layer", "client.taskbucket", "client.multiversion",
+                "client.backup", "client.dr", "storage.blobstore", "storage.image",
+                "control.election", "workloads.consistency", "workloads.blob_backup",
+                "workloads.save_and_kill"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

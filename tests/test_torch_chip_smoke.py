@@ -4,6 +4,8 @@ kernel's own function (they are held against the plain torch versions
 here, and against the kernels on the card), and must count only what the
 data makes the kernel read."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -319,6 +321,20 @@ def _cluster_fdb():
                 cluster=cluster, readwrite=readwrite, workloads_base=base)
 
 
+class InProcess:
+    """chip_smoke.twin_pool's stand-in: the submitted call runs in this
+    process (with the fixtures' patches) when its result is asked for."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def submit(self, fn, *args):
+        return SimpleNamespace(result=lambda: fn(*args))
+
+
 @pytest.fixture
 def small_cluster(monkeypatch):
     """Phase 15 at a small size on the CPU: the key pool, its quartiles,
@@ -354,6 +370,7 @@ def small_cluster(monkeypatch):
     monkeypatch.setattr(chip_smoke, "CLUSTER_DET_CLIENTS", 8)
     monkeypatch.setattr(chip_smoke, "CLUSTER_DET_SECONDS", 0.05)
     monkeypatch.setattr(chip_smoke, "CLUSTER_PROFILE", (1, 2))
+    monkeypatch.setattr(chip_smoke, "twin_pool", InProcess)  # keeps these patches
     return _cluster_fdb()
 
 
@@ -566,3 +583,115 @@ def test_recovery_spans_pair_each_recovery():
     states = [(0.0, "reading_cstate"), (0.1, "fully_recovered"), (3.0, "reading_cstate"),
               (3.01, "recruiting"), (3.02, "fully_recovered")]
     assert chip_smoke.recovery_spans(states) == [(0.0, 0.1), (3.0, 3.02)]
+
+
+@pytest.fixture
+def small_backup(small_durable, monkeypatch):
+    """Phase 17 at a small size on the CPU, over phase 16's fixture: the
+    clients cut down and the snapshot's chunks made smaller, so the 512-key
+    pool still spans several chunks."""
+    from foundationdb_tpu_torch.client import backup, dr
+    from foundationdb_tpu_torch.runtime import core
+    from foundationdb_tpu_torch.storage import blobstore, image
+    from foundationdb_tpu_torch.workloads import consistency
+
+    monkeypatch.setattr(chip_smoke, "BACKUP_RUN", (16, 5.3, (1, 0.05, 5.0)))
+    monkeypatch.setattr(chip_smoke, "BACKUP_DET", (8, 5.3, (1, 0.05, 5.0)))
+    monkeypatch.setattr(chip_smoke, "BACKUP_CHUNK_ROWS", 100)
+    return dict(small_durable, backup=backup, dr=dr, blobstore=blobstore, image=image,
+                consistency=consistency, core=core)
+
+
+def test_backup_phase_names_its_paths(small_backup, monkeypatch):
+    """Phase 17 end to end at a small size: the backup survives its kill
+    and restores exactly, the restart image reads back, DR fails over
+    exactly, the twin is identical on both devices, and the six paths come
+    back with launches in every one."""
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_backend_device",
+                        lambda rec, dev: seen.append((dev, rec["sets"][0].facts()["kind"])))
+    paths = chip_smoke.backup_phase(torch, small_backup, "cpu")
+    assert sorted(paths) == ["backup_c_cuda", "backup_dst", "backup_restart", "backup_src",
+                             "dr_primary", "dr_secondary"]
+    for name, launches in paths.items():
+        assert launches["probe_fused"] > 0 and launches["intra_fixpoint"] > 0, name
+        assert launches["probe"] == launches["intra_query"] == 0, name
+    assert paths["backup_src"]["run_to_step"] > 0 and paths["dr_secondary"]["run_to_step"] > 0
+    assert [d for d, _k in seen] == ["cuda", "cpu"]
+
+
+def _backup(fdb, part, make_set):
+    clients, seconds, kills = chip_smoke.BACKUP_RUN
+    return chip_smoke.backup_run(torch, fdb, part, clients, seconds, kills, make_set=make_set)
+
+
+def test_backup_referee_catches_a_wrong_verdict(small_backup):
+    """A set that aborts one transaction the oracle commits fails the
+    referee, whichever cluster of the path it serves."""
+    class Lying:
+        def __init__(self, oldest):
+            self.inner = tdev.DeviceConflictSet(oldest, **chip_smoke.CLUSTER_SET)
+            self.batches = 0
+
+        def resolve_batch(self, version, txns):
+            out = self.inner.resolve_batch(version, txns)
+            self.batches += bool(txns)
+            if self.batches == 3 and out and int(out[-1]) == 2:
+                out = out[:-1] + [type(out[-1])(0)]  # COMMITTED -> CONFLICT
+            return out
+
+        def __getattr__(self, name):
+            return getattr(self.inner, name)
+
+    with pytest.raises(RuntimeError, match="resolver batches differ from the oracle"):
+        _backup(small_backup, "lie", Lying)
+
+
+@pytest.mark.parametrize("loss", ["key", "value"])
+def test_restore_check_catches_a_lost_or_wrong_key(small_backup, monkeypatch, loss):
+    """The destination's read-back missing a key, or holding another value
+    for one, fails the restore check (the source's read is the first, the
+    destination's the second)."""
+    real, calls = chip_smoke.read_user, []
+
+    def lossy(fdb, c, db):
+        got = real(fdb, c, db)
+        calls.append(c)
+        if len(calls) == 2:
+            key = next(iter(sorted(got)))
+            if loss == "key":
+                got.pop(key)
+            else:
+                got[key] = b"z" * 16
+        return got
+
+    monkeypatch.setattr(chip_smoke, "read_user", lossy)
+    with pytest.raises(RuntimeError, match="restored keyspace differs"):
+        _backup(small_backup, "lossy", lambda oldest: tdev.DeviceConflictSet(
+            oldest, **chip_smoke.CLUSTER_SET))
+
+
+def test_dr_check_catches_a_key_the_secondary_lost(small_backup, monkeypatch):
+    """The secondary's read-back missing one key fails the DR check."""
+    real = chip_smoke.read_user
+
+    def lossy(fdb, c, db):
+        got = real(fdb, c, db)
+        if c.is_secondary:
+            got.pop(next(iter(sorted(got))))
+        return got
+
+    built = []
+    make = small_backup["recoverable"].RecoverableCluster
+
+    def cluster(*a, **kw):
+        built.append(make(*a, **kw))
+        built[-1].is_secondary = len(built) == 2  # dr_run builds the primary first
+        return built[-1]
+
+    monkeypatch.setattr(small_backup["recoverable"], "RecoverableCluster", cluster)
+    monkeypatch.setattr(chip_smoke, "read_user", lossy)
+    clients, seconds, kills = chip_smoke.BACKUP_RUN
+    with pytest.raises(RuntimeError, match="secondary's keyspace differs"):
+        chip_smoke.dr_run(torch, small_backup, clients, seconds, kills,
+                          lambda oldest: tdev.DeviceConflictSet(oldest, **chip_smoke.CLUSTER_SET))
