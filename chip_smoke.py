@@ -22,7 +22,11 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               (a trajectory as long as the batch), also against the loop
               it replaced (the per-query kernel in a host loop: same bits,
               same iteration count), whose time is printed beside it; K4
-              over the 8 runs of a compaction at once;
+              over the 8 runs of a compaction at once; then K1, K3 and K4
+              again at W = 17 and 65 lanes (64- and 256-byte keys, the
+              widths a set widens to: the same keys behind a common
+              prefix), each against its plain version, with the dynamic
+              shared memory a block takes at those widths;
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
               + 16 timed batches, GC from the 10th batch) through
@@ -69,7 +73,10 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               at its full shape in this process: its JSON line (abort-set
               parity against the native set on the timed batches and on
               the resolver e2e run's), then native and card checks/s,
-              vs_baseline, p50/p99 and the resolver e2e rate;
+              vs_baseline, p50/p99 and the resolver e2e rate; its
+              page_cache (preads saved), metrics_series (ResolverMetrics
+              samples of 2 resolvers on the card, their launches) and
+              commit_wire (bytes, frames a flush) blocks present;
  11. legacy   phase 4's stream through the legacy layouts
               (incremental=False): the flat full merge once per merge_impl
               (scatter, sort, gather) and the LSM recent level (scatter).
@@ -150,14 +157,14 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               every generation; every key an acknowledged commit wrote reads
               back from the restarted cluster through the client; its
               \xff\xff/status/json validates with kernel.backend "cuda"; the
-              card's memory_allocated after the second recovery is no higher
+              card's requested bytes after the second recovery are no higher
               than after the first.  (c) a reduced twin (512 clients, 1 kill)
               on the default backend, "cuda" against "cpu": identical metrics,
               end virtual time, recoveries, storage, verdict stream and every
               file byte for byte.  Prints commits, retries, recoveries and
               the virtual time each took, host wall and txn/s, resolve_batch
               p50/p99 and launches per generation, bytes on the simulated
-              disks, memory_allocated after each recovery, and the device's
+              disks, the card's requested bytes after each recovery, and the device's
               busy share over a profiled window of 4 full batches.
  17. backup   fdbbackup, fdbrestore and fdbdr (client/backup.py, client/dr.py)
               in phase 16's deployment, phase 15's ReadWrite at 2048 clients
@@ -181,7 +188,7 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               kill on the primary while the stream applies, then failover(): the
               secondary's keyspace equals the primary's, holds every
               acknowledged write and commits once unlocked; the card's
-              memory_allocated with both clusters up, and after both stop no
+              requested bytes with both clusters up, and after both stop no
               higher than before.  (c) (a) at 512 clients on the default
               backend, "cuda" against "cpu": identical metrics, end virtual
               time, recoveries, verdict stream, restored keyspace and every
@@ -194,6 +201,35 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               retries, the backup's lag, blob objects and bytes, the
               restore's and DR's transactions, batch sizes and resolve_batch
               p50/p99 per cluster, host wall and txn/s.
+ 18. corpus   the simulation-spec corpus (workloads/spec.py) and long keys.
+              (a) tests/specs/DeviceFaultSwizzle.txt through run_spec_file
+              and the RestartAttritionSwizzle pair through
+              run_restarting_pair, as written, their backend=supervised
+              sets on the card, each beside the same run on "cpu" in a
+              spawned process: the specs' checks pass, both runs' metrics,
+              traced census, end virtual time and verdict streams are
+              identical, every set the supervisors built equals the port's
+              OracleConflictSet fed its log, with K1/K2 once a resolve pass
+              and K4 once a compaction, each forced device.* class fired
+              unless every supervisor's breaker was open when it was forced,
+              and a supervisor re-promoted to the card.  The spec forces
+              device.readback_corrupt behind open breakers, so a drill then
+              forces it once on the spec's supervised backend on the card:
+              it fires, the corrupt readback is served from the CPU, the
+              set re-promotes, and every verdict equals the oracle's.
+              (b) phase 16's deployment with the best-known set
+              at 2**19 starting at the default 32-byte width, ReadWrite at
+              2048 clients over 65536 keys for 0.25 virtual s beside
+              tests/specs/FuzzAndClog.txt's FuzzApi stanza (keys of up to
+              203 bytes), each the class spec.WORKLOAD_FACTORY names: 0 oracle
+              mismatches, every acknowledged rw/ write read back, the set
+              widened (to 256 bytes for FuzzApi's ends), K1, K3 and K4
+              launched at that width, the card's requested bytes before the
+              widening, after it and after the cluster stopped, and a
+              10-byte key committed after the longest.  (c) is phase 10's
+              bench line: its page_cache, metrics_series (its resolvers'
+              launches counted on the card, a path of their own) and
+              commit_wire blocks.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
@@ -202,7 +238,9 @@ in their referee roles; `launches_by_path` for every path, phases 11-15's
 included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
 16's as `durable_a`, `durable_restart`, `durable_c_cuda`, phase 17's as
 `backup_src`, `backup_dst`, `backup_restart`, `dr_primary`, `dr_secondary`,
-`backup_c_cuda`), then
+`backup_c_cuda`, phase 18's as `spec_device_fault`, `spec_restart_pair`,
+`readback_drill`, `long_keys`, and phase 10's bench probe as `bench_metrics_series`; K1, K3
+and K4 carry phase 3's wide checks under `wide`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -265,6 +303,8 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
 MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
+WIDE_W = (17, 65)  # phase 3's wider lanes: 64- and 256-byte keys
+WIDE_KERNELS = ("probe_fused", "compact_ranks", "run_to_step")
 CHAIN_TXNS = 1024  # the chain batch of phase 3: txn t reads what t - 1 writes
 # cudaLaunchKernel and, for K2, cudaLaunchCooperativeKernel
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
@@ -514,6 +554,19 @@ def compact_ranks_work(torch, keys_mod, ks, rec):
 # seeded inputs in the stream's key layout
 
 
+def prefixed_rows(rows, W: int):
+    """uint32 lane rows of 16-byte keys as rows of W lanes: each key behind
+    a common prefix of 4 * (W - 5) bytes (the encoding of prefix + key, its
+    length lane grown by the prefix's); sentinel rows stay sentinel."""
+    rows = np.asarray(rows, np.uint32)
+    sent = (rows == 0xFFFFFFFF).all(axis=-1)
+    pad = np.full(rows.shape[:-1] + (W - rows.shape[-1],), 0x66666666, np.uint32)
+    out = np.concatenate([pad, rows], axis=-1)
+    out[..., -1] += 4 * (W - rows.shape[-1])
+    out[sent] = 0xFFFFFFFF
+    return out
+
+
 def key_pool(rng, n=KEY_POOL):
     """n random 16-byte keys, and each key's successor as a 128-bit
     big-endian integer: [k, succ(k)) holds exactly the key k among 16-byte
@@ -748,6 +801,35 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           run_to_step_work(*runs_b.shape),
           fn=lambda: kernels.run_to_step_runs(*k4),
           plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
+    # K1, K3 and K4 at the wider keys a set widens to (64 and 256 bytes), at
+    # the stream's K, run_cap and cap: the same inputs, each key behind a
+    # common prefix that fills the width, so every compare runs to the end
+    for W_wide in WIDE_W:
+        wide = lambda a, W=W_wide: lanes(prefixed_rows(a, W))  # noqa: E731
+        runs_bw = wide(np.stack([r[0] for r in runs]))
+        runs_ew = wide(np.stack([r[1] for r in runs]))
+        k1w = (wide(rb_np), wide(re_np), *k1[2:4], runs_bw, runs_ew, *k1[6:])
+        check("probe_fused", [kernels.probe_fused(*k1w)],
+              [kernels.probe_fused_plain(*k1w)], probe_fused_work(torch, *k1w),
+              fn=lambda: kernels.probe_fused(*k1w),
+              plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=50, cold=True,
+              key=f"probe_fused_w{W_wide}")
+        ks_w = wide(ks_np)
+        rec_w, _ = kernels.run_to_step_plain(runs_bw[1], runs_ew[1], runs_ver[1])
+        check("compact_ranks", [kernels.compact_ranks(ks_w, rec_w)],
+              [kernels.compact_ranks_plain(ks_w, rec_w)],
+              compact_ranks_work(torch, keys_mod, ks_w, rec_w),
+              fn=lambda: kernels.compact_ranks(ks_w, rec_w),
+              plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=50,
+              cold=True, key=f"compact_ranks_w{W_wide}")
+        k4w = (runs_bw, runs_ew, runs_ver)
+        check("run_to_step", list(kernels.run_to_step_runs(*k4w)),
+              list(kernels.run_to_step_runs_plain(*k4w)),
+              run_to_step_work(*runs_bw.shape),
+              fn=lambda: kernels.run_to_step_runs(*k4w),
+              plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=100,
+              cold=True, key=f"run_to_step_w{W_wide}")
+        del runs_bw, runs_ew, k1w, ks_w, rec_w, k4w
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
     return results
 
@@ -1460,13 +1542,29 @@ def bench_phase(fdb, power):
     numbers beside the card.  Returns the path's launches."""
     kernels, bench = fdb["kernels"], fdb["bench"]
     kernels.reset_launches()
-    doc = bench.run("cuda")
+    doc = bench.run_headline("cuda")
     launches = dict(kernels.launches)
+    # the bench's probes, as bench.run adds them; the metrics_series
+    # probe's cluster launches on its own resolvers' sets, counted alone
+    doc["page_cache"] = bench.page_cache_probe()
+    doc["commit_wire"] = bench.commit_wire_probe()
+    kernels.reset_launches()
+    series = doc["metrics_series"] = bench.metrics_series_probe("cuda")
+    probe_launches = dict(kernels.launches)
     print(json.dumps(doc), flush=True)
     k = doc["kernel"]
     require(k["parity_batches"] == bench.TIMED_BATCHES
             and k["e2e_parity_batches"] == bench.E2E_BATCHES + 2 and doc["value"] > 0,
             f"bench: {doc}")
+    pc, wire = doc["page_cache"], doc["commit_wire"]
+    require(series["ResolverMetrics"] and probe_launches["probe_fused"] > 0
+            and probe_launches["intra_fixpoint"] > 0
+            and series["kernel_launches"] == probe_launches,
+            f"bench: metrics_series {len(series['ResolverMetrics'])} samples, its "
+            f"resolvers' launches {probe_launches}")
+    require(pc["cold_preads_saved"] > 0 and wire["bytes"] > 0
+            and wire["frames_per_flush"] > 0 and wire["pickle_fallbacks"] == 0,
+            f"bench: page_cache {pc}, commit_wire {wire}")
     n_batches = (bench.PREFILL_BATCHES + bench.TIMED_BATCHES + bench.POST_BATCHES
                  + bench.E2E_BATCHES + 2)
     require(launches["probe_fused"] == n_batches and launches["intra_fixpoint"] == n_batches
@@ -1479,8 +1577,14 @@ def bench_phase(fdb, power):
         f"{k['resolver_e2e_checks_per_sec']:.1f} checks/s; abort-set parity on "
         f"{k['parity_batches']} timed and {k['e2e_parity_batches']} e2e batches; "
         f"on {power}")
+    log(f"bench: page_cache cold preads {pc['cache_on']['cold_scan_preads']} (cache on) "
+        f"vs {pc['cache_off']['cold_scan_preads']} (off); metrics_series "
+        f"{len(series['ResolverMetrics'])} ResolverMetrics samples from 2 resolvers on the "
+        f"card (launches {json.dumps(probe_launches)}); commit_wire {wire['bytes']} B, "
+        f"encode {wire['encode_ms']} ms, decode {wire['decode_ms']} ms, "
+        f"{wire['frames_per_flush']} frames a flush")
     log(f"bench: launches {json.dumps(launches)}")
-    return launches
+    return launches, probe_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2141,15 +2245,18 @@ def twin_pool():
 
 def cpu_twin(run: str, keys: tuple, *args) -> dict:
     """One of phases 15-17's (c) runs (`run`: "cluster", "durable" or
-    "backup") on the default backend on "cpu", in the pool's process; its
+    "backup") on the default backend on "cpu", or phase 18's (a) spec run
+    ("spec") with its supervised sets on "cpu", in the pool's process; its
     backend checked.  Returns what the cuda run is held to (`keys`) and the
     host walls."""
     import torch
 
     torch.set_num_threads(1)
-    fn = dict(cluster=cluster_run, durable=durable_run, backup=backup_run)[run]
+    fn = dict(cluster=cluster_run, durable=durable_run, backup=backup_run,
+              spec=spec_run)[run]
     rec = fn(torch, port_modules(), *args, device="cpu")
-    check_backend_device(rec, "cpu")
+    if run != "spec":  # a spec's sets are its supervisors', checked there
+        check_backend_device(rec, "cpu")
     return dict({key: rec[key] for key in keys}, walls=rec["walls"])
 
 
@@ -2333,8 +2440,9 @@ def timed_readwrite(fdb, c, clients: int, seconds: float, log: list, walls: dict
         return db
 
     c.database = database
-    w = fdb["readwrite"].ReadWriteWorkload(keys=RW_KEYS, clients=clients, duration=seconds,
-                                           reads_per_tx=READS_PER_TXN, writes_per_tx=1)
+    w = fdb["readwrite"].ReadWriteWorkload(
+        keys=RW_KEYS, clients=clients, duration=seconds, reads_per_tx=READS_PER_TXN,
+        writes_per_tx=1)
     start = w.start
 
     async def timed_start(cluster, rng):
@@ -2448,12 +2556,14 @@ def cluster_run(torch, fdb, part: str, clients: int, seconds: float, make_set=No
                                    if e[0] == "batch"])
 
 
-def check_cluster_launches(rec: dict, where: str) -> None:
+def check_cluster_launches(rec: dict, where: str, idle_ok: bool = False) -> None:
     """K1 and K2 once a resolve pass on every resolver: once a non-empty
     batch, and once more for each batch whose bucketed search is replayed
     at full depth (`search_fallbacks`: a 16-bit key prefix shared by more
     boundaries than the fast search reaches, as the rw/ keys are); K4 once
-    a compaction, K3 at least once a run it folds, the referees never."""
+    a compaction, K3 at least once a run it folds, the referees never.
+    Every set must have served a batch, or with `idle_ok` one of them (a
+    supervisor builds sets that a fault retires before any batch)."""
     total = dict.fromkeys(rec["launches"], 0)
     for i, cs in enumerate(rec["sets"]):
         facts = cs.facts()
@@ -2467,9 +2577,10 @@ def check_cluster_launches(rec: dict, where: str) -> None:
                     f"({facts['fallbacks']} replayed), not {n}")
         require(cs.launches["compact_ranks"] >= facts["K"] * comp,
                 f"{where} resolver {i}: compact_ranks launched {cs.launches['compact_ranks']}")
-        require(cs.batches > 0, f"{where} resolver {i}: no batch reached the card")
+        require(idle_ok or cs.batches > 0, f"{where} resolver {i}: no batch reached the card")
         for name, n in cs.launches.items():
             total[name] += n
+    require(any(cs.batches for cs in rec["sets"]), f"{where}: no batch reached the card")
     require(total == rec["launches"], f"{where}: launches outside the resolvers' batches")
 
 
@@ -2673,7 +2784,7 @@ def durable_run(torch, fdb, part: str, clients: int, seconds: float, kills: tupl
         if index and device == "cuda":  # a recovered generation's first batch
             gc.collect()
             torch.cuda.synchronize()
-            memory.append((index, torch.cuda.memory_allocated()))
+            memory.append((index, card_bytes(torch)))
 
     def build(inner, oldest: int):
         for old in sets:
@@ -2809,7 +2920,7 @@ def durable_phase(torch, fdb, power):
                recovery_s=[round(b - a, 6) for a, b in spans],
                kill_to_recovered_s=[round(spans[i][1] - t, 6) for i, (t, _p) in
                                     enumerate(rec["kills"]) if i < len(spans)],
-               memory_allocated=mem, generations=rec["generations"],
+               card_requested_bytes=mem, generations=rec["generations"],
                disk_bytes=sum(rec["disk"].values()), disk_files=len(rec["disk"]),
                unknown_results=rec["unknown"], restart_epoch=rec["restart_epoch"])
     paths = {"durable_a": rec["launches"], "durable_restart": rec["restart_launches"]}
@@ -2820,7 +2931,7 @@ def durable_phase(torch, fdb, power):
         f"clock); {len(rec['sets'])} generations' sets on the card, {out['batches']} "
         f"resolver batches, {out['compactions']} compactions; recoveries "
         f"{rec['recoveries']} (kills {rec['kills']}; each took {out['recovery_s']} virtual "
-        f"s, {out['kill_to_recovered_s']} from its kill); memory_allocated after each "
+        f"s, {out['kill_to_recovered_s']} from its kill); the card's requested bytes after each "
         f"recovery {mem}; 0 verdict mismatches against the oracle ({out['referee_s']:.1f} s); "
         f"{out['disk_bytes']} bytes on {out['disk_files']} simulated disks after the "
         f"power-off; restart (epoch {rec['restart_epoch']}): all {RW_KEYS} keys read back "
@@ -2883,11 +2994,14 @@ class SetLog:
     serves; a cluster's older sets are retired when it builds a new one, so
     each cluster's referee and launch checks read its own sets."""
 
-    def __init__(self, kernels) -> None:
+    def __init__(self, kernels, retire_on_add: bool = True) -> None:
         self.kernels, self.log, self.sets = kernels, [], []
+        # False where a cluster may use an older set after it builds a new
+        # one (a supervisor's sets): every set stays live until check()
+        self.retire_on_add = retire_on_add
 
     def add(self, cluster: str, inner, oldest: int):
-        for old in self.of(cluster):
+        for old in self.of(cluster) if self.retire_on_add else ():
             old.retire()
         rec = RecordedSet(self.kernels, inner, len(self.sets), self.log)
         rec.cluster = cluster
@@ -2918,7 +3032,8 @@ class SetLog:
                     sets=len(mine), compactions=sum(s.facts()["compactions"]
                                                     for s in self.of(cluster)))
 
-    def check(self, fdb, paths: dict, where: str, on_card: bool = True) -> dict:
+    def check(self, fdb, paths: dict, where: str, on_card: bool = True,
+              idle_ok: bool = False) -> dict:
         """The oracle referee over every set of every cluster, each from the
         version it was built at; then, for sets on the card, for each
         cluster K1/K2 once a resolve pass and K4 once a compaction in every
@@ -2934,7 +3049,7 @@ class SetLog:
         for cluster, launches in paths.items():
             if on_card:
                 check_cluster_launches(dict(sets=self.of(cluster), launches=launches),
-                                       f"{where} {cluster}")
+                                       f"{where} {cluster}", idle_ok)
             out[cluster] = self.launches(cluster)
         return out
 
@@ -3026,6 +3141,17 @@ def durable_cluster(fdb, sets: SetLog, name: str, seed: int, make_set, device,
     rc.DeviceConflictSet = lambda oldest=0, **k: sets.add(name, default_set(oldest, **k),
                                                           oldest)
     return rc.RecoverableCluster(seed=seed, **DURABLE, device=device, **kw)
+
+
+def card_bytes(torch) -> int:
+    """What the live tensors on the card asked for, in bytes (the caching
+    allocator's `requested_bytes.all.current`).  Not `memory_allocated`:
+    that also counts the slack of a cached block the allocator hands out
+    whole (up to 1 MiB a block, by the layout earlier phases left), so it
+    can rise with no more tensor bytes alive (NVIDIA H100 80GB HBM3,
+    700.00 W: +393728 B at phase 16's second recovery with the requested
+    bytes unchanged)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
 def card_sync(torch, device: str) -> None:
@@ -3244,7 +3370,7 @@ def dr_run(torch, fdb, clients: int, seconds: float, kills: tuple, make_set) -> 
     window = dict(kernels.launches)
     gc.collect()
     torch.cuda.synchronize()
-    dr["memory_both_up"] = torch.cuda.memory_allocated()
+    dr["memory_both_up"] = card_bytes(torch)
     rec = dict(metrics=metrics, end=primary.loop.now(),
                recoveries=primary.controller.recoveries, dr=dr, walls=walls,
                acked=len(acked), unknown=len(unknown), keys=len(sec),
@@ -3280,12 +3406,12 @@ def dr_part(torch, fdb, make_set, power) -> tuple:
     clients, seconds, kills = BACKUP_RUN
     gc.collect()
     torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
+    before = card_bytes(torch)
     t = time.perf_counter()
     b = dr_run(torch, fdb, clients, seconds, kills, make_set)
     gc.collect()
     torch.cuda.synchronize()
-    after = torch.cuda.memory_allocated()
+    after = card_bytes(torch)
     wall_b = time.perf_counter() - t
     dr, m, st = b["dr"], b["metrics"], b["stats"]
     require(after <= before, f"dr: card memory {after} B after both clusters stopped, above "
@@ -3304,7 +3430,7 @@ def dr_part(torch, fdb, make_set, power) -> tuple:
         f"{dr['lag_versions']} versions, failover {dr['failover_s']:.6f} virtual s to version "
         f"{dr['final_version']}; the secondary's {b['keys']} user keys equal the primary's, "
         f"every acknowledged write among them; probe commit after unlock ok; card "
-        f"memory_allocated {before} B before, {dr['memory_both_up']} B with both up, {after} B "
+        f"the card's requested bytes {before} B before, {dr['memory_both_up']} B with both up, {after} B "
         f"after both stopped; 0 verdict mismatches against the oracle; on {power}")
     for name in ("primary", "secondary"):
         s = st[name]
@@ -3403,6 +3529,382 @@ def backup_phase(torch, fdb, power):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the simulation-spec corpus (workloads/spec.py) and long keys
+
+SPEC_RUNS = (  # (launches_by_path name, spec path, a restarting pair?)
+    ("spec_device_fault", "tests/specs/DeviceFaultSwizzle.txt", False),
+    ("spec_restart_pair", "tests/specs/restarting/RestartAttritionSwizzle-1.txt", True),
+)
+DEVICE_SITES = ("device.lost", "device.dispatch_hang", "device.compile_fail",
+                "device.readback_corrupt")
+# (b): phase 16's deployment and set, the set starting at the default key
+# width; ReadWrite at 2048 clients (virtual seconds of traffic: the cut) and
+# FuzzAndClog's FuzzApi stanza as published (tests/specs/FuzzAndClog.txt)
+LONG_SET = dict(CLUSTER_SET, max_key_bytes=32)
+LONG_RUN = (2048, 0.25)
+FUZZ_STANZA = dict(clients=2, opsPerClient=60)
+SHORT_PROBE = b"short/key0"  # a 10-byte key committed after the longest one
+
+
+def without_paths(metrics: dict) -> dict:
+    """A spec run's metrics less the restart image's directory (a temporary
+    one a run)."""
+    out = {k: v for k, v in metrics.items() if k != "restart_image"}
+    for part in ("part1", "part2"):
+        if part in out:
+            out[part] = without_paths(out[part])
+    if "SaveAndKill" in out:
+        out["SaveAndKill"] = {k: v for k, v in out["SaveAndKill"].items() if k != "image"}
+    return out
+
+
+def spec_run(torch, fdb, part: str, path: str, pair: bool, device="cuda") -> dict:
+    """One spec file, or a restarting pair from its first half, through the
+    port's spec runner as written, its `backend=supervised` sets on
+    `device`: every DeviceConflictSet a supervisor builds is recorded
+    (SetLog) for the oracle referee and the launch checks.  Returns the
+    run's record: its metrics (less the image path), the census its
+    teardown traced (CodeCoverage events), the end virtual time, the
+    verdict stream, the launches, the sets, and for each site forced
+    (buggify.force) whether every supervisor built so far had its breaker
+    open at that moment."""
+    import io
+
+    spec, tdev, kernels = fdb["spec"], fdb["device"], fdb["kernels"]
+    sup_mod, buggify = fdb["supervisor"], fdb["buggify"]
+    sets = SetLog(kernels, retire_on_add=False)
+    real, real_sup, real_force = tdev.DeviceConflictSet, sup_mod.DeviceSupervisor, buggify.force
+    tdev.DeviceConflictSet = lambda oldest=0, **kw: sets.add("spec", real(oldest, **kw),
+                                                             oldest)
+    sups, breaker_open = [], {}
+
+    class Supervisor(real_sup):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            sups.append(self)
+
+    def force(site, times=1):
+        opened = all(s.health()["state"] == "degraded" for s in sups)
+        breaker_open[site] = breaker_open.get(site, True) and opened
+        real_force(site, times)
+
+    sup_mod.DeviceSupervisor, buggify.force = Supervisor, force
+    sink, walls = io.StringIO(), {}
+    # the collector off, after a collection: a collected SimProcess's death
+    # promise fires its kill hook, and a collected transaction frees its
+    # cache's bytes, at moments the collector picks; this process's heap
+    # and its "cpu" twin's differ, so the census would too
+    gc.collect()
+    gc.disable()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            card_sync(torch, device)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            if pair:
+                metrics = spec.run_restarting_pair(str(ROOT / path), trace_sink=sink,
+                                                   image_dir=tmp, device=device)
+            else:
+                metrics = spec.run_spec_file(str(ROOT / path), trace_sink=sink,
+                                             device=device)
+            walls["run"] = time.perf_counter() - t0
+            card_sync(torch, device)
+            launches = dict(kernels.launches)
+    finally:
+        gc.enable()
+        tdev.DeviceConflictSet = real
+        sup_mod.DeviceSupervisor, buggify.force = real_sup, real_force
+    events = [json.loads(line) for line in sink.getvalue().splitlines()]
+    census = sorted((e["Name"], e["Kind"], e["Hits"], e["Armed"]) for e in events
+                    if e["Type"] == "CodeCoverage")
+    batches = [e for e in sets.log if e[0] == "batch"]
+    return dict(metrics=without_paths(metrics), census=census,
+                end=max(e["Time"] for e in events), launches=launches, sets=sets,
+                walls=walls, verdicts=[(i, v, got) for _k, i, v, _t, got, _ms in batches],
+                news=[e for e in sets.log if e[0] == "new"], breaker_open=breaker_open)
+
+
+def check_forced_fired(name: str, fires: dict, breaker_open: dict) -> None:
+    """Each device.* site the DeviceFault stanza forced fired, unless every
+    supervisor's breaker was open when it was forced: its site, a guarded
+    device call, was then out of reach, and stayed so (an unfired force
+    stays pending, so a re-promoted supervisor's first device call would
+    have fired it)."""
+    unmet = {s: fires.get(s, 0) for s in breaker_open
+             if s in DEVICE_SITES and not fires.get(s, 0) and not breaker_open[s]}
+    require(not unmet, f"{name}: forced device faults that never fired while a "
+            f"supervisor could reach them: {unmet} (fires {fires})")
+
+
+def spec_phase(torch, fdb, power) -> dict:
+    """(a): DeviceFaultSwizzle and the RestartAttritionSwizzle pair as
+    written, their supervised sets on the card, each beside a "cpu" twin in
+    a spawned process: the spec's checks pass (they raise otherwise), the
+    cuda and cpu runs' metrics, census, end virtual time and verdict stream
+    are identical, every set the supervisors built equals the oracle with
+    K1/K2 once a resolve pass and K4 once a compaction, each device.* class
+    the DeviceFault stanza forced fired (check_forced_fired), and a
+    supervisor re-promoted to the card.  Then readback_drill, for the
+    class the spec forces behind open breakers.  Returns {path: launches}."""
+    keys = ("metrics", "census", "end", "verdicts", "news")
+    paths = {}
+    for name, path, pair in SPEC_RUNS:
+        with twin_pool() as pool:
+            pending = pool.submit(cpu_twin, "spec", keys, f"{name} cpu", path, pair)
+            gpu = spec_run(torch, fdb, f"{name} cuda", path, pair)
+            cpu = pending.result()
+        for key in keys:
+            require(gpu[key] == cpu[key], f"{name}: the cuda and cpu runs' {key} differ")
+        sets = gpu["sets"]
+        paths[name] = sets.check(fdb, {"spec": gpu["launches"]}, name, idle_ok=True)["spec"]
+        check_backend_device(dict(sets=sets.sets), "cuda")
+        fires = {n: h for n, kind, h, _a in gpu["census"]
+                 if kind == "buggify" and n in DEVICE_SITES}
+        cov = {n: h for n, kind, h, _a in gpu["census"] if kind == "testcov"}
+        forced = (gpu["metrics"]["part1"] if pair else gpu["metrics"])["DeviceFault"]
+        check_forced_fired(name, fires, gpu["breaker_open"])
+        require(cov.get("device.promoted", 0) >= 1,
+                f"{name}: no supervisor re-promoted to the card")
+        stats = sets.batch_stats("spec")
+        log(f"spec {name}: {path} as written (backend=supervised on the card): checks "
+            f"passed; metrics {json.dumps(gpu['metrics'])}; the cpu twin identical "
+            f"(metrics, census of {len(gpu['census'])} sites, end virtual time "
+            f"{gpu['end']:.6f} s, verdict stream of {len(gpu['verdicts'])} batches); "
+            f"{len(sets.sets)} sets built by the supervisors ({stats['batches']} batches, "
+            f"{stats['compactions']} compactions, resolve_batch p50={stats['p50_ms']:.3f} "
+            f"p99={stats['p99_ms']:.3f} ms), 0 oracle mismatches; DeviceFault forced "
+            f"{forced['forced_sites']} classes, each breaker open at the force "
+            f"{json.dumps(gpu['breaker_open'])}; device.* fires {json.dumps(fires)}, "
+            f"degraded {cov.get('device.degraded', 0)}, promoted "
+            f"{cov.get('device.promoted', 0)}, cpu rebuilds {cov.get('device.cpu_rebuild', 0)}; "
+            f"launches {json.dumps(paths[name])}; wall {gpu['walls']['run']:.1f} s cuda, "
+            f"{cpu['walls']['run']:.1f} s cpu; on {power}")
+    paths["readback_drill"] = readback_drill(torch, fdb, power)["launches"]
+    return paths
+
+
+DRILL_TXNS = 6  # readback_drill's transactions a batch
+
+
+def readback_drill(torch, fdb, power, device="cuda") -> dict:
+    """(a)'s supplement: DeviceFaultSwizzle forces device.readback_corrupt
+    while every breaker is open, so its site is never reached there.  Here
+    it is forced once on the spec's own supervised backend on `device`:
+    batch 1 is the promotion's parity batch, batch 2's readback is
+    corrupted (out-of-enum verdicts) and served from the CPU rebuild,
+    force_promote() re-probes, batch 3 is the parity batch and batches
+    4-5 come from the card.  Every batch's verdicts equal the port's
+    OracleConflictSet's.  Returns the drill's record."""
+    spec, buggify, TxInfo = fdb["spec"], fdb["buggify"], fdb["TxInfo"]
+    kernels = fdb["kernels"]
+    oracle = fdb["oracle"].OracleConflictSet()
+    kernels.reset_launches()
+    sup = spec._supervised_backend(device=device)
+    buggify.enable(fdb["DeterministicRandom"](SEED), enable_prob=0.0)
+    served = []
+    try:
+        for v in range(1, 6):
+            txns = [TxInfo(max(v - 1 - i % 3, 0), [(b"rd%d" % (i % 4), b"rd%d\x00" % (i % 4))],
+                           [(b"rd%d" % ((i + v) % 4), b"rd%d\x00" % ((i + v) % 4))])
+                    for i in range(DRILL_TXNS)]
+            if v == 2:
+                buggify.force("device.readback_corrupt", 1)
+            if v == 3:
+                sup.force_promote()
+            got = sup.resolve_batch(v, txns)
+            want = oracle.resolve_batch(v, txns)
+            require(list(got) == list(want),
+                    f"readback drill: batch {v} {got} differs from the oracle's {want}")
+            served.append(sup.health()["serving"])
+        census = buggify.census()
+        h = sup.health()
+    finally:
+        buggify.disable()
+        card_sync(torch, device)
+        sup.close()
+    launches = dict(kernels.launches)
+    require(census["device.readback_corrupt"]["fires"] == 1
+            and h["last_failure"] == "dispatch:readback_corrupt"
+            and served == ["device", "cpu", "device", "device", "device"]
+            and h["promotions"] == 2 and launches["probe_fused"] >= 4,
+            f"readback drill: census {census}, served {served}, health {h}, "
+            f"launches {launches}")
+    log(f"readback drill: device.readback_corrupt forced once on the spec's supervised "
+        f"backend ({device}): fired 1, caught as {h['last_failure']}, batches served "
+        f"from {served}, {h['promotions']} promotions, verdicts equal the oracle's on "
+        f"all 5; launches {json.dumps(launches)}; on {power}")
+    return dict(served=served, health=h, launches=launches)
+
+
+def widths_by_kernel(kernels, widths: dict) -> list:
+    """Count K1's, K3's and K4's launches by the key width (lanes) of
+    their inputs into `widths`, {(kernel, W): launches}; returns the
+    wrapped functions to restore."""
+    real = []
+    for fn, name, arg in (("probe_fused", "probe_fused", 0),
+                          ("compact_ranks", "compact_ranks", 0),
+                          ("run_to_step_runs", "run_to_step", 0)):
+        inner = getattr(kernels, fn)
+
+        def counted(*a, _inner=inner, _name=name, _arg=arg, **k):
+            before = kernels.launches[_name]
+            out = _inner(*a, **k)
+            n = kernels.launches[_name] - before
+            if n:
+                key = (_name, int(a[_arg].shape[-1]))
+                widths[key] = widths.get(key, 0) + n
+            return out
+
+        real.append((fn, inner))
+        setattr(kernels, fn, counted)
+    return real
+
+
+def long_key_run(torch, fdb, clients: int, seconds: float, device="cuda") -> dict:
+    """(b): phase 16's deployment, its set at capacity 2**19 starting at
+    the default 32-byte width; ReadWrite over RW_KEYS keys and FuzzApi
+    (keys of up to 203 bytes), each the class the spec's WORKLOAD_FACTORY names, run by
+    run_workloads; then a 10-byte key committed.  Records each widening
+    (width, the card's requested bytes before and after), K1/K3/K4 launches by width,
+    and the card's memory after the cluster stops.  Returns the record."""
+    rc, spec, kernels, tdev = (fdb["recoverable"], fdb["spec"], fdb["kernels"],
+                               fdb["device"])
+    log, sets, widened, widths = [], [], [], {}
+    memory = (lambda: card_bytes(torch)) if device == "cuda" else (lambda: 0)
+
+    class Watched(tdev.DeviceConflictSet):
+        def resolve_batch(self, version, txns):
+            n, before = self.stats.widenings, memory()
+            out = super().resolve_batch(version, txns)
+            if self.stats.widenings != n:
+                widened.append(dict(key_bytes=self.stats.key_bytes, version=version,
+                                    memory_before=before, memory_after=memory()))
+            return out
+
+    def build(oldest=0):
+        rec = RecordedSet(kernels, Watched(oldest, **LONG_SET, device=device), len(sets), log)
+        log.append(("new", rec.index, oldest))
+        sets.append(rec)
+        return rec
+
+    factory = spec.WORKLOAD_FACTORY
+    # the spec names ReadWrite's class, which timed_readwrite builds
+    require(factory["ReadWrite"] is fdb["readwrite"].ReadWriteWorkload,
+            f"long keys: WORKLOAD_FACTORY['ReadWrite'] is {factory['ReadWrite']}")
+    real = widths_by_kernel(kernels, widths)
+    try:
+        card_sync(torch, device)
+        gc.collect()
+        mem0 = memory()
+        kernels.reset_launches()
+        c = rc.RecoverableCluster(seed=SEED, **DURABLE, conflict_backend=build)
+        acked, unknown, walls = [], [], {}
+        rw = timed_readwrite(fdb, c, clients, seconds, log, walls, acked, unknown)
+        fuzz = factory["FuzzApi"](**{spec._snake(k): v for k, v in FUZZ_STANZA.items()})
+        t0 = time.perf_counter()
+        metrics = fdb["workloads_base"].run_workloads(c, [rw, fuzz], deadline=1e6)
+        walls["run"] = time.perf_counter() - t0
+        db = c.database()
+
+        async def short_commit():
+            tr = db.create_transaction()
+            tr.set(SHORT_PROBE, b"1")
+            return await tr.commit()
+
+        probe_version = c.run_until(c.loop.spawn(short_commit()))
+        t0 = time.perf_counter()
+        got = read_back(fdb, c, db)
+        walls["read_back"] = time.perf_counter() - t0
+        card_sync(torch, device)
+        launches, by_width = dict(kernels.launches), dict(widths)
+        end = c.loop.now()
+        c.stop()
+        c = db = None
+    finally:
+        for fn, inner in real:
+            setattr(kernels, fn, inner)
+    facts = [dict(s.facts(), key_bytes=s.inner.stats.key_bytes,
+                  widenings=s.inner.stats.widenings) for s in sets]
+    for s in sets:
+        s.retire()
+    gc.collect()
+    card_sync(torch, device)
+    check_read_back(got, expected_values(fdb["types"], rw_writes(acked)),
+                    [[m for m in muts if m.key.startswith(b"rw/")] for muts in unknown],
+                    "long keys")
+    t0 = time.perf_counter()
+    mismatches = oracle_referee(fdb, log, len(sets))
+    walls["referee"] = time.perf_counter() - t0
+    require(mismatches == 0, f"long keys: {mismatches} resolver batches differ from the oracle")
+    batches = [e for e in log if e[0] == "batch"]
+    longest = max((max(len(b), len(e)) for entry in batches for t in entry[3]
+                   for b, e in (*t.read_ranges, *t.write_ranges)), default=0)
+    return dict(metrics=metrics, end=end, sets=sets, facts=facts, launches=launches,
+                widths=by_width, widened=widened, walls=walls, acked=len(acked),
+                probe_version=probe_version, longest=longest,
+                memory=dict(start=mem0, stopped=memory()),
+                verdicts=[(i, v, g) for _k, i, v, _t, g, _ms in batches],
+                batch_ms=[(len(t), ms) for _k, _i, _v, t, _g, ms in batches],
+                workload_batch_ms=[(len(e[3]), e[5]) for e in log[walls["first_entry"]:]
+                                   if e[0] == "batch"])
+
+
+def long_key_phase(torch, fdb, power) -> dict:
+    """(b), checked and printed: 0 oracle mismatches, every acknowledged
+    rw/ write read back (FuzzApi checks its own keys), the sets widened and
+    to which width, K1, K3 and K4 launched at that width, the card's memory
+    before the widening, after it and after the cluster stops, and the
+    10-byte commit after the longest key.  Returns {path: launches}."""
+    keys_mod = fdb["keys"]
+    clients, seconds = LONG_RUN
+    rec = long_key_run(torch, fdb, clients, seconds)
+    check_cluster_launches(rec, "long keys")
+    widest = max(f["key_bytes"] for f in rec["facts"])
+    W = keys_mod.num_words(widest)
+    require(rec["widened"] and widest > LONG_SET["max_key_bytes"],
+            f"long keys: the sets did not widen ({rec['facts']})")
+    require(widest <= keys_mod.grown_key_bytes(rec["longest"]),
+            f"long keys: widened to {widest} B, the longest endpoint has {rec['longest']}")
+    for name in ("probe_fused", "compact_ranks", "run_to_step"):
+        require(rec["widths"].get((name, W), 0) > 0,
+                f"long keys: {name} never launched at W={W} ({rec['widths']})")
+    require(isinstance(rec["probe_version"], int), "long keys: the short-key commit failed")
+    out = cluster_summary(dict(rec, metrics=rec["metrics"]["ReadWrite"]), power)
+    mem = rec["memory"]
+    log(f"long keys: {DURABLE} with the best-known set at {LONG_SET['capacity']} rows "
+        f"from {LONG_SET['max_key_bytes']}-byte keys; ReadWrite at {clients} clients over "
+        f"{RW_KEYS} keys for {seconds} virtual s and FuzzApi {json.dumps(FUZZ_STANZA)} "
+        f"(spec.WORKLOAD_FACTORY): {out['committed']} committed + {out['retries']} "
+        f"retries, FuzzApi {json.dumps(rec['metrics']['FuzzApi'])}, in "
+        f"{rec['walls']['run']:.1f} s host wall; longest endpoint {rec['longest']} B; "
+        f"widenings {json.dumps(rec['widened'])} (to {widest} B, W={W}); "
+        f"the card's requested bytes {mem['start']} B before the cluster, "
+        f"{rec['widened'][0]['memory_before']} B before the first widening, "
+        f"{rec['widened'][-1]['memory_after']} B after the last, {mem['stopped']} B after "
+        f"the cluster stopped; launches by width "
+        f"{json.dumps({f'{n} W={w}': c for (n, w), c in sorted(rec['widths'].items())})}; "
+        f"{out['batches']} resolver batches, {out['compactions']} compactions, "
+        f"resolve_batch p50={out['service_p50_ms']:.3f} p99={out['service_p99_ms']:.3f} ms; "
+        f"0 oracle mismatches ({rec['walls']['referee']:.1f} s), all {RW_KEYS} rw/ keys "
+        f"read back as acknowledged; the 10-byte {SHORT_PROBE!r} committed at version "
+        f"{rec['probe_version']} after the longest key; on {power}")
+    return {"long_keys": rec["launches"]}
+
+
+def corpus_phase(torch, fdb, power) -> dict:
+    """Phase 18: (a) the supervised specs on the card, (b) long keys at
+    deployment size.  (c), the bench's probes, is checked in phase 10.
+    Returns {path: launches}."""
+    t = time.perf_counter()
+    paths = spec_phase(torch, fdb, power)
+    log(f"corpus (a): {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    paths.update(long_key_phase(torch, fdb, power))
+    log(f"corpus (b): {time.perf_counter() - t:.1f} s")
+    return paths
+
+
 def port_modules() -> dict:
     """The port's modules the phases drive, by the names they use."""
     sys.path.insert(0, str(ROOT))
@@ -3420,7 +3922,7 @@ def port_modules() -> dict:
         buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
     from foundationdb_tpu_torch.storage import blobstore, image
-    from foundationdb_tpu_torch.workloads import attrition, consistency, readwrite
+    from foundationdb_tpu_torch.workloads import attrition, consistency, readwrite, spec
     from foundationdb_tpu_torch.workloads import base as workloads_base
 
     return dict(build=_build, keys=keys, device=device, kernels=kernels, oracle=oracle,
@@ -3432,7 +3934,7 @@ def port_modules() -> dict:
                 resolver=resolver, cluster=cluster, readwrite=readwrite,
                 workloads_base=workloads_base, recoverable=recoverable, status=status,
                 attrition=attrition, backup=backup, dr=dr, blobstore=blobstore, image=image,
-                consistency=consistency,
+                consistency=consistency, spec=spec,
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
@@ -3461,16 +3963,22 @@ def main() -> int:
     _build.build()
     log(f"build: {time.perf_counter() - t:.1f} s")
     W = keys.num_words(SET_ARGS["max_key_bytes"])
-    smem = {SYMBOLS["probe_fused"]: kernels.plan_probe(
-                SET_ARGS["run_slots"], SET_ARGS["run_capacity"], W).smem,
-            SYMBOLS["compact_ranks"]: kernels.plan_ranks(W).smem}
+
+    def smem_at(W):
+        return {SYMBOLS["probe_fused"]: kernels.plan_probe(
+                    SET_ARGS["run_slots"], SET_ARGS["run_capacity"], W).smem,
+                SYMBOLS["compact_ranks"]: kernels.plan_ranks(W).smem}
+
+    smem, wide_smem = smem_at(W), {w: smem_at(w) for w in WIDE_W}
     entry = None
     for line in _build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
             entry = next((s for s in smem if s in line), None)
         if "ptxas" in line or "Used" in line or "spill" in line:
             extra = (f"  [+ {smem[entry]} B dynamic shared memory per block at "
-                     f"phase 3's shapes]" if entry and "Used" in line else "")
+                     f"phase 3's shapes; " + ", ".join(
+                         f"{wide_smem[w][entry]} B at W={w}" for w in WIDE_W) + "]"
+                     if entry and "Used" in line else "")
             log("  " + line.strip() + extra)
 
     rng = np.random.default_rng(SEED)
@@ -3513,7 +4021,7 @@ def main() -> int:
     log(f"supervised phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
-    bench_launches = bench_phase(fdb, power)
+    bench_launches, series_launches = bench_phase(fdb, power)
     log(f"bench phase: {time.perf_counter() - t:.1f} s")
 
     t = time.perf_counter()
@@ -3540,20 +4048,26 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(backup_phase(torch, fdb, power))
     log(f"backup phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(corpus_phase(torch, fdb, power))
+    log(f"corpus phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}
     by_path.update({f"best_{mode}": l for mode, (_cs, l, _m) in runs.items()})
-    by_path.update(supervised, bench=bench_launches)
+    by_path.update(supervised, bench=bench_launches, bench_metrics_series=series_launches)
     by_path.update(new_paths)
     path_launches = dict(launches, **referee_launches)
     timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
              "bound_ms", "bound_by")
+    wide_keys = timed + ("max_abs_err",)
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCE, replaces=where,
              launches=path_launches[k], max_abs_err=results[k]["max_abs_err"],
              **{key: results[k][key] for key in timed}, library_ms=None,
-             launches_by_path={p: n.get(k, 0) for p, n in by_path.items()})
+             launches_by_path={p: n.get(k, 0) for p, n in by_path.items()},
+             **({"wide": {f"W={w}": {key: results[f"{k}_w{w}"][key] for key in wide_keys}
+                          for w in WIDE_W}} if k in WIDE_KERNELS else {}))
         for k, where, _symbol in KERNELS
     ]}))
     print(power)

@@ -26,10 +26,25 @@ marshalling is not what is compared):
     its verdicts, warm batches included, must equal the native set's on
     the same transactions, or the run exits non-zero.
 
+Then the reference bench's three probes, as blocks of the same line:
+
+  * page_cache: a cold and a warm full-range scan of one ssd-engine
+    B-tree, with the file-level page cache on and off, counted in preads;
+  * metrics_series: every ResolverMetrics sample of a fixed 200-commit
+    workload on SimCluster(seed=5, n_resolvers=2), both resolvers on the
+    port's default set on this device, with the kernels each launched;
+  * commit_wire: codec encode/decode of a bench-class resolver batch and
+    TLog push against protocol-4 pickle, and the frames per flush of a
+    loopback-TCP burst.
+
+The reference catches a probe's failure and drops its block ("additive
+data"); here a probe that fails fails the run.
+
 Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", "device",
-"kernel"}: value is the card's checks/s, vs_baseline its speedup over the
-native set on this host.  There is no fallback: without a card, or on any
-failure, the run raises and exits non-zero without printing a result.
+"page_cache", "kernel", "commit_wire", "metrics_series"}: value is the
+card's checks/s, vs_baseline its speedup over the native set on this
+host.  There is no fallback: without a card, or on any failure, the run
+raises and exits non-zero without printing a result.
 """
 
 from __future__ import annotations
@@ -259,8 +274,19 @@ def run(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY_POOL,
         cap: int = CAP, run_capacity: int = BEST_KNOWN["run_capacity"]) -> dict:
     """The whole bench on `device` (CUDA unless the caller asks for the
     CPU, where the check runs its plain torch versions: the tests' small
-    shapes).  Returns the result document; raises on any failure, and
-    SystemExit on a parity mismatch."""
+    shapes): the headline, then the reference's three probes as blocks of
+    the same document.  Raises on any failure, and SystemExit on a parity
+    mismatch."""
+    doc = run_headline(device, txns=txns, key_pool=key_pool, cap=cap,
+                       run_capacity=run_capacity)
+    return dict(doc, page_cache=page_cache_probe(), commit_wire=commit_wire_probe(),
+                metrics_series=metrics_series_probe(tdev.resolve_device(device)))
+
+
+def run_headline(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY_POOL,
+                 cap: int = CAP, run_capacity: int = BEST_KNOWN["run_capacity"]) -> dict:
+    """The headline alone: the card's checks/s against the native set, with
+    the timed and e2e abort-set parity checks and the kernel counters."""
     dev = tdev.resolve_device(device)
     rng = np.random.default_rng(SEED)
     pool = gen_pool(rng, key_pool)
@@ -359,6 +385,229 @@ def run(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY_POOL,
         "device": name,
         "kernel": kernel,
     }
+
+
+# ---------------------------------------------------------------------------
+# the reference bench's probes (bench.py:461-700), raising where it drops
+
+
+def page_cache_probe(keys: int = 4000) -> dict:
+    """The ssd engine's read path with the file-level page cache on vs off
+    (storage/pagecache.py): build one B-tree, then a COLD full-range scan
+    (fresh recover, pool cleared) and the same scan warm, counting the
+    disk preads each needed.  Simulated reads are instant, so the pread
+    COUNT is the measurable; the counters carry hit/miss/read-ahead
+    attribution.  Host only, deterministic by seed."""
+    from .runtime.core import DeterministicRandom, EventLoop
+    from .storage.btree import BTreeKeyValueStore
+    from .storage.files import SimFilesystem
+    from .storage.pagecache import PageCachePool
+
+    def scan_ops(fs, store) -> int:
+        ops0 = sum(fs.disk(p).reads for p in ("pc.a", "pc.b", "pc.hdr"))
+        rows = store.range_read(b"", b"\xff" * 8, 1 << 30)
+        if len(rows) != keys:
+            raise RuntimeError(f"page cache probe scanned {len(rows)} of {keys} rows")
+        return sum(fs.disk(p).reads for p in ("pc.a", "pc.b", "pc.hdr")) - ops0
+
+    def one(cache_on: bool) -> dict:
+        loop = EventLoop()
+        fs = SimFilesystem(loop, DeterministicRandom(5))
+        if cache_on:
+            fs.page_pool = PageCachePool(4096, 1 << 20, 8)
+        store = BTreeKeyValueStore(fs, "pc", None, cache_bytes=1 << 14)
+
+        async def build():
+            for i in range(keys):
+                store.set(b"k%06d" % i, b"v" * 64)
+            await store.commit({})
+
+        loop.run_until(loop.spawn(build()), 1e12)
+        # a fresh process lifetime: parsed cache empty, pool cold
+        if fs.page_pool is not None:
+            fs.page_pool.clear()
+        s2 = BTreeKeyValueStore.recover(fs, "pc", None, cache_bytes=1 << 14)
+        cold = scan_ops(fs, s2)
+        warm = scan_ops(fs, s2)
+        out = {"cold_scan_preads": cold, "warm_scan_preads": warm}
+        out.update(s2.page_cache_stats())
+        return out
+
+    on, off = one(True), one(False)
+    return {
+        "keys": keys,
+        "cache_on": on,
+        "cache_off": off,
+        "cold_preads_saved": off["cold_scan_preads"] - on["cold_scan_preads"],
+        "warm_preads_saved": off["warm_scan_preads"] - on["warm_scan_preads"],
+    }
+
+
+def metrics_series_probe(device=None, n_commits: int = 200) -> dict:
+    """The periodic-metrics time series: a fixed sim commit workload with a
+    fast METRICS_INTERVAL, returning every ResolverMetrics emission (rates
+    per interval, the conflict backend's wall-ms deltas, the MVCC version
+    floor over simulated time).  Both resolvers host the port's default
+    set on `device` (CUDA unless the caller asks for the CPU);
+    `kernel_launches` counts the kernels the run launched (none on the
+    CPU, whose plain versions count nothing).  Raises when no sample
+    came."""
+    from .cluster import SimCluster
+    from .conflict import kernels
+    from .runtime.knobs import CoreKnobs
+
+    knobs = CoreKnobs()
+    knobs.METRICS_INTERVAL = 0.25
+    launches0 = dict(kernels.launches)
+    c = SimCluster(seed=5, n_resolvers=2, n_tlogs=1, knobs=knobs, device=device)
+    try:
+        db = c.database()
+
+        async def drive():
+            for i in range(n_commits):
+                tr = db.create_transaction()
+                tr.set(b"m%04d" % (i % 97), b"v%04d" % i)
+                await tr.commit()
+
+        c.run_until(c.loop.spawn(drive()), 120.0)
+        series = [
+            {
+                "t": round(e["Time"], 4),
+                "instance": e["Instance"],  # two resolvers interleave here
+                "txns_per_sec": round(e["TxnsPerSec"], 1),
+                "conflicts_per_sec": round(e["ConflictsPerSec"], 1),
+                "version": e["Version"],
+                "kernel_resolve_ms_delta": round(e["KernelResolveMsDelta"], 3),
+            }
+            for e in c.trace.find("ResolverMetrics")
+        ]
+    finally:
+        c.stop()
+    if not series:
+        raise RuntimeError("metrics series probe: no ResolverMetrics sample")
+    return {
+        "interval_s": 0.25,
+        "workload_commits": n_commits,
+        "ResolverMetrics": series,
+        "kernel_launches": {k: n - launches0[k] for k, n in kernels.launches.items()},
+    }
+
+
+def commit_wire_probe(n_txns: int = 4096, reps: int = 5) -> dict:
+    """The commit-plane wire path at bench shapes: codec encode/decode of
+    ONE bench-class ResolveTransactionBatchRequest (n_txns txns x 2 point
+    reads + 1 point write, 16-byte keys) and the matching
+    TLogCommitRequest, best of `reps`, against protocol-4 pickle; then a
+    loopback-TCP burst through two RealNetworks for the transport's
+    frames per flush.  Host only."""
+    import pickle
+
+    from .roles.types import (
+        Mutation,
+        MutationType,
+        ResolveTransactionBatchRequest,
+        TLogCommitRequest,
+    )
+    from .runtime.metrics import WireStats
+    from .runtime.serialize import decode_payload, encode_payload
+
+    rng = np.random.default_rng(SEED + 7)
+    pool = rng.integers(0, 256, size=(1 << 14, KEY_BYTES), dtype=np.uint8)
+    keys = [bytes(pool[i]) for i in range(pool.shape[0])]
+    idx = rng.integers(0, len(keys), size=(n_txns, 3))
+    req = ResolveTransactionBatchRequest(9, 10, [
+        TxInfo(
+            5,
+            [(keys[i], keys[i] + b"\x00"), (keys[j], keys[j] + b"\x00")],
+            [(keys[k], keys[k] + b"\x00")],
+        )
+        for i, j, k in idx
+    ])
+    push = TLogCommitRequest(9, 10, {
+        f"ss-{t}": [
+            Mutation(MutationType.SET_VALUE, keys[i], b"v" * 16)
+            for i in rng.integers(0, len(keys), size=n_txns // 4)
+        ]
+        for t in range(4)
+    }, known_committed=8)
+
+    def best(f):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            f()
+            out.append(time.perf_counter() - t0)
+        return min(out)
+
+    stats = WireStats()
+    blobs = [(m, encode_payload(m, stats=stats)) for m in (req, push)]
+    out = {"pickle_fallbacks": stats.pickle_fallbacks}
+    enc_s = dec_s = pk_enc_s = pk_dec_s = 0.0
+    nbytes = pk_bytes = 0
+    for msg, blob in blobs:
+        pk = pickle.dumps(msg, protocol=4)
+        enc_s += best(lambda m=msg: encode_payload(m))
+        dec_s += best(lambda b=blob: decode_payload(b))
+        pk_enc_s += best(lambda m=msg: pickle.dumps(m, protocol=4))
+        pk_dec_s += best(lambda b=pk: pickle.loads(b))
+        nbytes += len(blob)
+        pk_bytes += len(pk)
+    out.update(
+        encode_ms=round(enc_s * 1e3, 3),
+        decode_ms=round(dec_s * 1e3, 3),
+        bytes=nbytes,
+        pickle_bytes=pk_bytes,
+        vs_pickle_encode=round(pk_enc_s / enc_s, 2) if enc_s else 0.0,
+        vs_pickle_decode=round(pk_dec_s / dec_s, 2) if dec_s else 0.0,
+        txns=n_txns,
+    )
+    out.update(wire_flush_probe())
+    return out
+
+
+def wire_flush_probe(n_frames: int = 64) -> dict:
+    """A burst of small resolver batches across two in-process
+    RealNetworks (real loopback TCP): the sender's coalescing factor,
+    frames per flushed write.  Raises if the burst does not arrive within
+    10 s of wall time."""
+    from .roles.types import ResolveTransactionBatchRequest
+    from .rpc.stream import RequestStream, RequestStreamRef
+    from .rpc.transport import RealNetwork, WallDriver
+    from .runtime.core import EventLoop
+
+    loop = EventLoop()
+    a = RealNetwork(loop, name="bench-a")
+    b = RealNetwork(loop, name="bench-b")
+    try:
+        rs = RequestStream(b.process, "wlt:sink")
+        got = []
+
+        async def sink():
+            while True:
+                got.append(await rs.next())
+
+        loop.spawn(sink())
+        ref = RequestStreamRef(a, a.process, rs.endpoint)
+        msg = ResolveTransactionBatchRequest(
+            1, 2, [TxInfo(1, [(b"k%04d" % i, b"k%04d\x00" % i)], []) for i in range(32)]
+        )
+        for _ in range(n_frames):
+            ref.send(msg)  # one-way: the burst queues before any flush
+
+        async def waiter():
+            while len(got) < n_frames:
+                await loop.delay(0.001)
+
+        WallDriver(loop, [a.pump, b.pump]).run_until(
+            loop.spawn(waiter()), wall_timeout=10.0)
+        snap = a.wire.snapshot()
+        return {
+            "frames_per_flush": round(snap["frames_per_flush"], 1),
+            "flushes": snap["flushes"],
+        }
+    finally:
+        a.close()
+        b.close()
 
 
 def main() -> None:

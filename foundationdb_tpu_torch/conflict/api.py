@@ -105,6 +105,10 @@ class KernelStats:
     runs_appended: int = 0      # incremental merge: batches appended as runs
     full_merges: int = 0        # legacy path: full per-batch state rewrites
     merge_impl: str = "?"       # fold implementation (sort|scatter|gather)
+    # the device set's key width (bytes) and its widenings to a batch's
+    # longer endpoints (conflict/device.py; a recovery replay counts again)
+    key_bytes: int = 0
+    widenings: int = 0
     # wall seconds spent in run/recent→main folds keyed by the merge impl
     # that executed them — lets the status plane show which impl is live
     # AND what each impl actually cost when an autotune sweep mixes them.
@@ -145,6 +149,8 @@ class KernelStats:
             "runs_appended": self.runs_appended,
             "full_merges": self.full_merges,
             "merge_impl": self.merge_impl,
+            "key_bytes": self.key_bytes,
+            "widenings": self.widenings,
             "fold_ms": {k: v * 1e3 for k, v in sorted(self.fold_wall_s.items())},
             "pack_ms": self.pack_s * 1e3,
             "encode_ms": self.encode_s * 1e3,

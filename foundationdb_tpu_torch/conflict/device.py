@@ -945,8 +945,21 @@ def _np_rows_less(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return any_neq & (a[rows, first] < b[rows, first])
 
 
+def _live_key_bytes(txns, oldest: int) -> int:
+    """The longest endpoint of a live range (b < e) of a transaction that
+    is not TOO_OLD: what a packing of `txns` must encode."""
+    need = 0
+    for tx in txns:
+        if tx.read_snapshot < oldest:
+            continue
+        for b, e in chain(tx.read_ranges, tx.write_ranges):
+            if b < e:
+                need = max(need, len(b), len(e))
+    return need
+
+
 def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
-               arena=None, stats=None, offset_array=None):
+               arena=None, stats=None, offset_array=None, grow=False):
     """Marshal a TxInfo batch into padded lane arrays — the BULK path, the
     same arrays as pack_batch_loop without per-range Python loops: ONE
     flatten of every conflict-range endpoint, ONE keys.encode_concat, and
@@ -956,8 +969,11 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
     from separate pools, instead of fresh arrays; only the previously-live
     pad region of a reused slot is re-sentinelled.  Batches with a key
     longer than max_key_bytes go to pack_batch_loop (its raise-vs-drop
-    semantics need byte compares).  Returns (rbv, rev, rtv, wbv, wev, wtv,
-    snap, active, bucketed_B)."""
+    semantics need byte compares).  With `grow`, a batch whose live ranges
+    need a wider encoding packs at `keys.grown_key_bytes` of its longest
+    live endpoint instead of raising (past keys.WIDEST_KEY_BYTES it still
+    raises): the arrays carry their width, and the set widens to it.
+    Returns (rbv, rev, rtv, wbv, wev, wtv, snap, active, bucketed_B)."""
     B = len(txns)
     if B == 0:
         return pack_batch_loop(txns, oldest, offset, max_key_bytes, stats=stats)
@@ -993,7 +1009,14 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
     n_all = len(all_keys)
     lens = np.fromiter(map(len, all_keys), dtype=np.int64, count=n_all)
     if n_all and int(lens.max()) > max_key_bytes:
-        return pack_batch_loop(txns, oldest, offset, max_key_bytes, stats=stats)
+        if grow:
+            need = _live_key_bytes(act_txns, oldest)
+            if need > max_key_bytes:
+                max_key_bytes = keymod.grown_key_bytes(need)
+                W = keymod.num_words(max_key_bytes)
+        if int(lens.max()) > max_key_bytes:
+            return pack_batch_loop(txns, oldest, offset, max_key_bytes,
+                                   stats=stats)
     enc = keymod.encode_concat(b"".join(all_keys), lens, max_key_bytes)
     t1 = time.perf_counter()
 
@@ -1204,7 +1227,14 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     `scan_s` and `append_s` (profiling only: same verdicts and state).
     The split-phase resolve (`resolve_deferred`, conflict/pipeline.py)
     dispatches batch N+1 before batch N's verdicts are read, with
-    snapshot/replay recovery when a deferred check fails."""
+    snapshot/replay recovery when a deferred check fails.
+
+    `max_key_bytes` is the key width the set starts at.  A batch with a
+    longer live endpoint widens the set in place (`_widen`), to the least
+    power of two of bytes that holds it, with the verdicts and state of a
+    set built that wide; past keys.WIDEST_KEY_BYTES the batch raises
+    KeyTooLongError and nothing changes.  (The reference's set raises at
+    its width.)"""
 
     # everything a dispatch, GC, regrow or compaction can move: the
     # recovery snapshot of a pipelined window.  Safe as references because
@@ -1216,7 +1246,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         "_oldest", "_rec_ks", "_rec_vs", "_rec_bidx", "_rec_count",
         "_rec_count_ub", "_rec_dev_count", "_rec_cap",
         "_runs_b", "_runs_e", "_runs_ver", "_n_runs", "_run_rows_ub",
-        "_run_cap",
+        "_run_cap", "_W", "_max_key_bytes",
     )
 
     def __init__(
@@ -1255,7 +1285,8 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self._base = oldest_version
         self._oldest = oldest_version
         self._last_commit = oldest_version
-        self.stats = KernelStats(backend=self.device.type)
+        self.stats = KernelStats(backend=self.device.type,
+                                 key_bytes=max_key_bytes)
         self.stats.merge_impl = merge_impl
         self.search_fallbacks = 0  # bucketed searches replayed at full depth
         self.host_syncs = 0        # reads of a device value on the host
@@ -1545,7 +1576,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         packed = pack_batch(
             txns, self._oldest, self._offset, self._max_key_bytes,
             arena=self._arena, stats=self.stats,
-            offset_array=self._offset_array,
+            offset_array=self._offset_array, grow=True,
         )
         self.stats.pack_s += time.perf_counter() - t_pack
         codes = self.resolve_arrays(commit_version, *packed[:8])
@@ -1568,6 +1599,34 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                     f"{self.device}"
                 )
         return batch
+
+    def _fit_width(self, batch):
+        """The staged batch at the set's key width: a batch packed before
+        the set last widened (one packed ahead, PipelinedPacker) gains the
+        inserted lanes here."""
+        if batch[0].shape[1] == self._W:
+            return batch
+        rb, re_, r_tx, wb, we, w_tx, snap, active = batch
+        return (keymod.widen_lanes(rb, self._W), keymod.widen_lanes(re_, self._W),
+                r_tx, keymod.widen_lanes(wb, self._W),
+                keymod.widen_lanes(we, self._W), w_tx, snap, active)
+
+    def _widen(self, W: int) -> None:
+        """Widen every W-wide buffer of the state in place to W lanes (the
+        main level, the run slots, the recent level); versions, the LSM
+        table and the bucket index (the first lane's prefix) do not change.
+        The widened state is the one a set built at that width would hold
+        (keys.widen_lanes).  Rebound, never written in place, like every
+        state update (conflict/pipeline.py)."""
+        self._ks = keymod.widen_lanes(self._ks, W)
+        if self._runs_b is not None:
+            self._runs_b = keymod.widen_lanes(self._runs_b, W)
+            self._runs_e = keymod.widen_lanes(self._runs_e, W)
+        if self._rec_ks is not None:
+            self._rec_ks = keymod.widen_lanes(self._rec_ks, W)
+        self._W, self._max_key_bytes = W, 4 * (W - 1)
+        self.stats.widenings += 1
+        self.stats.key_bytes = self._max_key_bytes
 
     def resolve_arrays(
         self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p,
@@ -1603,6 +1662,8 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         R, Wn = rbv.shape[0], wbv.shape[0]
         commit_off = self._offset(commit_version)
         t0 = time.perf_counter()
+        if rbv.shape[1] > self._W:
+            self._widen(rbv.shape[1])  # a batch with a longer endpoint
         if self._incremental:
             if 2 * Wn > self._run_cap:
                 self._grow_runs(_bucket(2 * Wn))
@@ -1621,7 +1682,8 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 v = self.resolve_arrays(commit_version, rbv, rev, rtv, wbv,
                                         wev, wtv, snap_p, active_p)
                 return torch.from_numpy(v).to(self.device)
-        batch = self._stage(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p)
+        batch = self._fit_width(
+            self._stage(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p))
         if self._incremental:
             verdict, conv = self._resolve_inc(batch, commit_off, Wn, sync)
         elif self._lsm:

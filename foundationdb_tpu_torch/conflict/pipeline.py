@@ -186,7 +186,7 @@ class PipelinedConflictMixin:
         packed = pack_batch(
             txns, self._oldest, self._offset, self._max_key_bytes,
             arena=self._arena, stats=self.stats,
-            offset_array=self._offset_array,
+            offset_array=self._offset_array, grow=True,
         )[:8]
         self.stats.pack_s += time.perf_counter() - t0
         if not self._inflight:

@@ -219,6 +219,9 @@ def _kernel_rollup(resolvers) -> dict[str, Any]:
         for k, v in p.get("fold_ms", {}).items():
             fold[k] = fold.get(k, 0.0) + v
     out["fold_ms"] = dict(sorted(fold.items()))
+    # the device sets' key width and widenings (conflict/device.py)
+    out["widenings"] = sum(p.get("widenings", 0) for p in per)
+    out["key_bytes"] = max(p.get("key_bytes", 0) for p in per)
     out["abort_rate"] = out["aborted"] / out["txns"] if out["txns"] else 0.0
     out["occupancy"] = (
         out["rows_real"] / out["rows_padded"] if out["rows_padded"] else 1.0
@@ -608,6 +611,8 @@ STATUS_SCHEMA: dict = {
         "runs_appended": int,
         "full_merges": int,
         "merge_impl": str,
+        "key_bytes?": int,
+        "widenings?": int,
         "fold_ms": dict,
         "phase": dict,
         "resolve_ms_p50": (int, float),

@@ -32,6 +32,14 @@ import torch
 # performance.rst:14); 32 gives headroom for tuple-encoded keys.
 DEFAULT_MAX_KEY_BYTES = 32
 
+# The widest key a conflict set widens to (conflict/device.py).  At 1024
+# bytes (W = 257) K1's staged reads alone exceed a block's shared memory
+# (conflict/kernels.plan_probe raises), and K3's 128 query rows alone
+# outgrow the 112 KB its block is planned for (plan_ranks stages no span).
+# FoundationDB itself takes keys of up to 10,000 bytes
+# (CLIENT_KNOBS->KEY_SIZE_LIMIT); a set raises KeyTooLongError past this.
+WIDEST_KEY_BYTES = 512
+
 SIGN_FLIP = np.uint32(0x80000000)
 SENT_LANE = 0x7FFFFFFF  # flipped 0xFFFFFFFF: the sentinel lane value
 I32_MIN = -(1 << 31)
@@ -174,6 +182,39 @@ def decode_key(enc: np.ndarray) -> bytes:
 
 class KeyTooLongError(ValueError):
     pass
+
+
+def grown_key_bytes(need: int) -> int:
+    """The key width a set widens to for an endpoint of `need` bytes: the
+    least power of two of bytes that holds it (32 -> 64 -> ... -> 512).
+    Raises KeyTooLongError past WIDEST_KEY_BYTES."""
+    if need > WIDEST_KEY_BYTES:
+        raise KeyTooLongError(
+            f"key of {need} bytes exceeds the widest width the conflict "
+            f"kernels plan for ({WIDEST_KEY_BYTES} bytes)")
+    return max(4, 1 << (need - 1).bit_length())
+
+
+def widen_lanes(rows: torch.Tensor, W: int) -> torch.Tensor:
+    """Flipped lane rows [..., W0] at the wider width W: the encoding with
+    W - 1 data words, exactly as `encode_keys` would give it.  A real key
+    gains zero words, flip(0) = INT32_MIN, before its length lane.  A row
+    that grew from the sentinel (all data words 0xFFFFFFFF, and a length
+    lane no real key of that width has: the sentinel's own, or flip(0)
+    after `lane_inc` wrapped it) gains SENT_LANE words, as the sentinel at
+    width W has.  A real key with all-0xFF data words has length 4*(W0-1).
+    Returns a fresh tensor; `rows` unchanged when already W wide."""
+    W0 = rows.shape[-1]
+    if W == W0:
+        return rows
+    if W < W0:
+        raise ValueError(f"cannot narrow lanes from W={W0} to W={W}")
+    data, length = rows[..., :-1], rows[..., -1:]
+    real_len = (length > I32_MIN) & (length <= I32_MIN + 4 * (W0 - 1))
+    sent = (data == SENT_LANE).all(dim=-1, keepdim=True) & ~real_len
+    fill = torch.where(sent, SENT_LANE, I32_MIN).to(rows.dtype)
+    fill = fill.expand(*rows.shape[:-1], W - W0)
+    return torch.cat([data, fill, length], dim=-1)
 
 
 def key_after(key: bytes) -> bytes:

@@ -20,6 +20,7 @@ import torch
 
 import bench as ref_bench
 from foundationdb_tpu_torch import bench
+from tests.torch_threads import one_torch_thread  # noqa: F401  (the probes' cluster)
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
 PORT = REPO_ROOT / "foundationdb_tpu_torch"
@@ -193,3 +194,56 @@ def test_no_module_reads_the_environment():
                     node.name if isinstance(node, ast.alias) else None)
             assert name not in ("environ", "getenv", "putenv", "unsetenv"), \
                 f"{path.relative_to(REPO_ROOT)}:{node.lineno} reads the environment"
+
+
+# ---- the reference bench's probes ------------------------------------------
+
+
+def test_page_cache_probe_matches_the_reference():
+    """The same B-tree, the same cold and warm scans: every pread and page
+    cache counter equals the reference probe's."""
+    got = bench.page_cache_probe()
+    assert got == ref_bench._page_cache_probe()
+    assert got["cold_preads_saved"] > 0 and got["cache_on"]["cold_scan_preads"] > 0
+
+
+def test_metrics_series_probe_matches_the_reference():
+    """Both resolvers on the port's default set on the CPU against the
+    reference's oracle: every ResolverMetrics sample's time, instance,
+    rates and version are equal (the wall-ms delta is the host's), and the
+    plain path counts no kernel launch."""
+    from foundationdb_tpu_torch.runtime import buggify
+
+    got = bench.metrics_series_probe("cpu")
+    want = ref_bench._metrics_series_probe()
+    buggify.disable()
+
+    def cut(doc):
+        return [{k: v for k, v in s.items() if k != "kernel_resolve_ms_delta"}
+                for s in doc["ResolverMetrics"]]
+
+    assert cut(got) == cut(want) and len(cut(got)) > 4
+    assert {s["instance"] for s in cut(got)} == {s["instance"] for s in cut(want)}
+    assert (got["interval_s"], got["workload_commits"]) == (0.25, 200)
+    assert set(got["kernel_launches"].values()) == {0}
+
+
+def test_commit_wire_probe_matches_the_reference():
+    """The same batch and push: the codec's bytes, fallbacks and the
+    burst's frames per flush equal the reference probe's (times left out).
+    Protocol-4 pickle's bytes name each class's module, and the port's
+    module paths are longer: only the codec's bytes compare."""
+    got, want = bench.commit_wire_probe(reps=1), ref_bench._commit_wire_probe(reps=1)
+    keys = ("bytes", "pickle_fallbacks", "txns", "frames_per_flush", "flushes")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert got["pickle_fallbacks"] == 0 and got["encode_ms"] > 0
+
+
+def test_a_failing_probe_fails_the_bench(monkeypatch):
+    """No probe's failure is swallowed: the run raises, and no document."""
+    def broken(*_a, **_k):
+        raise RuntimeError("probe broke")
+
+    monkeypatch.setattr(bench, "page_cache_probe", broken)
+    with pytest.raises(RuntimeError, match="probe broke"):
+        bench.run("cpu", txns=16, key_pool=1 << 8, cap=1 << 10, run_capacity=64)

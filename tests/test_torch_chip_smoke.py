@@ -467,7 +467,7 @@ def test_no_handler_swallows_a_phase():
 def small_durable(small_cluster, monkeypatch):
     """Phase 16 at a small size on the CPU, over phase 15's fixture: the
     recoverable cluster's default backend placed on the CPU too, the card's
-    memory counter stubbed, and the CPU sets naming themselves as the
+    memory counters stubbed, and the CPU sets naming themselves as the
     card's in the status roll-up (they stand in for them)."""
     from foundationdb_tpu_torch.control import recoverable, status
     from foundationdb_tpu_torch.workloads import attrition
@@ -483,6 +483,7 @@ def small_durable(small_cluster, monkeypatch):
     monkeypatch.setattr(recoverable, "DeviceConflictSet", card_set)
     monkeypatch.setattr(recoverable, "resolve_device", lambda _d: torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "card_bytes", lambda _torch: 0)
     monkeypatch.setattr(chip_smoke, "CLUSTER_SET",
                         dict(chip_smoke.CLUSTER_SET, capacity=1 << 11))
     monkeypatch.setattr(chip_smoke, "DURABLE_RUN", (16, 10.45, (2, 0.05, 5.25)))
@@ -695,3 +696,107 @@ def test_dr_check_catches_a_key_the_secondary_lost(small_backup, monkeypatch):
     with pytest.raises(RuntimeError, match="secondary's keyspace differs"):
         chip_smoke.dr_run(torch, small_backup, clients, seconds, kills,
                           lambda oldest: tdev.DeviceConflictSet(oldest, **chip_smoke.CLUSTER_SET))
+
+
+@pytest.fixture
+def small_corpus(small_durable, monkeypatch):
+    """Phase 18 at a small size on the CPU, over phase 16's fixture: the
+    supervised specs as written (their sets placed on the CPU), and (b)'s
+    clients, key pool and set cut down."""
+    from foundationdb_tpu_torch.conflict import supervisor
+    from foundationdb_tpu_torch.conflict.api import TxInfo
+    from foundationdb_tpu_torch.runtime import buggify
+    from foundationdb_tpu_torch.runtime.core import DeterministicRandom
+    from foundationdb_tpu_torch.workloads import spec
+
+    monkeypatch.setattr(tdev, "resolve_device", lambda _d=None: torch.device("cpu"))
+    monkeypatch.setattr(chip_smoke, "LONG_SET",
+                        dict(chip_smoke.CLUSTER_SET, max_key_bytes=32))
+    monkeypatch.setattr(chip_smoke, "LONG_RUN", (16, 0.1))
+    return dict(small_durable, spec=spec, supervisor=supervisor, buggify=buggify,
+                DeterministicRandom=DeterministicRandom, TxInfo=TxInfo)
+
+
+def test_corpus_phase_names_its_paths(small_corpus, monkeypatch):
+    """Phase 18 end to end at a small size: the two supervised spec runs
+    pass, equal their cpu twins and the oracle, and the long-key run widens
+    its set, launches K1, K3 and K4 at that width and commits a short key
+    after the longest; the three paths come back with launches."""
+    seen = []
+    monkeypatch.setattr(chip_smoke, "check_backend_device",
+                        lambda rec, dev: seen.append((dev, {s.facts()["kind"]
+                                                            for s in rec["sets"]})))
+    paths = chip_smoke.corpus_phase(torch, small_corpus, "cpu")
+    assert sorted(paths) == ["long_keys", "readback_drill", "spec_device_fault",
+                             "spec_restart_pair"]
+    for name, launches in paths.items():
+        assert launches["probe_fused"] > 0 and launches["intra_fixpoint"] > 0, name
+        assert launches["probe"] == launches["intra_query"] == 0, name
+    assert paths["long_keys"]["run_to_step"] > 0 and paths["long_keys"]["compact_ranks"] > 0
+    assert [d for d, _k in seen] == ["cuda", "cuda"]
+
+
+def test_long_key_run_widens_and_its_referee_catches_a_wrong_verdict(small_corpus):
+    """(b)'s record: the set widened past 32 bytes to the width of the
+    longest endpoint, K1/K3/K4 launched at it; and a wrong verdict on a
+    widened batch fails the oracle referee."""
+    keys_mod = small_corpus["keys"]
+    rec = chip_smoke.long_key_run(torch, small_corpus, *chip_smoke.LONG_RUN)
+    widest = max(f["key_bytes"] for f in rec["facts"])
+    assert widest > 32 and widest == keys_mod.grown_key_bytes(rec["longest"])
+    W = keys_mod.num_words(widest)
+    assert all(rec["widths"].get((n, W)) for n in ("probe_fused", "compact_ranks",
+                                                  "run_to_step"))
+    assert isinstance(rec["probe_version"], int) and rec["widened"]
+
+    real, lied = tdev.DeviceConflictSet.resolve_batch, []
+
+    def lying(self, version, txns):
+        out = real(self, version, txns)
+        if self.stats.widenings and not lied and out and int(out[-1]) == 2:
+            lied.append(version)
+            out = out[:-1] + [type(out[-1])(0)]  # COMMITTED -> CONFLICT, once
+        return out
+
+    tdev.DeviceConflictSet.resolve_batch = lying
+    try:
+        with pytest.raises(RuntimeError, match="resolver batches differ from the oracle"):
+            chip_smoke.long_key_run(torch, small_corpus, *chip_smoke.LONG_RUN)
+    finally:
+        tdev.DeviceConflictSet.resolve_batch = real
+
+
+def test_a_set_that_never_widens_fails_the_long_key_check(small_corpus, monkeypatch):
+    """Built wide enough for every key, the set does not widen: (b) fails."""
+    monkeypatch.setattr(chip_smoke, "LONG_SET", dict(chip_smoke.LONG_SET, max_key_bytes=256))
+    with pytest.raises(RuntimeError, match="did not widen"):
+        chip_smoke.long_key_phase(torch, small_corpus, "cpu")
+
+
+@pytest.mark.parametrize("fires, breaker_open, ok", [
+    ({"device.lost": 2}, {"device.lost": False}, True),
+    ({"device.lost": 0}, {"device.lost": True}, True),
+    ({"device.lost": 0}, {"device.lost": False}, False),
+    ({}, {"device.readback_corrupt": False}, False),
+])
+def test_a_forced_class_must_fire_unless_every_breaker_was_open(fires, breaker_open, ok):
+    """(a)'s check of the forced device.* classes: a class that never fired
+    passes only if every supervisor's breaker was open when it was forced."""
+    if ok:
+        chip_smoke.check_forced_fired("spec", fires, breaker_open)
+    else:
+        with pytest.raises(RuntimeError, match="never fired"):
+            chip_smoke.check_forced_fired("spec", fires, breaker_open)
+
+
+def test_readback_drill_catches_a_supervisor_that_serves_corrupt_verdicts(
+        small_corpus, monkeypatch):
+    """The readback drill passes on the CPU, and fails when the supervisor
+    no longer validates what it reads back (the corrupt verdicts are served)."""
+    from foundationdb_tpu_torch.conflict import supervisor
+
+    rec = chip_smoke.readback_drill(torch, small_corpus, "cpu")
+    assert rec["served"] == ["device", "cpu", "device", "device", "device"]
+    monkeypatch.setattr(supervisor, "validate_verdicts", lambda verdicts, n: None)
+    with pytest.raises(RuntimeError, match="differs from the oracle"):
+        chip_smoke.readback_drill(torch, small_corpus, "cpu")
