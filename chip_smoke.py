@@ -23,9 +23,11 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               it replaced (the per-query kernel in a host loop: same bits,
               same iteration count), whose time is printed beside it; K4
               over the 8 runs of a compaction at once; then K1, K3 and K4
-              again at W = 17 and 65 lanes (64- and 256-byte keys, the
-              widths a set widens to: the same keys behind a common
-              prefix), each against its plain version, with the dynamic
+              again at W = 17, 65, 129, 513 and 4097 lanes (64- to
+              16384-byte keys, the widths a set widens to: the same keys
+              behind a common prefix; from W = 4097 at the default set's
+              shapes, 8 runs of 4096 rows, main at 2**16 rows, 4096
+              reads), each against its plain version, with the dynamic
               shared memory a block takes at those widths;
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
@@ -126,7 +128,8 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               setup).  (a) BASELINE.json config 1: 8192 clients, one
               resolver hosting the best-known set (capacity 2**19, keys up
               to 24 bytes: the client's self-conflict keys are 22), 1 TLog,
-              1 storage server, at least 8 x 8192 commits; (b) config 5:
+              1 storage server, 0.15 virtual s, at least 4 x 8192
+              commits; (b) config 5:
               2048 clients, 4 resolvers (the best-known set, 2**17 each)
               split at the key pool's quartiles, 4 storage shards split
               there too, 2 TLogs; (c) 512 clients on the cluster's default
@@ -167,7 +170,7 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               disks, the card's requested bytes after each recovery, and the device's
               busy share over a profiled window of 4 full batches.
  17. backup   fdbbackup, fdbrestore and fdbdr (client/backup.py, client/dr.py)
-              in phase 16's deployment, phase 15's ReadWrite at 2048 clients
+              in phase 16's deployment, phase 15's ReadWrite at 1024 clients
               over 65536 keys and one pipeline kill.  (a) a BackupAgent
               captures the source into a blob:// container (SimBlobTransport
               over its SimFilesystem): start and a snapshot in 500-row
@@ -230,6 +233,36 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               bench line: its page_cache, metrics_series (its resolvers'
               launches counted on the card, a path of their own) and
               commit_wire blocks.
+ 19. served   the served cluster, the saturation ladder and a soak
+              campaign.  (a) ROADMAP C.1's repro in this process: keys of
+              600, 10, 10,000 and 12 bytes, one transaction each, on a
+              RecoverableCluster whose resolvers host the default set on
+              the card, against the same cluster on the port's
+              OracleConflictSet: the same versions, virtual times and
+              values; the set widened to 1024 and then 16384 bytes (W =
+              4097), K1, K3 and K4 launched at W = 4097, the card's
+              requested bytes before each widening, after it and after the
+              stop.  Then as OS processes: three coordinators
+              (tools/coordserver.py), a cluster file and the server
+              (tools/server.py --cluster-file --device cuda); the C ABI
+              built with g++ from bindings/c into foundationdb_tpu_torch/
+              _build/c_abi, its ctest printing C-OK; the bindingtester
+              digests of three seeds through the C ABI and the gateway
+              client, each equal to the port's in-process client's on a
+              "cpu" cluster; keys of 600 and 10,000 bytes and a 10-byte key
+              committed through the gateway and read back; the status
+              document through the gateway (backend cuda, key_bytes
+              16384); a coordinator killed and the gateway rediscovered;
+              the server's K1-K4 launches from its status document.  (b)
+              tools/saturate.run_hot_curve in r02's deployment (ssd, 2
+              shards x 2 replicas, 4000 keys, 128-byte values, zipf 1.2,
+              seed 11, data distribution on) at 50, 100 and 200 offered tps
+              for 1 virtual s each on the card: every row equal to a
+              spawned "cpu" twin's.  (c) tools/soak.run_campaign of
+              tests/specs/DeviceFaultSwizzle.txt over 4 seeds in 2 workers
+              on the card (started first, in a thread): every seed passes,
+              no required site is missing, and the census and metrics equal
+              the same campaign's on "cpu".
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
@@ -239,7 +272,9 @@ included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
 16's as `durable_a`, `durable_restart`, `durable_c_cuda`, phase 17's as
 `backup_src`, `backup_dst`, `backup_restart`, `dr_primary`, `dr_secondary`,
 `backup_c_cuda`, phase 18's as `spec_device_fault`, `spec_restart_pair`,
-`readback_drill`, `long_keys`, and phase 10's bench probe as `bench_metrics_series`; K1, K3
+`readback_drill`, `long_keys`, phase 19's as `long_keys_16k`, `served` (the
+server process's own counts), `saturate`, `soak` (the workers' summed), and
+phase 10's bench probe as `bench_metrics_series`; K1, K3
 and K4 carry phase 3's wide checks under `wide`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
@@ -303,7 +338,13 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
 MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
-WIDE_W = (17, 65)  # phase 3's wider lanes: 64- and 256-byte keys
+WIDE_W = (17, 65, 129, 513, 4097)  # phase 3's wider lanes: 64- to 16384-byte keys
+# from W = 4097 (16 KB keys) phase 3 takes the default set's shapes
+# (DeviceConflictSet(): K = 8 runs of 4096 rows, main at 2**16 rows) and
+# WIDEST_READS reads: at the stream's, main alone would be ~8.6 GB
+WIDEST_FROM = 4097
+DEFAULT_SET = dict(capacity=1 << 16, run_slots=8, run_capacity=1 << 12)
+WIDEST_READS = 4096
 WIDE_KERNELS = ("probe_fused", "compact_ranks", "run_to_step")
 CHAIN_TXNS = 1024  # the chain batch of phase 3: txn t reads what t - 1 writes
 # cudaLaunchKernel and, for K2, cudaLaunchCooperativeKernel
@@ -415,10 +456,26 @@ def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
 
 
 def _sectors(torch, elems, elem_bytes: int = 4) -> int:
-    """Distinct sectors holding the given elements of one buffer."""
+    """Distinct sectors holding the given elements of one buffer: element
+    indices, or [n, 2] inclusive ranges of them (a row's lanes 0..first),
+    counted as the union of the ranges' sector spans, so wide rows need no
+    element list."""
     if elems.numel() == 0:
         return 0
-    return int(torch.unique(elems.long() * elem_bytes // SECTOR).numel())
+    if elems.dim() == 1:
+        elems = _points(torch, elems)
+    span = elems.long() * elem_bytes // SECTOR  # inclusive sector ranges
+    lo, order = torch.sort(span[:, 0])
+    hi = span[order, 1]
+    # each range adds the sectors past every range that starts before it
+    reach = torch.cummax(hi, 0).values
+    before = torch.cat([lo[:1] - 1, reach[:-1]])
+    return int(torch.clamp(hi - torch.maximum(lo - 1, before), min=0).sum())
+
+
+def _points(torch, elems):
+    """Element indices as one-element ranges."""
+    return torch.stack([elems.long(), elems.long()], 1)
 
 
 def _first_diff(torch, a, b):
@@ -433,21 +490,21 @@ def _first_diff(torch, a, b):
 
 
 def _lanes_upto(torch, rows, first, W: int):
-    """Element indices of lanes 0..first[j] of row rows[j]."""
-    lane = torch.arange(W, device=rows.device)
-    return (rows.long()[:, None] * W + lane)[lane[None, :] <= first[:, None]]
+    """Lanes 0..first[j] of row rows[j], as an inclusive element range."""
+    start = rows.long() * W
+    return torch.stack([start, start + first.long()], 1)
 
 
 def trace_search(torch, table, qq, qid):
     """Replays count_below of csrc/conflict_kernels.cu: the binary search
     of the sorted rows `table` for #rows < qq[j].  qid[j] is query j's row
-    in its own buffer.  Returns the ranks, the element indices of every
-    lane the searches read of the table and of the query buffer, the
-    search steps and the lanes compared."""
+    in its own buffer.  Returns the ranks, the lanes the searches read of
+    the table and of the query buffer (inclusive element ranges, one a
+    compare), the search steps and the lanes compared."""
     n, W = table.shape
     lo = torch.zeros(qq.shape[0], dtype=torch.long, device=qq.device)
     hi = torch.full_like(lo, n)
-    t_el, q_el = [lo[:0]], [lo[:0]]
+    t_el, q_el = [lo.new_zeros((0, 2))], [lo.new_zeros((0, 2))]
     steps = lanes = 0
     while True:
         a = (lo < hi).nonzero()[:, 0]
@@ -486,7 +543,7 @@ def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver,
             continue
         rank, t, q, s, n_lanes = trace_search(torch, runs_b[k], re_[a], a)
         el["runs_b"].append(t + k * cap * W)
-        el["re"] += [q, a * W + W - 1]  # and the end's last lane, kept apart
+        el["re"] += [q, _points(torch, a * W + W - 1)]  # and the end's last lane
         steps, lanes = steps + s, lanes + n_lanes
         hit = rank > 0
         a, rank = a[hit], rank[hit]
@@ -545,7 +602,7 @@ def compact_ranks_work(torch, keys_mod, ks, rec):
     n_rec, W = rec.shape
     rid = torch.arange(n_rec, device=rec.device)
     rank, t, q, steps, lanes = trace_search(torch, ks, keys_mod.with_last_lane_inc(rec), rid)
-    q = torch.cat([q, rid * W + W - 1])
+    q = torch.cat([q, _points(torch, rid * W + W - 1)])
     n_bytes = SECTOR * (_sectors(torch, t) + _sectors(torch, q)) + n_rec * 4
     return n_bytes, lanes + 4 * steps + n_rec, rank.to(torch.int32)
 
@@ -565,6 +622,16 @@ def prefixed_rows(rows, W: int):
     out[..., -1] += 4 * (W - rows.shape[-1])
     out[sent] = 0xFFFFFFFF
     return out
+
+
+def wide_cut(W: int, run_cap: int, cap: int, R: int):
+    """Phase 3's inputs at width W: (rows of each run, the reads' slice,
+    the step over main's rows): the stream's below WIDEST_FROM, the default
+    set's shapes from it."""
+    if W < WIDEST_FROM:
+        return run_cap, slice(0, R), 1
+    return (DEFAULT_SET["run_capacity"], slice(R - WIDEST_READS, R),
+            cap // DEFAULT_SET["capacity"])
 
 
 def key_pool(rng, n=KEY_POOL):
@@ -801,33 +868,39 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           run_to_step_work(*runs_b.shape),
           fn=lambda: kernels.run_to_step_runs(*k4),
           plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
-    # K1, K3 and K4 at the wider keys a set widens to (64 and 256 bytes), at
-    # the stream's K, run_cap and cap: the same inputs, each key behind a
-    # common prefix that fills the width, so every compare runs to the end
+    # K1, K3 and K4 at the wider keys a set widens to (64 to 16384 bytes),
+    # at the stream's K, run_cap and cap up to W = 513 and at the default
+    # set's from WIDEST_FROM: the same inputs (the first 4096 rows of each
+    # run, every 8th main row, the last WIDEST_READS reads there), each key
+    # behind a common prefix that fills the width, so every compare runs
+    # to the end
     for W_wide in WIDE_W:
         wide = lambda a, W=W_wide: lanes(prefixed_rows(a, W))  # noqa: E731
-        runs_bw = wide(np.stack([r[0] for r in runs]))
-        runs_ew = wide(np.stack([r[1] for r in runs]))
-        k1w = (wide(rb_np), wide(re_np), *k1[2:4], runs_bw, runs_ew, *k1[6:])
+        rows, reads, step = wide_cut(W_wide, run_cap, SET_ARGS["capacity"], R)
+        reps = 50 if W_wide < WIDEST_FROM else 10  # ~30 ms a launch there
+        runs_bw = wide(np.stack([r[0][:rows] for r in runs]))
+        runs_ew = wide(np.stack([r[1][:rows] for r in runs]))
+        k1w = (wide(rb_np[reads]), wide(re_np[reads]), k1[2][reads], k1[3][reads],
+               runs_bw, runs_ew, k1[6], k1[7][reads])
         check("probe_fused", [kernels.probe_fused(*k1w)],
               [kernels.probe_fused_plain(*k1w)], probe_fused_work(torch, *k1w),
               fn=lambda: kernels.probe_fused(*k1w),
-              plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=50, cold=True,
+              plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=reps, cold=True,
               key=f"probe_fused_w{W_wide}")
-        ks_w = wide(ks_np)
+        ks_w = wide(ks_np[::step])
         rec_w, _ = kernels.run_to_step_plain(runs_bw[1], runs_ew[1], runs_ver[1])
         check("compact_ranks", [kernels.compact_ranks(ks_w, rec_w)],
               [kernels.compact_ranks_plain(ks_w, rec_w)],
               compact_ranks_work(torch, keys_mod, ks_w, rec_w),
               fn=lambda: kernels.compact_ranks(ks_w, rec_w),
-              plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=50,
+              plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=reps,
               cold=True, key=f"compact_ranks_w{W_wide}")
         k4w = (runs_bw, runs_ew, runs_ver)
         check("run_to_step", list(kernels.run_to_step_runs(*k4w)),
               list(kernels.run_to_step_runs_plain(*k4w)),
               run_to_step_work(*runs_bw.shape),
               fn=lambda: kernels.run_to_step_runs(*k4w),
-              plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=100,
+              plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=2 * reps,
               cold=True, key=f"run_to_step_w{W_wide}")
         del runs_bw, runs_ew, k1w, ks_w, rec_w, k4w
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
@@ -2245,17 +2318,18 @@ def twin_pool():
 
 def cpu_twin(run: str, keys: tuple, *args) -> dict:
     """One of phases 15-17's (c) runs (`run`: "cluster", "durable" or
-    "backup") on the default backend on "cpu", or phase 18's (a) spec run
-    ("spec") with its supervised sets on "cpu", in the pool's process; its
-    backend checked.  Returns what the cuda run is held to (`keys`) and the
-    host walls."""
+    "backup") on the default backend on "cpu", its backend checked; phase
+    18's (a) spec run ("spec") with its supervised sets on "cpu"; or phase
+    19's ladder ("saturate") or campaign ("soak") on "cpu"; in the pool's
+    process.  Returns what the cuda run is held to (`keys`) and the host
+    walls."""
     import torch
 
     torch.set_num_threads(1)
     fn = dict(cluster=cluster_run, durable=durable_run, backup=backup_run,
-              spec=spec_run)[run]
+              spec=spec_run, saturate=saturate_run, soak=soak_run)[run]
     rec = fn(torch, port_modules(), *args, device="cpu")
-    if run != "spec":  # a spec's sets are its supervisors', checked there
+    if run in ("cluster", "durable", "backup"):  # the others record no sets
         check_backend_device(rec, "cpu")
     return dict({key: rec[key] for key in keys}, walls=rec["walls"])
 
@@ -2271,11 +2345,11 @@ RW_SPLITS = [b"rw/%06d" % (q * RW_KEYS // 4) for q in (1, 2, 3)]  # the pool's q
 CLUSTER_KEY_BYTES = 24
 CLUSTER_SET = dict(SET_ARGS, **BEST_KNOWN, max_key_bytes=CLUSTER_KEY_BYTES)
 CLUSTER_PARTS = (  # (name, clients, virtual seconds, cluster keywords, set capacity)
-    ("a", 8192, 0.28, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
+    ("a", 8192, 0.15, dict(n_resolvers=1, n_storage_shards=1, n_tlogs=1), 1 << 19),
     ("b", 2048, 0.1, dict(n_resolvers=4, n_storage_shards=4, n_tlogs=2,
                           resolver_splits=RW_SPLITS, storage_splits=RW_SPLITS), 1 << 17),
 )
-CLUSTER_MIN_COMMITS = 8 * 8192   # (a)
+CLUSTER_MIN_COMMITS = 4 * 8192   # (a): ~41K at 0.15 virtual s (70598 at 0.28)
 CLUSTER_DET_CLIENTS = 512        # (c): the default backend, cuda against cpu
 CLUSTER_DET_SECONDS = 0.25
 CLUSTER_PROFILE = (3, 4)  # the window: from the 3rd batch of >= clients/8 txns, 4 batches
@@ -2979,7 +3053,7 @@ def durable_phase(torch, fdb, power):
 # after the snapshot (DR's initial copy), while the log (the stream) runs;
 # each client then waits out its 5 s COMMIT_TIMEOUT, so the run ends 0.25 s
 # past that
-BACKUP_RUN = (2048, 5.3, (1, 0.05, 5.0))  # (a) and (b)
+BACKUP_RUN = (1024, 5.3, (1, 0.05, 5.0))  # (a) and (b)
 BACKUP_DET = (512, 5.3, (1, 0.05, 5.0))   # (c): the reduced twin, cuda against cpu
 BACKUP_CHUNK_ROWS = 500  # the snapshot's and DR's initial copy's rows a transaction
 BACKUP_URL = "blob://bk"
@@ -3905,6 +3979,460 @@ def corpus_phase(torch, fdb, power) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the served cluster (tools/server.py with its coordinators,
+# gateway and clients), the saturation ladder (tools/saturate.py) and a soak
+# campaign (tools/soak.py)
+
+SERVED_RUN_S = "900"        # each served process's own wall limit (--run-seconds)
+SERVED_SEEDS = (11, 12, 13)  # the bindingtester's op streams
+SERVED_KEYS = (600, 10000, 10)  # through the gateway, after the digests
+REPRO_KEYS = (600, 10, 10000, 12)  # ROADMAP C.1's repro, in this process
+REPRO_SEED = 1
+REPRO_FILL = 12  # short commits after the repro: a compaction at W = 4097
+# r02's deployment (BENCH_SAT_r02.json: ssd, 2 shards x 2 replicas, 4000
+# keys of 128-byte values, zipf 1.2, seed 11), data distribution on, its
+# ladder cut to three 1-virtual-second steps
+SAT_CURVE = dict(steps=[50.0, 100.0, 200.0], step_duration=1.0, keys=4000, seed=11,
+                 skew=1.2)
+SOAK_SPEC = "tests/specs/DeviceFaultSwizzle.txt"
+SOAK_SEEDS = [3000, 3001, 3002, 3003]
+SOAK_JOBS = 2
+SOAK_SEED_DEADLINE = 600.0
+CARD = "cuda"  # the device of phase 19's runs; their twins run on "cpu"
+# the kernels each path must launch: the server's and the ladder's sets
+# compact; the soak's spec sets see one-transaction batches between faults
+SERVED_KERNELS = MAIN_PATH
+SOAK_KERNELS = ("probe_fused", "intra_fixpoint")
+
+
+class Served:
+    """A child process of the served cluster (`python -m module args`,
+    from the repository's root); a thread queues its output lines."""
+
+    def __init__(self, module: str, *args: str) -> None:
+        import queue
+        import threading
+
+        self.name = module.rsplit(".", 1)[-1]
+        self.p = subprocess.Popen([sys.executable, "-m", module, *args],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True, cwd=str(ROOT))
+        self.lines: queue.Queue = queue.Queue()
+        self.seen: list[str] = []
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self) -> None:
+        for line in self.p.stdout:
+            self.lines.put(line)
+
+    def wait_line(self, needle: str, timeout: float = 300.0) -> str:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self.lines.empty():
+                require(self.p.poll() is None,
+                        f"{self.name} exited ({self.p.returncode}) before {needle!r}: "
+                        f"{''.join(self.seen)[-3000:]}")
+                time.sleep(0.1)
+                continue
+            line = self.lines.get()
+            self.seen.append(line)
+            if needle in line:
+                return line
+        raise RuntimeError(f"{self.name} never printed {needle!r} in {timeout} s: "
+                           f"{''.join(self.seen)[-3000:]}")
+
+    def kill(self) -> None:
+        if self.p.poll() is None:
+            self.p.kill()
+        self.p.wait()
+
+
+class TxnDriver:
+    """The bindingtester's driver over a binding whose transactions have
+    the tester's surface already (the C ABI's ctypes wrapper, the gateway
+    client): `new_txn` makes one."""
+
+    def __init__(self, new_txn) -> None:
+        self.new_txn = new_txn
+
+
+class InProcessDriver:
+    """The bindingtester's driver over the port's in-process client: a
+    read-your-writes transaction on a cluster in this process, every read
+    and commit run to its end on the cluster's loop."""
+
+    def __init__(self, fdb, cluster) -> None:
+        self.c, self.db, self.types = cluster, cluster.database(), fdb["types"]
+
+    def new_txn(self):
+        c, tr, types = self.c, self.db.create_ryw_transaction(), self.types
+
+        def wait(coro):
+            return c.run_until(c.loop.spawn(coro), 300)
+
+        class Txn:
+            set = staticmethod(tr.set)
+            clear_range = staticmethod(tr.clear_range)
+            reset = staticmethod(tr.reset)
+            set_option = staticmethod(tr.set_option)
+
+            def get(self, k):
+                return wait(tr.get(k))
+
+            def get_range(self, b, e, limit):
+                return wait(tr.get_range(b, e, limit=limit))
+
+            def atomic_add(self, k, d):
+                tr.atomic_op(types.MutationType.ADD, k, d.to_bytes(8, "little", signed=True))
+
+            def get_key(self, k, or_equal, offset):
+                return wait(tr.get_key(types.KeySelector(k, or_equal, offset)))
+
+            def get_range_selector(self, bk, boe, boff, ek, eoe, eoff, limit):
+                return wait(tr.get_range(types.KeySelector(bk, boe, boff),
+                                         types.KeySelector(ek, eoe, eoff), limit=limit))
+
+            def commit(self):
+                wait(tr.commit())
+
+        return Txn()
+
+
+def clear_user(db) -> None:
+    """A gateway client's user keyspace emptied, as a fresh cluster has
+    it: the digests' selectors step past bt/ into whatever else it holds."""
+    db.run(lambda tr: tr.clear_range(b"", b"\xff"))
+
+
+def repro_keys(lengths) -> list:
+    return [b"fz/" + b"k" * (n - 3) for n in lengths]
+
+
+def repro_run(torch, fdb, make_set, fill: int = 0) -> tuple:
+    """ROADMAP C.1's repro on a RecoverableCluster(seed=REPRO_SEED) whose
+    resolvers host `make_set`'s sets: one transaction a key (read, write,
+    commit; an error fails the phase), then `fill` short commits, then
+    every key read back.  Returns ([(length, version, virtual time)],
+    values, end)."""
+    c = fdb["recoverable"].RecoverableCluster(seed=REPRO_SEED, conflict_backend=make_set)
+    db = c.database()
+    keys = repro_keys(REPRO_KEYS)
+
+    async def body():
+        out = []
+        for k in keys:
+            tr = db.create_transaction()
+            await tr.get(k)
+            tr.set(k, b"v%d" % len(k))
+            out.append((len(k), await tr.commit(), c.loop.now()))
+        for i in range(fill):
+            tr = db.create_transaction()
+            tr.set(b"fill/%d" % i, b"%d" % i)
+            await tr.commit()
+        tr = db.create_transaction()
+        return out, [await tr.get(k) for k in keys]
+
+    try:
+        commits, values = c.run_until(c.loop.spawn(body()), 300.0)
+        return commits, values, c.loop.now()
+    finally:
+        c.stop()
+
+
+def repro_part(torch, fdb, power, device="cuda") -> dict:
+    """(a), in this process: ROADMAP C.1's repro on the cluster's default
+    set on the card (DeviceConflictSet(oldest, device="cuda"), capacity
+    2**16, 8 runs of 4096), then REPRO_FILL short commits (a compaction at
+    W = 4097), against the same cluster on the port's OracleConflictSet:
+    the same versions, virtual times and values; the set widened to 1024
+    and then 16384 bytes; K1, K3 and K4 launched at W = 4097; the card's
+    requested bytes before each widening, after it, and after the stop.
+    Returns {path: launches}."""
+    tdev, kernels = fdb["device"], fdb["kernels"]
+    memory = (lambda: card_bytes(torch)) if device == "cuda" else (lambda: 0)
+    t0 = time.perf_counter()
+    want = repro_run(torch, fdb, lambda oldest=0: fdb["oracle"].OracleConflictSet(oldest),
+                     REPRO_FILL)
+    wall_oracle = time.perf_counter() - t0
+    widened, sets, widths, batch_log = [], [], {}, []
+
+    class Watched(tdev.DeviceConflictSet):
+        def resolve_batch(self, version, txns):
+            n, before = self.stats.widenings, memory()
+            out = super().resolve_batch(version, txns)
+            if self.stats.widenings != n:
+                widened.append((self.stats.key_bytes, before, memory()))
+            return out
+
+    def make(oldest=0):
+        sets.append(RecordedSet(kernels, Watched(oldest, device=device), len(sets),
+                                batch_log))
+        return sets[-1]
+
+    real = widths_by_kernel(kernels, widths)
+    try:
+        card_sync(torch, device)
+        gc.collect()
+        mem0 = memory()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        got = repro_run(torch, fdb, make, REPRO_FILL)
+        wall = time.perf_counter() - t0
+        card_sync(torch, device)
+        launches = dict(kernels.launches)
+    finally:
+        for fn, inner in real:
+            setattr(kernels, fn, inner)
+    stats = [(s.inner.stats.key_bytes, s.inner.stats.widenings, s.inner.stats.compactions)
+             for s in sets]
+    for s in sets:  # a stopped cluster stays reachable: its sets must not
+        s.retire()
+    gc.collect()
+    card_sync(torch, device)
+    mem_stop = memory()
+    require(got == want, f"served (a): C.1's repro on the card {got} differs from the "
+                         f"oracle's {want}")
+    require(all(isinstance(v, int) for _n, v, _t in got[0]),
+            f"served (a): a repro key did not commit: {got[0]}")
+    require(got[1] == [b"v%d" % n for n in REPRO_KEYS], "served (a): a repro key read back wrong")
+    require([w[0] for w in widened] == [1024, 16384],
+            f"served (a): the set widened {widened}, not to 1024 then 16384 bytes")
+    W = fdb["keys"].num_words(16384)
+    for name in WIDE_KERNELS:
+        require(widths.get((name, W), 0) > 0, f"served (a): {name} never launched at W={W}")
+    require(mem_stop <= mem0, f"served (a): the card's requested bytes {mem_stop} after the "
+                              f"stop exceed {mem0} before the cluster")
+    log(f"served (a) repro: keys {list(REPRO_KEYS)} B at seed {REPRO_SEED} committed at "
+        f"(length, version, virtual s) {got[0]}, as on the oracle; end {got[2]:.6f} virtual s; "
+        f"sets (key bytes, widenings, compactions) {stats}; widened (key bytes, requested B "
+        f"before, after) {widened}; requested B {mem0} before the cluster, {mem_stop} after "
+        f"the stop; K1/K3/K4 launches by W {json.dumps({f'{k}@{w}': n for (k, w), n in sorted(widths.items())})}; "
+        f"launches {json.dumps(launches)}; wall {wall:.1f} s (oracle {wall_oracle:.1f} s) "
+        f"on {power}")
+    return {"long_keys_16k": launches}
+
+
+def served_part(torch, fdb, tmp: str, power, device="cuda") -> dict:
+    """(a), as OS processes: three coordinators, a cluster file and the
+    server on the card (`python -m foundationdb_tpu_torch.tools.server
+    --cluster-file F --device cuda`); the C ABI built with g++ from
+    bindings/c into foundationdb_tpu_torch/_build/c_abi, its ctest printing
+    C-OK; the bindingtester digests of SERVED_SEEDS through the C ABI and
+    the gateway client, each equal to the port's in-process client's on a
+    "cpu" cluster; keys of 600 and 10,000 bytes and a 10-byte key after
+    them committed through the gateway and read back; \\xff\\xff/status/json
+    through the gateway: backend cuda, key_bytes 16384 (the 10,000-byte
+    key's key_after end, rounded up to the set's width); a coordinator
+    killed, commits going on, and a fresh client rediscovering the gateway;
+    the server's K1-K4 launches (its status document's) all > 0.  Returns
+    {path: launches}."""
+    gw_mod, gwc = fdb["gateway"], fdb["gateway_client"]
+    sys.path.insert(0, str(ROOT / "bindings"))
+    sys.path.insert(0, str(ROOT / "bindings" / "python"))
+    from bindingtester import digest
+    from fdbtpu_ctypes import FdbTpu
+
+    walls = {}
+    t0 = time.perf_counter()
+    lib, ctest = gw_mod.build_c_bindings(ROOT / "foundationdb_tpu_torch" / "_build" / "c_abi")
+    walls["c_build"] = time.perf_counter() - t0
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        addrs = []
+        for _ in range(3):
+            procs.append(Served("foundationdb_tpu_torch.tools.coordserver",
+                                "--run-seconds", SERVED_RUN_S))
+            ip, _, port = procs[-1].wait_line("coordinator ready on").split()[-1].rpartition(":")
+            addrs.append(fdb["rpc"]["network"].NetworkAddress(ip, int(port)))
+        cf = str(Path(tmp) / "fdb.cluster")
+        fdb["cluster_file"].write_cluster_file(cf, addrs)
+        procs.append(Served("foundationdb_tpu_torch.tools.server", "--cluster-file", cf,
+                            "--device", device, "--run-seconds", SERVED_RUN_S))
+        procs[-1].wait_line("fdbtpu server ready on")
+        walls["boot"] = time.perf_counter() - t0
+        db = gwc.open_cluster(cf, timeout=60.0)
+        host, port = db._addr
+        r = subprocess.run([str(ctest), host, str(port)], capture_output=True, text=True,
+                           timeout=120)
+        require(r.returncode == 0 and r.stdout.startswith("C-OK "),
+                f"served (a): ctest failed ({r.returncode}): {r.stdout}{r.stderr}")
+
+        t0 = time.perf_counter()
+        for seed in SERVED_SEEDS:
+            clear_user(db)
+            c_db = FdbTpu(str(lib), host, port)
+            try:
+                via_c = digest(TxnDriver(c_db.create_transaction), seed)
+            finally:
+                c_db.close()
+            clear_user(db)
+            via_gateway = digest(TxnDriver(db.transaction), seed)
+            c = fdb["recoverable"].RecoverableCluster(
+                seed=990 + seed, n_storage_shards=2, storage_replication=2, device="cpu")
+            try:
+                in_process = digest(InProcessDriver(fdb, c), seed)
+            finally:
+                c.stop()
+            require(via_c == in_process and via_gateway == in_process,
+                    f"served (a): seed {seed}'s digests differ (C ABI "
+                    f"{via_c == in_process}, gateway client {via_gateway == in_process})")
+        walls["digests"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        versions = []
+        for k in repro_keys(SERVED_KEYS):
+            tr = db.transaction()
+            tr.get(k)
+            tr.set(k, b"v%d" % len(k))
+            versions.append(tr.commit())
+            tr.destroy()
+        back = db.read(lambda tr: [tr.get(k) for k in repro_keys(SERVED_KEYS)])
+        walls["long_keys"] = time.perf_counter() - t0
+        require(back == [b"v%d" % n for n in SERVED_KEYS] and versions == sorted(versions),
+                f"served (a): the long keys read back {[len(v or b'') for v in back]}")
+        doc = json.loads(db.read(lambda tr: tr.get(STATUS_KEY)))
+        kernel = doc["kernel"]
+        # the longest key's key_after end, rounded up to the set's width
+        widest = fdb["keys"].grown_key_bytes(max(SERVED_KEYS) + 1)
+        require(kernel["backend"] == device and kernel["key_bytes"] == widest,
+                f"served (a): status shows backend {kernel['backend']}, key_bytes "
+                f"{kernel['key_bytes']}, not {widest}")
+
+        t0 = time.perf_counter()
+        procs[0].kill()
+        for i in range(3):
+            db.run(lambda tr, i=i: tr.set(b"kill/%d" % i, b"%d" % i))
+        db.close()
+        fresh = gwc.open_cluster(cf, timeout=60.0)
+        rows = fresh.read(lambda tr: tr.get_range(b"kill/", b"kill0"))
+        doc = json.loads(fresh.read(lambda tr: tr.get(STATUS_KEY)))
+        fresh.close()
+        walls["kill"] = time.perf_counter() - t0
+        require(rows == [(b"kill/%d" % i, b"%d" % i) for i in range(3)],
+                f"served (a): after the coordinator kill the rediscovered gateway read {rows}")
+        launches = doc["kernel"]["launches"]
+        require(all(launches[k] > 0 for k in SERVED_KERNELS),
+                f"served (a): the server launched {launches}")
+    finally:
+        for p in procs:
+            p.kill()
+    k = doc["kernel"]
+    log(f"served (a) server: ctest {r.stdout.strip()}; digests of seeds {list(SERVED_SEEDS)} "
+        f"equal through the C ABI, the gateway client and the in-process client on cpu; "
+        f"keys {list(SERVED_KEYS)} B committed at versions {versions} and read back; a "
+        f"coordinator killed, rediscovered; status: backend {k['backend']}, key_bytes "
+        f"{k['key_bytes']}, widenings {k['widenings']}, batches {k['batches']}, txns "
+        f"{k['txns']}, compactions {k['compactions']}, resolve_ms p50 "
+        f"{k['resolve_ms_p50']:.3f} p99 {k['resolve_ms_p99']:.3f}; launches "
+        f"{json.dumps(launches)}; walls (s) "
+        f"{json.dumps({n: round(w, 1) for n, w in walls.items()})} on {power}")
+    return {"served": launches}
+
+
+def saturate_run(torch, fdb, part: str, device="cuda") -> dict:
+    """(b): tools/saturate.run_hot_curve at SAT_CURVE on `device`, the
+    collector off after a collection (as the reference's tests run it).
+    Returns the curve, the launches and the host wall."""
+    kernels = fdb["kernels"]
+    gc.collect()
+    gc.disable()
+    try:
+        card_sync(torch, device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        curve = fdb["saturate"].run_hot_curve(True, **SAT_CURVE, device=device)
+        wall = time.perf_counter() - t0
+        card_sync(torch, device)
+        launches = dict(kernels.launches)
+    finally:
+        gc.enable()
+    return dict(curve=curve, launches=launches, walls=dict(run=wall))
+
+
+def soak_run(torch, fdb, part: str, device="cuda") -> dict:
+    """(c): a campaign of SOAK_SPEC over SOAK_SEEDS in SOAK_JOBS workers
+    on `device`.  Returns the verdicts, the coverage census (per seed,
+    merged, and the manifest's missing sites), each seed's metrics, the
+    workers' summed launches and the host wall."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        report = fdb["soak"].run_campaign(str(ROOT / SOAK_SPEC), SOAK_SEEDS, tmp,
+                                          jobs=SOAK_JOBS, seed_deadline=SOAK_SEED_DEADLINE,
+                                          device=device)
+        wall = time.perf_counter() - t0
+    per_seed = report["per_seed"]
+    return dict(verdicts=report["verdicts"], ok=report["ok"],
+                missing=report["coverage"]["missing_required"],
+                census=report["coverage"]["per_seed"], merged=report["coverage"]["merged"],
+                metrics={r["seed"]: without_paths(r.get("metrics") or {}) for r in per_seed},
+                errors={r["seed"]: r.get("error") for r in per_seed if r.get("error")},
+                launches={k: sum(r.get("launches", {}).get(k, 0) for r in per_seed)
+                          for k in fdb["kernels"].launches},
+                seed_walls={r["seed"]: round(r["wall_s"], 1) for r in per_seed},
+                walls=dict(run=wall))
+
+
+def served_phase(torch, fdb, power) -> dict:
+    """Phase 19.  (c)'s campaign on the card runs in a thread from the
+    start (its workers are processes of their own), and the cpu twins of
+    (b) and (c) in spawned processes, beside (a) and (b) on the card.
+    Returns {path: launches}."""
+    import concurrent.futures
+
+    keys_c = ("verdicts", "ok", "missing", "census", "merged", "metrics", "errors")
+    with twin_pool() as pool_b, twin_pool() as pool_c, \
+            concurrent.futures.ThreadPoolExecutor(1) as thread:
+        soak_cpu = pool_c.submit(cpu_twin, "soak", keys_c, "soak cpu")
+        soak_gpu = thread.submit(soak_run, torch, fdb, "soak cuda", CARD)
+        sat_cpu = pool_b.submit(cpu_twin, "saturate", ("curve",), "saturate cpu")
+        paths = {}
+        t = time.perf_counter()
+        paths.update(repro_part(torch, fdb, power, CARD))
+        with tempfile.TemporaryDirectory() as tmp:
+            paths.update(served_part(torch, fdb, tmp, power, CARD))
+        log(f"served (a): {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        gpu = saturate_run(torch, fdb, "saturate cuda", CARD)
+        cpu = sat_cpu.result()
+        log(f"served (b): {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        soak_g, soak_c = soak_gpu.result(), soak_cpu.result()
+        log(f"served (c): {time.perf_counter() - t:.1f} s more")
+
+    require(gpu["curve"] == cpu["curve"], "served (b): the cuda and cpu curves differ")
+    require(all(gpu["launches"][k] > 0 for k in SERVED_KERNELS),
+            f"served (b): the ladder launched {gpu['launches']}")
+    steps = gpu["curve"]["steps"]
+    require(all(s["committed"] > 0 for s in steps), "served (b): a step committed nothing")
+    log(f"served (b) saturate: run_hot_curve (r02's deployment, dd on) at "
+        f"{json.dumps(SAT_CURVE)}: rows equal to the cpu twin's; per step (offered, "
+        f"achieved tps, commit p50/p99 ms, grv p99 ms, limit reason, splits, hot moves) "
+        f"{[(s['offered_tps'], s['achieved_tps'], s['commit_p50_ms'], s['commit_p99_ms'], s['grv_p99_ms'], s['ratekeeper']['limit_reason'], (s['data_distribution'] or {}).get('shard_splits'), (s['data_distribution'] or {}).get('hot_relocations')) for s in steps]}; "
+        f"knee {json.dumps(gpu['curve']['knee'])}; final {json.dumps(gpu['curve']['final'])}; "
+        f"launches {json.dumps(gpu['launches'])}; wall {gpu['walls']['run']:.1f} s cuda, "
+        f"{cpu['walls']['run']:.1f} s cpu, on {power}")
+    paths["saturate"] = gpu["launches"]
+
+    require(soak_g["ok"] and soak_g["verdicts"]["pass"] == len(SOAK_SEEDS),
+            f"served (c): the campaign on the card: {soak_g['verdicts']}, missing "
+            f"{soak_g['missing']}, errors {soak_g['errors']}")
+    for key in keys_c:
+        require(soak_g[key] == soak_c[key], f"served (c): the cuda and cpu campaigns' {key} differ")
+    require(all(soak_g["launches"][k] > 0 for k in SOAK_KERNELS),
+            f"served (c): the workers launched {soak_g['launches']}")
+    log(f"served (c) soak: {SOAK_SPEC} over seeds {SOAK_SEEDS} in {SOAK_JOBS} workers on the "
+        f"card: verdicts {json.dumps(soak_g['verdicts'])}, required sites missing "
+        f"{soak_g['missing']}, census of {len(soak_g['merged']['buggify'])} buggify sites and "
+        f"{len(soak_g['merged']['testcov'])} testcov names equal to the cpu campaign's, per "
+        f"seed and merged; metrics equal; launches {json.dumps(soak_g['launches'])}; seed "
+        f"walls (s) {json.dumps(soak_g['seed_walls'])} cuda, {json.dumps(soak_c['walls'])} "
+        f"cpu campaign; campaign wall {soak_g['walls']['run']:.1f} s on {power}")
+    paths["soak"] = soak_g["launches"]
+    return paths
+
+
 def port_modules() -> dict:
     """The port's modules the phases drive, by the names they use."""
     sys.path.insert(0, str(ROOT))
@@ -3912,7 +4440,7 @@ def port_modules() -> dict:
     from foundationdb_tpu_torch.conflict import (
         _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
-    from foundationdb_tpu_torch.client import backup, dr
+    from foundationdb_tpu_torch.client import backup, cluster_file, dr, gateway_client
     from foundationdb_tpu_torch.control import recoverable, status
     from foundationdb_tpu_torch.ops import rmq
     from foundationdb_tpu_torch.parallel import sharded
@@ -3922,6 +4450,7 @@ def port_modules() -> dict:
         buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
     from foundationdb_tpu_torch.storage import blobstore, image
+    from foundationdb_tpu_torch.tools import gateway, saturate, soak
     from foundationdb_tpu_torch.workloads import attrition, consistency, readwrite, spec
     from foundationdb_tpu_torch.workloads import base as workloads_base
 
@@ -3934,7 +4463,9 @@ def port_modules() -> dict:
                 resolver=resolver, cluster=cluster, readwrite=readwrite,
                 workloads_base=workloads_base, recoverable=recoverable, status=status,
                 attrition=attrition, backup=backup, dr=dr, blobstore=blobstore, image=image,
-                consistency=consistency, spec=spec,
+                consistency=consistency, spec=spec, gateway=gateway,
+                gateway_client=gateway_client, cluster_file=cluster_file,
+                saturate=saturate, soak=soak,
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
@@ -3965,8 +4496,9 @@ def main() -> int:
     W = keys.num_words(SET_ARGS["max_key_bytes"])
 
     def smem_at(W):
+        rows = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"], 0)[0]
         return {SYMBOLS["probe_fused"]: kernels.plan_probe(
-                    SET_ARGS["run_slots"], SET_ARGS["run_capacity"], W).smem,
+                    SET_ARGS["run_slots"], rows, W).smem,
                 SYMBOLS["compact_ranks"]: kernels.plan_ranks(W).smem}
 
     smem, wide_smem = smem_at(W), {w: smem_at(w) for w in WIDE_W}
@@ -4051,6 +4583,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(corpus_phase(torch, fdb, power))
     log(f"corpus phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(served_phase(torch, fdb, power))
+    log(f"served phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

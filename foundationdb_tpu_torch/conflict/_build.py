@@ -36,7 +36,7 @@ _SIGNATURES = {
     "fdb_probe_fused": [_P] * 9 + [_I] * 9 + [_P],
     "fdb_probe": [_P] * 8 + [_I] * 4 + [_P],
     "fdb_intra_query": [_P] * 5 + [_I] * 3 + [_P],
-    "fdb_compact_ranks": [_P] * 3 + [_I] * 5 + [_P],
+    "fdb_compact_ranks": [_P] * 3 + [_I] * 6 + [_P],
     "fdb_run_to_step": [_P] * 5 + [_I] * 3 + [_P],
     "fdb_intra_fixpoint": [_P] * 14 + [_I] * 5 + [_P],
 }

@@ -109,6 +109,9 @@ class KernelStats:
     # longer endpoints (conflict/device.py; a recovery replay counts again)
     key_bytes: int = 0
     widenings: int = 0
+    # the conflict kernels launched for this set, by wrapper
+    # (conflict/kernels.counted; empty where none ran)
+    launches: dict = dataclasses.field(default_factory=dict)
     # wall seconds spent in run/recent→main folds keyed by the merge impl
     # that executed them — lets the status plane show which impl is live
     # AND what each impl actually cost when an autotune sweep mixes them.
@@ -151,6 +154,7 @@ class KernelStats:
             "merge_impl": self.merge_impl,
             "key_bytes": self.key_bytes,
             "widenings": self.widenings,
+            "launches": dict(self.launches),
             "fold_ms": {k: v * 1e3 for k, v in sorted(self.fold_wall_s.items())},
             "pack_ms": self.pack_s * 1e3,
             "encode_ms": self.encode_s * 1e3,

@@ -1286,7 +1286,8 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self._oldest = oldest_version
         self._last_commit = oldest_version
         self.stats = KernelStats(backend=self.device.type,
-                                 key_bytes=max_key_bytes)
+                                 key_bytes=max_key_bytes,
+                                 launches=dict.fromkeys(kernels.launches, 0))
         self.stats.merge_impl = merge_impl
         self.search_fallbacks = 0  # bucketed searches replayed at full depth
         self.host_syncs = 0        # reads of a device value on the host
@@ -1628,6 +1629,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self.stats.widenings += 1
         self.stats.key_bytes = self._max_key_bytes
 
+    @kernels.counted
     def resolve_arrays(
         self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p,
         sync: bool = True,

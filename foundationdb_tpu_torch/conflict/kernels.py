@@ -65,6 +65,37 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+# the open counted calls: (the set's dict, the process-wide count at entry)
+_counting: list[tuple[dict[str, int], dict[str, int]]] = []
+
+
+def counted(method: Callable) -> Callable:
+    """Decorates a conflict set's method: the launches made inside it are
+    added, by wrapper, to the set's own `stats.launches` as well as to the
+    process-wide `launches`.  A call nested in another of the same set's
+    counts once; one of another set's counts for that set alone."""
+
+    @functools.wraps(method)
+    def call(self, *args, **kwargs):
+        into = self.stats.launches
+        if any(d is into for d, _ in _counting):
+            return method(self, *args, **kwargs)
+        before = dict(launches)
+        _counting.append((into, before))
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            _counting.pop()
+            for name, n in launches.items():
+                made = n - before[name]
+                if made:
+                    into[name] = into.get(name, 0) + made
+                    for _, outer in _counting:  # not the enclosing sets'
+                        outer[name] += made
+
+    return call
+
+
 # ---------------------------------------------------------------------------
 # plain torch versions (the CPU path, and the kernels' referees on the card)
 
@@ -183,14 +214,14 @@ PROBE_MAX_THREADS = 1024
 PROBE_MIN_STRIDE = 512
 PROBE_MAX_STRIDE = 1 << 16
 PROBE_SUMMARY_BYTES = 40 * 1024
-RANKS_THREADS = 128            # recent rows per K3 block (the kernel's kRanksThreads)
+RANKS_THREADS = 128            # threads per K3 block (the kernel's kRanksThreads)
 RANKS_SMEM = 112 * 1024        # two K3 blocks an SM
 
 
 class ProbePlan(NamedTuple):
     group_log2: int   # lanes per read: 2**group_log2, K rounded up, <= 32
     stride_log2: int  # summary stride S = 2**stride_log2
-    n_sum: int        # summary rows per run, ceil(run_cap / S)
+    n_sum: int        # summary rows per run, ceil(run_cap / S); 0: no summary
     threads: int      # per block: reads per block << group_log2
     smem: int         # dynamic shared bytes per block
 
@@ -198,14 +229,19 @@ class ProbePlan(NamedTuple):
 class RanksPlan(NamedTuple):
     span_rows: int    # main rows a block stages at most
     smem: int         # dynamic shared bytes per block
+    queries: int      # recent rows per block, <= RANKS_THREADS
 
 
 @functools.lru_cache(maxsize=None)
 def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
     """K1's launch: one lane per (read, run) pair, a read's lanes in one
-    warp; the summary stride is the least power of two >= PROBE_MIN_STRIDE
-    whose summary (every S-th begin of every run) fits
-    PROBE_SUMMARY_BYTES.  Raises where none up to PROBE_MAX_STRIDE does."""
+    warp.  The summary stride is the least power of two >= PROBE_MIN_STRIDE
+    whose summary (every S-th begin of every run) fits PROBE_SUMMARY_BYTES;
+    where none up to PROBE_MAX_STRIDE does (wide keys, many runs) there is
+    no summary (n_sum = 0) and the kernel ranks each read end against the
+    whole run in global memory.  A block stages its reads' begins and ends
+    beside the summary: PROBE_READS of them, halved until the block fits
+    SMEM_MAX.  Raises where not even one read's rows fit."""
     group_log2 = min(max(K - 1, 0).bit_length(), 5)
     reads = min(PROBE_READS, PROBE_MAX_THREADS >> group_log2)
     stride_log2 = PROBE_MIN_STRIDE.bit_length() - 1
@@ -213,31 +249,40 @@ def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
         if 1 << stride_log2 >= PROBE_MAX_STRIDE:
             break
         stride_log2 += 1
+    n_sum = -(-run_cap >> stride_log2)
+    if summary > PROBE_SUMMARY_BYTES:
+        summary = n_sum = 0
+    while reads > 1 and summary + 2 * reads * W * 4 > SMEM_MAX:
+        reads //= 2
     smem = summary + 2 * reads * W * 4  # with the reads' begins and ends
-    if summary > PROBE_SUMMARY_BYTES or smem > SMEM_MAX:
+    if smem > SMEM_MAX:
         raise ValueError(
-            f"probe_fused: no run summary fits shared memory at K={K}, "
-            f"run_cap={run_cap}, W={W} (stride <= {PROBE_MAX_STRIDE}, "
-            f"summary <= {PROBE_SUMMARY_BYTES} B, block <= {SMEM_MAX} B)")
-    return ProbePlan(group_log2, stride_log2, -(-run_cap >> stride_log2),
-                     reads << group_log2, smem)
+            f"probe_fused: one read's rows exceed shared memory at K={K}, "
+            f"run_cap={run_cap}, W={W} (block <= {SMEM_MAX} B)")
+    return ProbePlan(group_log2, stride_log2, n_sum, reads << group_log2, smem)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_ranks(W: int) -> RanksPlan:
-    """K3's launch: RANKS_THREADS queries a block, staged with the main
-    rows between their least and greatest rank when those fit RANKS_SMEM.
-    Raises where the queries alone exceed a block's shared memory."""
+    """K3's launch: RANKS_THREADS threads a block, and as many queries
+    (halved until they, their 16-byte alignment slack and the least and
+    the greatest query fit SMEM_MAX), staged with the main rows between
+    their least and greatest rank when those fit RANKS_SMEM (else no span
+    is staged and the queries search main in global memory).  Raises
+    where not even one query fits."""
     row = 4 * W
-    # the queries and the span, each with its 16-byte alignment slack, and
-    # the least and the greatest query
-    fixed = RANKS_THREADS * row + 16 + 4 * ((2 * W + 3) & ~3) + 12
-    span_rows = max((RANKS_SMEM - fixed) // row, 0)
-    smem = fixed + span_rows * row
-    if smem > SMEM_MAX:
-        raise ValueError(f"compact_ranks: {RANKS_THREADS} query rows of W={W} "
-                         f"lanes exceed {SMEM_MAX} B of shared memory")
-    return RanksPlan(span_rows, smem)
+
+    def fixed(queries: int) -> int:
+        return queries * row + 16 + 4 * ((2 * W + 3) & ~3) + 12
+
+    queries = RANKS_THREADS
+    while queries > 1 and fixed(queries) > SMEM_MAX:
+        queries //= 2
+    if fixed(queries) > SMEM_MAX:
+        raise ValueError(f"compact_ranks: one query row of W={W} lanes "
+                         f"exceeds {SMEM_MAX} B of shared memory")
+    span_rows = max((RANKS_SMEM - fixed(queries)) // row, 0)
+    return RanksPlan(span_rows, fixed(queries) + span_rows * row, queries)
 
 
 # ---------------------------------------------------------------------------
@@ -294,7 +339,7 @@ def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
     """K1: fused history + run probe.  rb, re_: int32[R, W]; snap_r:
     int32[R]; r_ok, hist_r: bool[R]; runs_b, runs_e: int32[K, run_cap, W];
     runs_ver: int32[K].  Returns bool[R].  On the card, raises where
-    plan_probe finds no run summary that fits shared memory."""
+    plan_probe cannot fit one read's rows in shared memory."""
     if _is_cpu(rb):
         return probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
                                  runs_ver, hist_r)

@@ -222,6 +222,14 @@ def _kernel_rollup(resolvers) -> dict[str, Any]:
     # the device sets' key width and widenings (conflict/device.py)
     out["widenings"] = sum(p.get("widenings", 0) for p in per)
     out["key_bytes"] = max(p.get("key_bytes", 0) for p in per)
+    # the conflict kernels launched for the resolvers' sets, by wrapper
+    # (empty where no set ran a kernel): what a served cluster shows of
+    # the card
+    launched: dict[str, int] = {}
+    for p in per:
+        for k, v in p.get("launches", {}).items():
+            launched[k] = launched.get(k, 0) + v
+    out["launches"] = launched
     out["abort_rate"] = out["aborted"] / out["txns"] if out["txns"] else 0.0
     out["occupancy"] = (
         out["rows_real"] / out["rows_padded"] if out["rows_padded"] else 1.0
@@ -613,6 +621,7 @@ STATUS_SCHEMA: dict = {
         "merge_impl": str,
         "key_bytes?": int,
         "widenings?": int,
+        "launches?": dict,
         "fold_ms": dict,
         "phase": dict,
         "resolve_ms_p50": (int, float),

@@ -37,9 +37,8 @@
 //    window [(c - 1) S + 1, min(c S, run_cap)) of the run in global memory
 //    (log2 S dependent loads where a whole-run search takes log2 run_cap) and
 //    loads ends[rank - 1].  S is the least power of two >= 512 whose
-//    summary fits 40 KB (plan_probe, which raises where none up to 2^16
-//    does): every block stages the whole summary, and on the card 512 ran
-//    faster than the TPU kernel's SUMMARY_STRIDE of 128.  This is the TPU
+//    summary fits 40 KB: every block stages the whole summary, and on the
+//    card 512 ran faster than the TPU kernel's SUMMARY_STRIDE of 128.  This is the TPU
 //    kernel's two-level scan (_block_rank, pallas_kernel.py:130-151: a
 //    count against every 128th begin, then a count inside one window)
 //    reshaped for 132 SMs: one wave of blocks, 10 dependent global loads a
@@ -47,6 +46,15 @@
 //    history bit is set, or whose r_ok is false, loads nothing of the
 //    runs; a run not newer than the snapshot is skipped without a load.
 //    Unlike K5, a read's lanes do not stop at its first conflict.
+//    Wide keys (up to W = 4097 lanes, 16 KB keys; kernels.plan_probe): a
+//    read's two rows take 8 W bytes of shared memory, so the plan halves
+//    the reads a block stages until the block fits 227 KB (4 reads at W =
+//    4097), and where no summary fits 40 KB even at a stride of 2^16 it
+//    plans none (n_sum = 0): each read end is then ranked by a binary
+//    search over the whole run in global memory, its compares loading four
+//    lanes at a time and stopping at the first lane that differs.  A
+//    block may then be a single partial warp (K = 1), so the group's
+//    ballot takes the mask of the lanes the block has.
 //
 // K5 fdb_probe  replaces _probe_kernel (pallas_kernel.py:165, built by
 //    _build_probe :213, wrapper run_conflicts_pallas :240, dispatched by
@@ -144,7 +152,12 @@
 //    path the queries are one run's step rows in key order, so a block
 //    spans a few thousand main rows and takes the staged branch; a block
 //    whose queries are all equal (the sentinel tail) does one search and
-//    no other load of main.
+//    no other load of main.  Wide keys (kernels.plan_ranks): a block takes
+//    128 queries while they fit shared memory with the least and the
+//    greatest query, and halves that as W grows (8 at W = 4097, 16 KB a
+//    row); the 128 threads still run the 129-ary search, and where the
+//    queries leave no room for a span every query searches main in global
+//    memory.
 
 // K4 fdb_run_to_step  replaces _interleave_kernel (pallas_kernel.py:416,
 //    built by _build_interleave :428, wrapper run_to_step_pallas :453), for
@@ -247,6 +260,23 @@ __device__ __forceinline__ int* stage_async(int* buf, const int* src, int n) {
   return dst;
 }
 
+// #rows of the sorted [n, W] block lexicographically below q, the rows in
+// global memory: each compare loads four lanes at a time
+__device__ __forceinline__ int count_below4(const int* __restrict__ rows, int n,
+                                            int W, const int* __restrict__ q) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (row_less4(rows + static_cast<size_t>(mid) * W, q, W)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 // #rows of the sorted [n, W] block lexicographically below q
 __device__ __forceinline__ int count_below(const int* __restrict__ rows, int n,
                                            int W, const int* __restrict__ q) {
@@ -263,7 +293,8 @@ __device__ __forceinline__ int count_below(const int* __restrict__ rows, int n,
   return lo;
 }
 
-// K1: a block is `threads >> group_log2` reads x all K runs
+// K1: a block is `threads >> group_log2` reads x all K runs; n_sum == 0:
+// no summary, every read end ranked against the whole run
 __global__ void __launch_bounds__(kProbeMaxThreads)
     probe_fused_kernel(const int* __restrict__ rb, const int* __restrict__ re,
                        const int* __restrict__ snap,
@@ -311,6 +342,14 @@ __global__ void __launch_bounds__(kProbeMaxThreads)
     const int* qe = q_e + local * W;
     for (int k = g; k < K && !conflict; k += G) {
       if (runs_ver[k] <= s) continue;
+      const int* begins = runs_b + k * run_rows;
+      if (n_sum == 0) {
+        const int rank = count_below4(begins, run_cap, W, qe);
+        conflict = rank > 0 &&
+                   row_less4(qb, runs_e + k * run_rows +
+                                     static_cast<size_t>(rank - 1) * W, W);
+        continue;
+      }
       const int c = count_below(summary + static_cast<size_t>(k) * n_sum * W,
                                 n_sum, W, qe);
       if (c == 0) continue;  // begins[0] >= read end: rank 0
@@ -318,15 +357,16 @@ __global__ void __launch_bounds__(kProbeMaxThreads)
       const int lo = static_cast<int>((static_cast<long long>(c - 1) << stride_log2) + 1);
       const long long window_end = static_cast<long long>(c) << stride_log2;
       const int hi = window_end < run_cap ? static_cast<int>(window_end) : run_cap;
-      const int* begins = runs_b + k * run_rows;
       const int rank = lo + count_below(begins + static_cast<size_t>(lo) * W,
                                         hi - lo, W, qe);
       conflict = row_less(qb, runs_e + k * run_rows +
                                   static_cast<size_t>(rank - 1) * W, W);
     }
   }
-  // G divides 32, so a read's lanes share one warp
-  const unsigned votes = __ballot_sync(kFull, conflict);
+  // G divides 32, so a read's lanes share one warp; a block of fewer than
+  // 32 threads is one partial warp
+  const unsigned lanes = blockDim.x >= 32 ? kFull : (1u << blockDim.x) - 1u;
+  const unsigned votes = __ballot_sync(lanes, conflict);
   if (valid && g == 0) {
     const int lane = threadIdx.x & 31;
     const unsigned mine =
@@ -489,21 +529,21 @@ __device__ void block_extremes(const int* qs, int n, int W, int* least,
   __syncthreads();
 }
 
-// K3: a block is kRanksThreads recent rows
+// K3: a block is `queries` <= kRanksThreads recent rows
 __global__ void __launch_bounds__(kRanksThreads)
     compact_ranks_narrowed_kernel(const int* __restrict__ ks,
                                   const int* __restrict__ rec,
                                   int* __restrict__ out, int cap, int n_rec,
-                                  int W, int span_rows) {
-  // [blockDim.x][W] queries (+ 4 ints), the least and the greatest query
+                                  int W, int span_rows, int queries) {
+  // [queries][W] queries (+ 4 ints), the least and the greatest query
   // (2 W ints, rounded up to 16 bytes), then [span_rows][W] main rows
   // (+ 3 ints): kernels.plan_ranks sizes it
   extern __shared__ __align__(16) int smem[];
-  int* least = smem + static_cast<size_t>(blockDim.x) * W + 4;
+  int* least = smem + static_cast<size_t>(queries) * W + 4;
   int* greatest = least + W;
   int* span_buf = least + ((2 * W + 3) & ~3);
-  const int j0 = blockIdx.x * blockDim.x;
-  const int n = min(static_cast<int>(blockDim.x), n_rec - j0);
+  const int j0 = blockIdx.x * queries;
+  const int n = min(queries, n_rec - j0);
   int* qs = stage_async(smem, rec + static_cast<size_t>(j0) * W, n * W);
   copy_async_wait();
   __syncthreads();
@@ -742,14 +782,14 @@ int fdb_intra_query(const void* tab, const void* stab, const void* rb_r,
 
 int fdb_compact_ranks(const void* ks, const void* rec, void* out, int cap,
                       int n_rec, int W, int span_rows, int smem_bytes,
-                      void* stream) {
+                      int queries, void* stream) {
   const cudaError_t err = allow_smem(compact_ranks_narrowed_kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  compact_ranks_narrowed_kernel<<<blocks_for(n_rec, kRanksThreads),
-                                  kRanksThreads, smem_bytes,
+  compact_ranks_narrowed_kernel<<<blocks_for(n_rec, queries), kRanksThreads,
+                                  smem_bytes,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ks), static_cast<const int*>(rec),
-      static_cast<int*>(out), cap, n_rec, W, span_rows);
+      static_cast<int*>(out), cap, n_rec, W, span_rows, queries);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,13 +32,15 @@ import torch
 # performance.rst:14); 32 gives headroom for tuple-encoded keys.
 DEFAULT_MAX_KEY_BYTES = 32
 
-# The widest key a conflict set widens to (conflict/device.py).  At 1024
-# bytes (W = 257) K1's staged reads alone exceed a block's shared memory
-# (conflict/kernels.plan_probe raises), and K3's 128 query rows alone
-# outgrow the 112 KB its block is planned for (plan_ranks stages no span).
-# FoundationDB itself takes keys of up to 10,000 bytes
-# (CLIENT_KNOBS->KEY_SIZE_LIMIT); a set raises KeyTooLongError past this.
-WIDEST_KEY_BYTES = 512
+# The widest key a conflict set widens to (conflict/device.py): the power
+# of two that holds FoundationDB's 10,000-byte keys
+# (CLIENT_KNOBS->KEY_SIZE_LIMIT) and the 10,001-byte `key_after` end of
+# such a key, W = 4097 lanes.  Past 1024 bytes K1 stages fewer reads a
+# block and, where no run summary fits, ranks read ends against the runs
+# in global memory; K3 takes fewer queries a block
+# (conflict/kernels.plan_probe, plan_ranks).  A set raises KeyTooLongError
+# past this width.
+WIDEST_KEY_BYTES = 16384
 
 SIGN_FLIP = np.uint32(0x80000000)
 SENT_LANE = 0x7FFFFFFF  # flipped 0xFFFFFFFF: the sentinel lane value
@@ -134,8 +136,9 @@ def encode_concat(
     lens_t = lens.astype(idt)
     out[:, kw] = lens
     # reads past a key's end land in the next key's bytes or the zero pad,
-    # and the mask multiply zeroes them
-    step = 8192
+    # and the mask multiply zeroes them; a chunk's gather indices stay
+    # within 2 MB however wide the keys
+    step = min(8192, max(32, (1 << 19) // max_key_bytes))
     idx, buf, mask = _scratch.chunk(min(step, n), max_key_bytes, idt)
     for i in range(0, n, step):
         j = min(i + step, n)
@@ -186,7 +189,7 @@ class KeyTooLongError(ValueError):
 
 def grown_key_bytes(need: int) -> int:
     """The key width a set widens to for an endpoint of `need` bytes: the
-    least power of two of bytes that holds it (32 -> 64 -> ... -> 512).
+    least power of two of bytes that holds it (32 -> 64 -> ... -> 16384).
     Raises KeyTooLongError past WIDEST_KEY_BYTES."""
     if need > WIDEST_KEY_BYTES:
         raise KeyTooLongError(

@@ -14,16 +14,12 @@ from .rmq import _levels
 
 def lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lexicographic a < b over the trailing word axis, broadcasting over
-    the leading axes; [..., W] -> [...] bool."""
-    W = a.shape[-1]
-    shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    lt = torch.zeros(shape, dtype=torch.bool, device=a.device)
-    eq = torch.ones(shape, dtype=torch.bool, device=a.device)
-    for w in range(W):
-        aw, bw = a[..., w], b[..., w]
-        lt = lt | (eq & (aw < bw))
-        eq = eq & (aw == bw)
-    return lt
+    the leading axes; [..., W] -> [...] bool.  Decided at the first lane
+    that differs (lane 0, equal, when none does): a fixed number of ops
+    whatever W, so 16 KB keys cost no more launches than short ones."""
+    a, b = torch.broadcast_tensors(a, b)
+    first = (a != b).to(torch.uint8).argmax(-1, keepdim=True)
+    return (a.gather(-1, first) < b.gather(-1, first)).squeeze(-1)
 
 
 def _search(sorted_keys: torch.Tensor, q: torch.Tensor, go_right) -> torch.Tensor:

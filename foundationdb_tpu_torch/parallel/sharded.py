@@ -154,7 +154,8 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self.search_fallbacks = 0
         self.regrows = 0
         self.host_syncs = 0
-        self.stats = KernelStats(backend=f"sharded-{self.device.type}")
+        self.stats = KernelStats(backend=f"sharded-{self.device.type}",
+                                 launches=dict.fromkeys(kernels.launches, 0))
         self.stats.merge_impl = merge_impl
         self._intra_iters = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._dev_ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -455,6 +456,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     def _fits(self, counts, cap: int) -> torch.Tensor:
         return torch.all(self._gather(counts) <= cap)
 
+    @kernels.counted
     def resolve_arrays(
         self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p,
         sync: bool = True,

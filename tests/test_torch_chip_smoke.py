@@ -65,7 +65,10 @@ def test_trace_search_is_lower_bound(seed):
     assert torch.equal(rank.to(torch.int32), lower_bound(table, qq))
     # every step reads lane 0 of one table row and of its query
     assert steps >= 120 * 8 and lanes >= steps
-    assert t_el.numel() == q_el.numel() == lanes
+    # one inclusive lane range a compare, in the table and in the queries
+    assert len(t_el) == len(q_el) == steps
+    assert int((t_el[:, 1] - t_el[:, 0] + 1).sum()) == lanes
+    assert torch.equal(t_el[:, 1] - t_el[:, 0], q_el[:, 1] - q_el[:, 0])
     assert int(t_el.max()) < table.numel() and int(q_el.min()) >= 7 * W
 
 
@@ -800,3 +803,66 @@ def test_readback_drill_catches_a_supervisor_that_serves_corrupt_verdicts(
     monkeypatch.setattr(supervisor, "validate_verdicts", lambda verdicts, n: None)
     with pytest.raises(RuntimeError, match="differs from the oracle"):
         chip_smoke.readback_drill(torch, small_corpus, "cpu")
+
+
+@pytest.fixture
+def small_served(small_corpus, monkeypatch, tmp_path):
+    """Phase 19 at a small size on the CPU, over phase 18's fixture: every
+    run on "cpu" (the server and the soak's workers are processes of their
+    own, which the counting wrappers do not reach, so their launch checks
+    are off), the repro's sets small, the gateway's long key 40 bytes
+    (the server's default set at 16 KB keys takes seconds a batch on the
+    CPU), the ladder cut down, and the campaign two seeds of a spec of
+    seconds."""
+    from foundationdb_tpu_torch.client import cluster_file, gateway_client
+    from foundationdb_tpu_torch.rpc import network
+    from foundationdb_tpu_torch.tools import gateway, saturate, soak
+
+    class Tiny(tdev.DeviceConflictSet):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **dict(kw, capacity=1 << 8, run_slots=3, run_capacity=32))
+
+    monkeypatch.setattr(tdev, "DeviceConflictSet", Tiny)
+    # the server, the coordinators and the soak's workers inherit this: with
+    # torch's default threads, a process on the CPU spins idle OpenMP threads
+    # between its small ops, and beside the other test workers it starves
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setattr(chip_smoke, "CARD", "cpu")
+    monkeypatch.setattr(chip_smoke, "SERVED_KERNELS", ())
+    monkeypatch.setattr(chip_smoke, "SOAK_KERNELS", ())
+    monkeypatch.setattr(chip_smoke, "SERVED_KEYS", (40, 10))
+    monkeypatch.setattr(chip_smoke, "SERVED_SEEDS", (11,))
+    monkeypatch.setattr(chip_smoke, "SAT_CURVE",
+                        dict(chip_smoke.SAT_CURVE, steps=[20.0, 40.0], keys=300))
+    spec = tmp_path / "Mini.txt"  # a spec of seconds, its manifest beside it
+    spec.write_text("testTitle=Mini\nchaos=true\n\ntestName=Cycle\nnodes=6\nclients=2\n"
+                    "txnsPerClient=4\n\ntestName=Attrition\nkills=1\ninterval=2.0\n"
+                    "startDelay=0.8\n")
+    (tmp_path / "Mini.coverage").write_text("recovery.triggered\n")
+    monkeypatch.setattr(chip_smoke, "SOAK_SPEC", str(spec))
+    monkeypatch.setattr(chip_smoke, "SOAK_SEEDS", [3000, 3001])
+    return dict(small_corpus, gateway=gateway, saturate=saturate, soak=soak,
+                cluster_file=cluster_file, gateway_client=gateway_client,
+                rpc=dict(network=network))
+
+
+def test_served_phase_names_its_paths(small_served):
+    """Phase 19 end to end at a small size: C.1's repro widens to 16 KB and
+    equals the oracle's cluster, the served processes pass every check,
+    the ladder and the campaign equal their cpu twins; five paths come
+    back, the repro's with K1/K3/K4 launches (the counting wrappers)."""
+    paths = chip_smoke.served_phase(torch, small_served, "cpu")
+    assert sorted(paths) == ["long_keys_16k", "saturate", "served", "soak"]
+    assert all(paths["long_keys_16k"][k] > 0 for k in chip_smoke.WIDE_KERNELS)
+    assert not any(paths["served"].values()) and not any(paths["soak"].values())
+
+
+def test_repro_part_fails_on_a_set_that_cannot_widen_to_16k(small_served, monkeypatch):
+    """With the widest width back at 512 bytes, the 10,000-byte key stops
+    the cluster's commits, and (a) fails."""
+    from foundationdb_tpu_torch import keys
+
+    monkeypatch.setattr(keys, "WIDEST_KEY_BYTES", 512)
+    with pytest.raises(Exception) as err:
+        chip_smoke.repro_part(torch, small_served, "cpu", "cpu")
+    assert type(err.value).__name__ in ("CommitUnknownResult", "NotCommitted")

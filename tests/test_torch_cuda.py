@@ -193,7 +193,7 @@ def _k3_branches(ks, rec):
     staged in shared memory, or searched in global memory."""
     plan = kernels.plan_ranks(ks.shape[1])
     ranks = kernels.compact_ranks_plain(ks.cpu(), rec.cpu()).long()
-    spans = [int(b.max() - b.min()) for b in ranks.split(kernels.RANKS_THREADS)]
+    spans = [int(b.max() - b.min()) for b in ranks.split(plan.queries)]
     return ("staged" if s <= plan.span_rows else "global" for s in spans if s)
 
 

@@ -1,7 +1,11 @@
 """K1, K3 and K4 at the wider keys a conflict set widens to, on the card:
 each held against its plain torch version on the same CUDA tensors (exact),
 at W = 17, 65 and 129 lanes (64-, 256- and 512-byte keys), at small shapes
-and at the stream's (K = 8 runs of 16384 rows, main at 2**19 rows); and the
+and at the stream's (K = 8 runs of 16384 rows, main at 2**19 rows); at W =
+513 and 4097 (2048- and 16384-byte keys: fewer reads and queries a block,
+K1 without a run summary) at small shapes, with one run (K1's block a
+partial warp), and at the default set's (K = 8 runs of 4096 rows, main at
+2**16 rows); and the
 port's default set fed keys of 20 to 204 bytes on "cuda" against the same
 set on "cpu": identical verdicts and state after every batch, widening
 32 -> 64 -> 256 on both.
@@ -64,6 +68,33 @@ def test_wide_kernels_equal_their_plain_versions(cuda, W, shape):
     rng = np.random.default_rng(W)
     K, run_cap, cap, R = (3, 64, 1 << 10, 200) if shape == "small" else (
         8, 1 << 14, 1 << 19, 1 << 14)
+    lanes = lambda a: keys.to_lanes(a, cuda)  # noqa: E731
+    runs_b_np, runs_e_np = _runs(rng, K, run_cap, W)
+    runs_b, runs_e = lanes(runs_b_np), lanes(runs_e_np)
+    runs_ver = torch.from_numpy(rng.integers(0, 12, K).astype(np.int32)).to(cuda)
+    reads = _sorted_rows(rng, R, W, R - 8)
+    rng.shuffle(reads)
+    rb, re_ = lanes(reads), keys.with_last_lane_inc(lanes(reads))
+    snap = torch.from_numpy(rng.integers(0, 12, R).astype(np.int32)).to(cuda)
+    r_ok = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
+    hist = torch.from_numpy(rng.random(R) < 0.05).to(cuda)
+    k1 = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, hist)
+    assert torch.equal(kernels.probe_fused(*k1), kernels.probe_fused_plain(*k1))
+    ks = lanes(_sorted_rows(rng, cap, W, cap // 2))
+    rec, _ = kernels.run_to_step_plain(runs_b[0], runs_e[0], runs_ver[:1])
+    assert torch.equal(kernels.compact_ranks(ks, rec), kernels.compact_ranks_plain(ks, rec))
+    got = kernels.run_to_step_runs(runs_b, runs_e, runs_ver)
+    want = kernels.run_to_step_runs_plain(runs_b, runs_e, runs_ver)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("W", (513, 4097))
+@pytest.mark.parametrize("shape", ["small", "one_run", "default"])
+def test_widest_kernels_equal_their_plain_versions(cuda, W, shape):
+    rng = np.random.default_rng(W + 1)
+    K, run_cap, cap, R = {"small": (3, 64, 1 << 10, 200),
+                          "one_run": (1, 64, 1 << 10, 100),
+                          "default": (8, 1 << 12, 1 << 16, 2048)}[shape]
     lanes = lambda a: keys.to_lanes(a, cuda)  # noqa: E731
     runs_b_np, runs_e_np = _runs(rng, K, run_cap, W)
     runs_b, runs_e = lanes(runs_b_np), lanes(runs_e_np)

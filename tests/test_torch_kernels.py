@@ -414,8 +414,23 @@ def test_plan_probe_windows_hold_the_rank(seed):
 
 @pytest.mark.parametrize("K,run_cap,W", [(8, 1 << 26, 9), (3000, 64, 5), (8, 64, 300)])
 def test_plan_probe_raises_where_no_summary_fits(K, run_cap, W):
-    with pytest.raises(ValueError, match=f"K={K}, run_cap={run_cap}, W={W}"):
-        kernels.plan_probe(K, run_cap, W)
+    """Where no summary fits 40 KB even at the widest stride, K1 plans
+    none (n_sum = 0: each read end is ranked against the whole run);
+    where the reads' rows outgrow the block, it stages fewer reads.  It
+    raises only where one read's two rows exceed a block."""
+    p = kernels.plan_probe(K, run_cap, W)
+    summary = K * p.n_sum * W * 4
+    assert summary <= kernels.PROBE_SUMMARY_BYTES
+    assert p.n_sum == 0 or K * -(-run_cap >> p.stride_log2) * W * 4 == summary
+    if K * -(-run_cap // kernels.PROBE_MAX_STRIDE) * W * 4 > kernels.PROBE_SUMMARY_BYTES:
+        assert p.n_sum == 0
+    reads = p.threads >> p.group_log2
+    assert p.smem == summary + 2 * reads * W * 4 <= kernels.SMEM_MAX
+    most = min(kernels.PROBE_READS, kernels.PROBE_MAX_THREADS >> p.group_log2)
+    assert reads == most or summary + 4 * reads * W * 4 > kernels.SMEM_MAX
+    big = kernels.SMEM_MAX // 8 + 1
+    with pytest.raises(ValueError, match=f"K={K}, run_cap={run_cap}, W={big}"):
+        kernels.plan_probe(K, run_cap, big)
 
 
 @pytest.mark.parametrize("W", [2, 5, 9, 65, 300])
@@ -431,8 +446,12 @@ def test_plan_ranks(W):
 
 
 def test_plan_ranks_raises_where_the_queries_do_not_fit():
-    with pytest.raises(ValueError, match="W=500"):
-        kernels.plan_ranks(500)
+    """At W = 500 the 128 query rows outgrow a block, so a block takes 64;
+    where not even one query row fits, the plan raises."""
+    p = kernels.plan_ranks(500)
+    assert p.queries == 64 and p.span_rows == 0 and p.smem <= kernels.SMEM_MAX
+    with pytest.raises(ValueError, match="W=20000"):
+        kernels.plan_ranks(20000)
 
 
 def test_wrappers_take_plain_only_on_cpu_and_reject_other_devices():
@@ -445,3 +464,40 @@ def test_wrappers_take_plain_only_on_cpu_and_reject_other_devices():
     meta = torch.empty((4, 5), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         kernels.compact_ranks(meta, meta)
+
+
+def test_counted_adds_a_sets_own_launches_once():
+    """`kernels.counted` adds the launches made inside a set's method to
+    that set's `stats.launches` (and leaves them in the process-wide
+    count); a call nested in the same set's counts once, and another
+    set's launches stay out of it."""
+    from foundationdb_tpu_torch.conflict.api import KernelStats
+
+    class FakeSet:
+        def __init__(self):
+            self.stats = KernelStats(launches=dict.fromkeys(kernels.launches, 0))
+
+        @kernels.counted
+        def resolve(self, n, inner=None, other=None):
+            kernels.launches["probe_fused"] += n
+            if inner:
+                self.resolve(inner)
+            if other is not None:
+                other.resolve(5)
+            kernels.launches["compact_ranks"] += 1
+
+    saved = dict(kernels.launches)
+    try:
+        kernels.reset_launches()
+        a, b = FakeSet(), FakeSet()
+        a.resolve(2, inner=3, other=b)
+        a.resolve(1)
+        assert a.stats.launches == dict(dict.fromkeys(kernels.launches, 0),
+                                        probe_fused=6, compact_ranks=3)
+        assert b.stats.launches == dict(dict.fromkeys(kernels.launches, 0),
+                                        probe_fused=5, compact_ranks=1)
+        assert kernels.launches["probe_fused"] == 11
+        assert kernels.launches["compact_ranks"] == 4
+        assert a.stats.snapshot()["launches"] == a.stats.launches
+    finally:
+        kernels.launches.update(saved)

@@ -16,8 +16,14 @@ stay those of the reference's DeviceConflictSet built wide from the start.
   default backend (device="cpu") against the reference's defaults, same
   seed, keys of 20 to 203 bytes and a 10-byte key after them: every commit
   lands, at the same versions and virtual times.
-- Past keys.WIDEST_KEY_BYTES the set raises KeyTooLongError and its state
-  is unchanged."""
+- Keys of up to 10,000 bytes (FoundationDB's KEY_SIZE_LIMIT): a small
+  set widened to 16384 bytes (W = 4097) equals the oracle verdict for
+  verdict and a set built at 16384 bytes state for state, and both
+  clusters, on a small device set given through `conflict_backend=`,
+  commit keys of 600 and 10,000 bytes and short keys after them at the
+  reference's versions and virtual times.
+- Past keys.WIDEST_KEY_BYTES (16384) the set raises KeyTooLongError and
+  its state is unchanged."""
 
 import gc
 import random
@@ -199,14 +205,28 @@ def test_widen_lanes_inserts_zero_words_and_keeps_sentinel_rows():
 
 
 def test_kernels_plan_every_grown_width():
-    """K1's and K3's launch planners take every width a set can grow to at
-    the stream's shapes, and K1's refuses the next power of two."""
-    for wide in (32, 64, 128, 256, tkeys.WIDEST_KEY_BYTES):
+    """K1's and K3's launch planners take every width a set can grow to,
+    up to 16384 bytes, at the stream's shapes and at the default set's;
+    past W = 4097 K1 runs without a summary, and both refuse a width
+    where one read's or one query's rows exceed a block."""
+    assert tkeys.WIDEST_KEY_BYTES == 16384
+    wide = 32
+    while wide <= tkeys.WIDEST_KEY_BYTES:
         W = tkeys.num_words(wide)
-        assert kernels.plan_probe(8, 16384, W).smem <= kernels.SMEM_MAX
-        assert kernels.plan_ranks(W).smem <= kernels.SMEM_MAX
+        for run_cap in (1 << 14, 1 << 12):
+            p = kernels.plan_probe(8, run_cap, W)
+            assert p.smem <= kernels.SMEM_MAX and p.threads >= 32
+        r = kernels.plan_ranks(W)
+        assert r.smem <= kernels.SMEM_MAX and r.queries >= 1
+        wide *= 2
+    W = tkeys.num_words(tkeys.WIDEST_KEY_BYTES)
+    assert kernels.plan_probe(8, 1 << 12, W).n_sum == 0
+    assert kernels.plan_ranks(W).queries == 8
+    assert kernels.plan_ranks(W).span_rows == 0
     with pytest.raises(ValueError):
-        kernels.plan_probe(8, 16384, tkeys.num_words(2 * tkeys.WIDEST_KEY_BYTES))
+        kernels.plan_probe(8, 1 << 12, 30000)
+    with pytest.raises(ValueError):
+        kernels.plan_ranks(20000)
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
@@ -287,3 +307,84 @@ def test_default_clusters_commit_long_keys_as_the_reference(kind):
     assert back == [b"v%d" % n for n in CLUSTER_KEYS]
     if ks is not None:
         assert ks["key_bytes"] == 256 and ks["widenings"] == 2
+
+
+# the reference's default clusters commit every key of the C.1 repro
+HUGE_KEYS = [600, 10, 10000, 12]
+TINY_SET = dict(capacity=1 << 8, run_slots=3, run_capacity=32)
+
+
+@pytest.mark.parametrize("kind", ["sim", "recoverable"])
+def test_default_clusters_commit_keys_of_10000_bytes(kind):
+    """C.1 at FoundationDB's key limit: keys of 600 and 10,000 bytes, and
+    short keys after each, commit at the reference's versions and virtual
+    times and read back.  The port's resolvers host its device set (the
+    default backend's class and widening code) at a small capacity, so
+    the widening to 16384 bytes stays fast on the CPU."""
+    def tiny(oldest=0):
+        return tdev.DeviceConflictSet(oldest, **TINY_SET, device="cpu")
+
+    results, sets = {}, []
+    for name, mod, kw in (
+        ("ref", jrecoverable if kind == "recoverable" else jcluster, {}),
+        ("port", trecoverable if kind == "recoverable" else tcluster,
+         dict(conflict_backend=lambda oldest=0: sets.append(tiny(oldest)) or sets[-1])),
+    ):
+        gc.collect()
+        gc.disable()
+        try:
+            cls = mod.RecoverableCluster if kind == "recoverable" else mod.SimCluster
+            c = cls(seed=1, **kw)
+            try:
+                results[name] = _commit_keys(c, HUGE_KEYS)
+            finally:
+                c.stop()
+        finally:
+            gc.enable()
+    assert results["port"] == results["ref"]
+    commits, back = results["port"]
+    assert all(isinstance(v, int) for _n, v, _t in commits), commits
+    assert back == [b"v%d" % n for n in HUGE_KEYS]
+    assert max(s.stats.key_bytes for s in sets) == tkeys.WIDEST_KEY_BYTES
+
+
+# endpoint lengths of the widest stream: 600 -> 1024 bytes, then 10,000
+# and its 10,001-byte key_after end -> 16384
+HUGE_LENGTHS = [20, 600, 10001, None, 9000]
+
+
+def _huge_stream(seed: int):
+    rng = random.Random(seed)
+    version = 0
+    for L in HUGE_LENGTHS:
+        version += rng.randrange(1, 6)
+        txns = []
+        for _ in range(rng.randrange(3, 7)):
+            snap = rng.randrange(max(version - 8, 0), version)
+            pick = lambda: _range(rng, L if rng.random() < 0.5 else None)  # noqa: E731
+            txns.append(TxInfo(snap, [pick() for _ in range(rng.randrange(3))],
+                               [pick() for _ in range(rng.randrange(1, 3))]))
+        yield version, txns
+
+
+def test_set_widened_to_16384_bytes_equals_the_oracle_and_a_set_built_wide():
+    """A set from 32 bytes widens to 1024 and then 16384 bytes (W = 4097):
+    every batch's verdicts equal the oracle's and a set built at 16384
+    bytes; its state, widened by the same insert, equals that set's."""
+    W = tkeys.num_words(tkeys.WIDEST_KEY_BYTES)
+    oracle = OracleConflictSet()
+    port = tdev.DeviceConflictSet(**TINY_SET, device="cpu")
+    built = tdev.DeviceConflictSet(max_key_bytes=tkeys.WIDEST_KEY_BYTES, **TINY_SET,
+                                   device="cpu")
+    widths, verdicts = [], set()
+    for version, txns in _huge_stream(8):
+        want = oracle.resolve_batch(version, txns)
+        assert port.resolve_batch(version, txns) == want, version
+        assert built.resolve_batch(version, txns) == want, version
+        assert_state_equal(widened(built.export_state(), W),
+                           widened(port.export_state(), W), version)
+        widths.append(port.stats.key_bytes)
+        verdicts.update(want)
+    assert verdicts == {Verdict.COMMITTED, Verdict.CONFLICT}
+    assert widths == [32, 1024, 16384, 16384, 16384]
+    assert port.stats.widenings == 2

@@ -110,6 +110,33 @@ def test_lex_less_and_bounds_match_jax(seed):
         assert np.array_equal(want, got.numpy()), fn
 
 
+@pytest.mark.parametrize("W", [9, 17, 65, 257])
+def test_wide_lex_less_and_bounds_match_jax(W):
+    """lex_less decides at the first differing lane: the same rows behind
+    a common prefix of W - 5 lanes (compares run to the end) and with a
+    differing lane inside the prefix."""
+    rng = np.random.default_rng(W)
+
+    def wide(rows, fill=0x66666666):
+        pad = np.full((len(rows), W - rows.shape[1]), fill, np.uint32)
+        return np.concatenate([pad, rows], axis=1)
+
+    srt = wide(_sorted_unique(_rows(rng, 120, sentinels=0)))
+    q = wide(_rows(rng, 60, sentinels=3))
+    q[:10, 3] = 0x66666665  # decided inside the prefix
+    a = wide(_rows(rng, 80, sentinels=2))
+    b = np.concatenate([a[:30], wide(_rows(rng, 52))])
+    b[30:40, 1] = 0x66666667
+    assert np.array_equal(
+        np.asarray(jsearch.lex_less(jnp.asarray(a), jnp.asarray(b))),
+        tsearch.lex_less(tkeys.to_lanes(a), tkeys.to_lanes(b)).numpy(),
+    )
+    for fn in ("lower_bound", "upper_bound"):
+        want = np.asarray(getattr(jsearch, fn)(jnp.asarray(srt), jnp.asarray(q)))
+        got = getattr(tsearch, fn)(tkeys.to_lanes(srt), tkeys.to_lanes(q))
+        assert np.array_equal(want, got.numpy()), fn
+
+
 def test_lexsort_matches_numpy():
     rng = np.random.default_rng(4)
     cols = [rng.integers(-3, 3, 500).astype(np.int32) for _ in range(5)]

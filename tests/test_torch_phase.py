@@ -5,12 +5,14 @@ untimed set's and the reference set's with its phase timing on (set on the
 instance), a search that does not converge replays on the timed path too,
 and profile_kernel's stream and printout match the reference's."""
 
+import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import profile_kernel as jprofile
 from foundationdb_tpu.conflict import device as jdev
@@ -125,3 +127,37 @@ def test_profile_kernel_phase_cli():
     bad = subprocess.run(cmd, capture_output=True, text=True, timeout=240,
                          cwd=REPO_ROOT)
     assert bad.returncode != 0 and not bad.stdout
+
+
+def test_profile_kernel_lex_less_cli():
+    """`profile_kernel --lex-less --device cpu` prints the device line,
+    then one row a width with both forms' times (the forms agree, or it
+    exits non-zero)."""
+    cmd = [sys.executable, "-m", "foundationdb_tpu_torch.profile_kernel",
+           "--lex-less", "--device", "cpu", "--rows", "32"]
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=240, cwd=REPO_ROOT)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert lines[0] == "card: cpu"
+    rows = [json.loads(line) for line in lines[1:]]
+    assert [r["W"] for r in rows] == list(tprofile.LEX_WIDTHS)
+    assert all(r["rows"] == 32 and r["by_lane_ms"] > 0 and r["first_lane_ms"] > 0
+               for r in rows)
+
+
+@pytest.mark.parametrize("W", [1, 5, 9, 17])
+def test_lex_less_forms_agree_with_the_search(W):
+    """The probe's two forms and ops/search.lex_less give the same bits,
+    broadcasting included, on rows that tie, differ early and differ late."""
+    from foundationdb_tpu_torch.ops.search import lex_less
+
+    g = torch.Generator().manual_seed(W)
+    a = torch.randint(-3, 3, (64, W), generator=g, dtype=torch.int32)
+    b = a.clone()
+    b[16:48, W - 1] += torch.randint(-1, 2, (32,), generator=g, dtype=torch.int32)
+    b[48:, 0] += 1
+    want = tprofile.lex_less_by_lane(a, b)
+    assert torch.equal(tprofile.lex_less_first_lane(a, b), want)
+    assert torch.equal(lex_less(a, b), want)
+    assert torch.equal(lex_less(a[:, None], b[None]),
+                       tprofile.lex_less_by_lane(a[:, None], b[None]))
