@@ -23,8 +23,10 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               it replaced (the per-query kernel in a host loop: same bits,
               same iteration count), whose time is printed beside it; K4
               over the 8 runs of a compaction at once; then K1, K3 and K4
-              again at W = 17, 65, 129, 513 and 4097 lanes (64- to
-              16384-byte keys, the widths a set widens to: the same keys
+              again at W = 17, 65, 129, 513, 4097, 8193, 16385 and 32769
+              lanes (64- to 131072-byte keys, the widths a set widens to;
+              from W = 32769 K1 and K3 take their no-staging plans, a warp
+              a read or a query: the same keys
               behind a common prefix; from W = 4097 at the default set's
               shapes, 8 runs of 4096 rows, main at 2**16 rows, 4096
               reads), each against its plain version, with the dynamic
@@ -239,8 +241,9 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               RecoverableCluster whose resolvers host the default set on
               the card, against the same cluster on the port's
               OracleConflictSet: the same versions, virtual times and
-              values; the set widened to 1024 and then 16384 bytes (W =
-              4097), K1, K3 and K4 launched at W = 4097, the card's
+              values; then keys of 16385 and 12 bytes; the set widened to
+              1024, 16384 and then 32768 bytes (W = 8193), K1, K3 and K4
+              launched at W = 8193, the card's
               requested bytes before each widening, after it and after the
               stop.  Then as OS processes: three coordinators
               (tools/coordserver.py), a cluster file and the server
@@ -263,6 +266,28 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               on the card (started first, in a thread): every seed passes,
               no required site is missing, and the census and metrics equal
               the same campaign's on "cpu".
+ 20. supervised  the supervised cluster.  (a) tools/bounce.Campaign with
+              the server on the card: 3 coordservers and 1 fdbserver
+              (--device cuda) as OS processes under the port's fdbmonitor,
+              load from 2 client threads (a watermark counter, a cycle
+              ring), through its three stories: a rolling SIGTERM bounce
+              of every process, one coordinator hot-reload-bounced onto the
+              old wire version (--protocol-version) and back, a coordinator
+              added, the server bounced onto the new quorum and the old
+              coordinator retired.  Every campaign check passes (zero
+              acked-commit loss, the ring a permutation, each gap under 30
+              s, one TransportProtocolMismatch per old/new pair, a fresh
+              client finding the gateway through the new quorum); after
+              each start of a server process (three: the boot and two
+              bounces, each a new CUDA context and a new conflict set
+              booted from the restart image) its status through the
+              gateway shows backend cuda and K1-K4 launched, K1 rising.
+              (b) one `fdbtop --once` frame from that cluster.  (c)
+              tests/test_cli.py's sessions (commands and a kill recovery,
+              the REPL, move/backup/configure/errorcode, the DR verbs)
+              through the port's Cli on "cuda", K1-K4 launched, every
+              printed line equal to a spawned "cpu" twin's.  (d) `python -m
+              foundationdb_tpu_torch.tools.flowlint` exits 0 on the tree.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
@@ -273,8 +298,10 @@ included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
 `backup_src`, `backup_dst`, `backup_restart`, `dr_primary`, `dr_secondary`,
 `backup_c_cuda`, phase 18's as `spec_device_fault`, `spec_restart_pair`,
 `readback_drill`, `long_keys`, phase 19's as `long_keys_16k`, `served` (the
-server process's own counts), `saturate`, `soak` (the workers' summed), and
-phase 10's bench probe as `bench_metrics_series`; K1, K3
+server process's own counts), `saturate`, `soak` (the workers' summed), phase
+20's as `bounce` (the server processes' counts summed, each read just before
+its process was bounced or stopped) and `cli`, and phase 10's bench probe
+as `bench_metrics_series`; K1, K3
 and K4 carry phase 3's wide checks under `wide`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
@@ -337,12 +364,19 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
      "intra_fixpoint_kernel"),
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
+# the kernels of K1's and K3's no-staging plans (W past shared memory)
+WIDE_SYMBOLS = {"probe_fused": "probe_fused_wide_kernel",
+                "compact_ranks": "compact_ranks_wide_kernel"}
 MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
-WIDE_W = (17, 65, 129, 513, 4097)  # phase 3's wider lanes: 64- to 16384-byte keys
+# phase 3's wider lanes: 64- to 131072-byte keys; from W = 32769 (128 KB
+# keys) K1 and K3 stage nothing (kernels.plan_probe, plan_ranks)
+WIDE_W = (17, 65, 129, 513, 4097, 8193, 16385, 32769)
 # from W = 4097 (16 KB keys) phase 3 takes the default set's shapes
 # (DeviceConflictSet(): K = 8 runs of 4096 rows, main at 2**16 rows) and
-# WIDEST_READS reads: at the stream's, main alone would be ~8.6 GB
+# WIDEST_READS reads: at the stream's, main alone would be ~8.6 GB at W =
+# 4097; at W = 32769 the default set's main is ~8.6 GB, its runs as much
 WIDEST_FROM = 4097
+WIDE_FEW_REPS = 8193  # from this W a launch takes tens to hundreds of ms
 DEFAULT_SET = dict(capacity=1 << 16, run_slots=8, run_capacity=1 << 12)
 WIDEST_READS = 4096
 WIDE_KERNELS = ("probe_fused", "compact_ranks", "run_to_step")
@@ -426,9 +460,11 @@ def _is_kernel(key: str, symbol: str) -> bool:
     return symbol in key
 
 
-def device_ms(torch, fn, symbol: str, reps: int) -> float:
+def device_ms(torch, fn, symbol: str, reps: int) -> float | None:
     """The kernel's own duration per launch, from the profiler's device
-    records (CUPTI), over `reps` launches."""
+    records (CUPTI) of `reps` launches, over the launches it recorded.  It
+    may miss launches of long kernels (W = 8193's K1, ~90 ms: one of three
+    recorded); None when it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -436,8 +472,11 @@ def device_ms(torch, fn, symbol: str, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     mine = [e for e in prof.key_averages() if _is_kernel(e.key, symbol)]
-    require(mine, f"the profiler recorded no launch of {symbol}")
-    return sum(_device_us(e) for e in mine) / 1e3 / reps
+    recorded = sum(e.count for e in mine)
+    if not recorded:
+        log(f"the profiler recorded none of {reps} launches of {symbol}")
+        return None
+    return sum(_device_us(e) for e in mine) / 1e3 / recorded
 
 
 def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -611,16 +650,22 @@ def compact_ranks_work(torch, keys_mod, ks, rec):
 # seeded inputs in the stream's key layout
 
 
-def prefixed_rows(rows, W: int):
-    """uint32 lane rows of 16-byte keys as rows of W lanes: each key behind
-    a common prefix of 4 * (W - 5) bytes (the encoding of prefix + key, its
-    length lane grown by the prefix's); sentinel rows stay sentinel."""
-    rows = np.asarray(rows, np.uint32)
-    sent = (rows == 0xFFFFFFFF).all(axis=-1)
-    pad = np.full(rows.shape[:-1] + (W - rows.shape[-1],), 0x66666666, np.uint32)
-    out = np.concatenate([pad, rows], axis=-1)
-    out[..., -1] += 4 * (W - rows.shape[-1])
-    out[sent] = 0xFFFFFFFF
+PREFIX_WORD = 0x66666666  # each word of the common prefix: b"ffff"
+
+
+def prefixed_lanes(torch, keys_mod, rows, W: int, dev):
+    """uint32 lane rows of 16-byte keys as lanes of W on `dev`: each key
+    behind a common prefix of 4 * (W - 5) bytes (the encoding of prefix +
+    key, its length lane grown by the prefix's); sentinel rows stay
+    sentinel.  Built on `dev` from the narrow rows: from W = 8193 the wide
+    rows are gigabytes, which the host would take tens of seconds over."""
+    narrow = keys_mod.to_lanes(np.ascontiguousarray(rows), dev)
+    w0 = narrow.shape[-1]
+    out = torch.empty(narrow.shape[:-1] + (W,), dtype=torch.int32, device=dev)
+    out[..., : W - w0] = int(np.array(PREFIX_WORD ^ 0x80000000, np.uint32).view(np.int32))
+    out[..., W - w0:] = narrow
+    out[..., -1] += 4 * (W - w0)
+    out.masked_fill_((narrow == keys_mod.SENT_LANE).all(-1, keepdim=True), keys_mod.SENT_LANE)
     return out
 
 
@@ -725,21 +770,24 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
         f"per-launch time below)")
 
-    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None):
+    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None, symbol=None):
         """`cold`: the main path finds the kernel's inputs out of L2, so
         its `ms` (and the plain version's) is timed after a flush.  `key`:
-        where the results go (the kernel's name by default)."""
+        where the results go (the kernel's name by default).  `symbol`: the
+        CUDA kernel the wrapper launches, when not SYMBOLS[name] (K1's and
+        K3's no-staging plans launch kernels of their own)."""
         torch.cuda.synchronize()
         n_bytes, n_ops, replay = work
-        got = [g.to(torch.int64) for g in got]
-        want = [w.to(torch.int64) for w in want]
+        # compared in their own dtype (K4's outputs at W = 32769 are 8.6 GB:
+        # an int64 copy of both would not fit beside the inputs)
         mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        require(replay is None or torch.equal(replay.to(torch.int64), got[0]),
+        err = max((int((g[g != w].long() - w[g != w].long()).abs().max())
+                   if bool((g != w).any()) else 0) for g, w in zip(got, want))
+        require(replay is None or torch.equal(replay.long(), got[0].long()),
                 f"{name}: the replay that counts its work disagrees with it")
         warm_ms = launch_ms(torch, fn, reps)
         cold_ms = launch_ms(torch, fn, reps, flush)
-        own_ms = device_ms(torch, fn, SYMBOLS[name], reps)
+        own_ms = device_ms(torch, fn, symbol or SYMBOLS[name], reps)
         back_to_back = call_ms(torch, fn, reps)
         plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
         bound_ms, bound_by = bound(n_bytes, n_ops)
@@ -751,7 +799,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         log(f"kernel {key or name}: mismatches={mismatches} ms={ms:.6f} "
             f"({'cold' if cold else 'warm'} L2, as on the main path) "
             f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
-            f"device_ms={own_ms:.6f} (profiler, warm) "
+            f"device_ms={own_ms if own_ms is None else f'{own_ms:.6f}'} (profiler, warm) "
             f"call_ms={back_to_back:.6f} (back to back, host launch included) "
             f"plain_ms={plain_ms:.6f} bound_us={bound_ms * 1e3:.3f} ({bound_by}: "
             f"{n_bytes} B, {n_ops} ops) ms/bound={ms / bound_ms:.1f} "
@@ -868,16 +916,22 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           run_to_step_work(*runs_b.shape),
           fn=lambda: kernels.run_to_step_runs(*k4),
           plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
-    # K1, K3 and K4 at the wider keys a set widens to (64 to 16384 bytes),
+    # K1, K3 and K4 at the wider keys a set widens to (64 to 131072 bytes),
     # at the stream's K, run_cap and cap up to W = 513 and at the default
     # set's from WIDEST_FROM: the same inputs (the first 4096 rows of each
     # run, every 8th main row, the last WIDEST_READS reads there), each key
     # behind a common prefix that fills the width, so every compare runs
     # to the end
     for W_wide in WIDE_W:
-        wide = lambda a, W=W_wide: lanes(prefixed_rows(a, W))  # noqa: E731
+        torch.cuda.empty_cache()  # the last width's blocks: gigabytes at W >= 8193
+        wide = lambda a, W=W_wide: prefixed_lanes(torch, keys_mod, a, W, dev)  # noqa: E731
         rows, reads, step = wide_cut(W_wide, run_cap, SET_ARGS["capacity"], R)
-        reps = 50 if W_wide < WIDEST_FROM else 10  # ~30 ms a launch there
+        # ~30 ms a launch at W = 4097, hundreds from WIDE_FEW_REPS
+        reps = 50 if W_wide < WIDEST_FROM else 10 if W_wide < WIDE_FEW_REPS else 3
+        plan_k1 = kernels.plan_probe(SET_ARGS["run_slots"], rows, W_wide)
+        plan_k3 = kernels.plan_ranks(W_wide)
+        log(f"kernels at W={W_wide}: K1 plan {plan_k1._asdict()}; K3 plan "
+            f"{plan_k3._asdict()}")
         runs_bw = wide(np.stack([r[0][:rows] for r in runs]))
         runs_ew = wide(np.stack([r[1][:rows] for r in runs]))
         k1w = (wide(rb_np[reads]), wide(re_np[reads]), k1[2][reads], k1[3][reads],
@@ -886,7 +940,8 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
               [kernels.probe_fused_plain(*k1w)], probe_fused_work(torch, *k1w),
               fn=lambda: kernels.probe_fused(*k1w),
               plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=reps, cold=True,
-              key=f"probe_fused_w{W_wide}")
+              key=f"probe_fused_w{W_wide}",
+              symbol=None if plan_k1.staged else WIDE_SYMBOLS["probe_fused"])
         ks_w = wide(ks_np[::step])
         rec_w, _ = kernels.run_to_step_plain(runs_bw[1], runs_ew[1], runs_ver[1])
         check("compact_ranks", [kernels.compact_ranks(ks_w, rec_w)],
@@ -894,7 +949,9 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
               compact_ranks_work(torch, keys_mod, ks_w, rec_w),
               fn=lambda: kernels.compact_ranks(ks_w, rec_w),
               plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=reps,
-              cold=True, key=f"compact_ranks_w{W_wide}")
+              cold=True, key=f"compact_ranks_w{W_wide}",
+              symbol=None if plan_k3.staged else WIDE_SYMBOLS["compact_ranks"])
+        del k1w, ks_w, rec_w  # K4's outputs and its plain version's take their room
         k4w = (runs_bw, runs_ew, runs_ver)
         check("run_to_step", list(kernels.run_to_step_runs(*k4w)),
               list(kernels.run_to_step_runs_plain(*k4w)),
@@ -902,7 +959,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
               fn=lambda: kernels.run_to_step_runs(*k4w),
               plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=2 * reps,
               cold=True, key=f"run_to_step_w{W_wide}")
-        del runs_bw, runs_ew, k1w, ks_w, rec_w, k4w
+        del runs_bw, runs_ew, k4w
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
     return results
 
@@ -2320,14 +2377,15 @@ def cpu_twin(run: str, keys: tuple, *args) -> dict:
     """One of phases 15-17's (c) runs (`run`: "cluster", "durable" or
     "backup") on the default backend on "cpu", its backend checked; phase
     18's (a) spec run ("spec") with its supervised sets on "cpu"; or phase
-    19's ladder ("saturate") or campaign ("soak") on "cpu"; in the pool's
+    19's ladder ("saturate") or campaign ("soak") on "cpu"; or phase 20's
+    cli sessions ("cli") on "cpu"; in the pool's
     process.  Returns what the cuda run is held to (`keys`) and the host
     walls."""
     import torch
 
     torch.set_num_threads(1)
     fn = dict(cluster=cluster_run, durable=durable_run, backup=backup_run,
-              spec=spec_run, saturate=saturate_run, soak=soak_run)[run]
+              spec=spec_run, saturate=saturate_run, soak=soak_run, cli=cli_run)[run]
     rec = fn(torch, port_modules(), *args, device="cpu")
     if run in ("cluster", "durable", "backup"):  # the others record no sets
         check_backend_device(rec, "cpu")
@@ -3987,9 +4045,13 @@ def corpus_phase(torch, fdb, power) -> dict:
 SERVED_RUN_S = "900"        # each served process's own wall limit (--run-seconds)
 SERVED_SEEDS = (11, 12, 13)  # the bindingtester's op streams
 SERVED_KEYS = (600, 10000, 10)  # through the gateway, after the digests
-REPRO_KEYS = (600, 10, 10000, 12)  # ROADMAP C.1's repro, in this process
+# ROADMAP C.1's repro, in this process: FoundationDB's 10,000-byte keys,
+# then one past the 16 KB the set once stopped at (its end widens the set
+# to 32768 bytes, W = 8193)
+REPRO_KEYS = (600, 10, 10000, 12, 16385, 12)
+REPRO_WIDTHS = [1024, 16384, 32768]  # the widths the default set widens to
 REPRO_SEED = 1
-REPRO_FILL = 12  # short commits after the repro: a compaction at W = 4097
+REPRO_FILL = 12  # short commits after the repro: a compaction at W = 8193
 # r02's deployment (BENCH_SAT_r02.json: ssd, 2 shards x 2 replicas, 4000
 # keys of 128-byte values, zipf 1.2, seed 11), data distribution on, its
 # ladder cut to three 1-virtual-second steps
@@ -4144,9 +4206,10 @@ def repro_part(torch, fdb, power, device="cuda") -> dict:
     """(a), in this process: ROADMAP C.1's repro on the cluster's default
     set on the card (DeviceConflictSet(oldest, device="cuda"), capacity
     2**16, 8 runs of 4096), then REPRO_FILL short commits (a compaction at
-    W = 4097), against the same cluster on the port's OracleConflictSet:
+    W = 8193), against the same cluster on the port's OracleConflictSet:
     the same versions, virtual times and values; the set widened to 1024
-    and then 16384 bytes; K1, K3 and K4 launched at W = 4097; the card's
+    and then 16384 and 32768 bytes (REPRO_WIDTHS); K1, K3 and K4 launched
+    at the widest W, 8193; the card's
     requested bytes before each widening, after it, and after the stop.
     Returns {path: launches}."""
     tdev, kernels = fdb["device"], fdb["kernels"]
@@ -4196,9 +4259,9 @@ def repro_part(torch, fdb, power, device="cuda") -> dict:
     require(all(isinstance(v, int) for _n, v, _t in got[0]),
             f"served (a): a repro key did not commit: {got[0]}")
     require(got[1] == [b"v%d" % n for n in REPRO_KEYS], "served (a): a repro key read back wrong")
-    require([w[0] for w in widened] == [1024, 16384],
-            f"served (a): the set widened {widened}, not to 1024 then 16384 bytes")
-    W = fdb["keys"].num_words(16384)
+    require([w[0] for w in widened] == REPRO_WIDTHS,
+            f"served (a): the set widened {widened}, not to {REPRO_WIDTHS} bytes")
+    W = fdb["keys"].num_words(REPRO_WIDTHS[-1])
     for name in WIDE_KERNELS:
         require(widths.get((name, W), 0) > 0, f"served (a): {name} never launched at W={W}")
     require(mem_stop <= mem0, f"served (a): the card's requested bytes {mem_stop} after the "
@@ -4433,6 +4496,245 @@ def served_phase(torch, fdb, power) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the supervised cluster (tools/fdbmonitor.py, bounce.py,
+# fdbtop.py, cli.py and flowlint.py)
+
+BOUNCE_ARGS = dict(n_coords=3, max_gap=30.0, settle=2.0)
+SERVER_LAUNCH_WAIT = 120.0  # s for a new server process to launch K1-K4
+SUPERVISED_KERNELS = MAIN_PATH  # each server process launches all four
+
+
+def make_card_campaign(fdb):
+    """tools/bounce.Campaign that also reads the server's status through
+    the gateway: after each start of a server process (the boot and every
+    bounce) until its K1-K4 launches are all > 0, then once more (they
+    rise under the load), and once more just before the process is
+    bounced or the campaign ends (its last count)."""
+    gwc = fdb["gateway_client"]
+
+    class CardCampaign(fdb["bounce"].Campaign):
+        def __init__(self, *args, **kw) -> None:
+            super().__init__(*args, **kw)
+            self.server_runs: list[dict] = []
+
+        def server_kernel(self) -> dict:
+            db = gwc.GatewayClient("127.0.0.1", self.gw_port, timeout=30.0,
+                                   reconnect_window=60.0)
+            try:  # run: a retryable error (a read too old) retries
+                return json.loads(db.run(lambda tr: tr.get(STATUS_KEY)))["kernel"]
+            finally:
+                db.close()
+
+        def watch_server(self, label: str) -> None:
+            pid = self.mon.children[f"fdbserver.{self.gw_port}"].pid
+            deadline = time.monotonic() + SERVER_LAUNCH_WAIT
+            while True:
+                first = self.server_kernel()
+                if all(first["launches"].get(k, 0) > 0 for k in SUPERVISED_KERNELS):
+                    break
+                require(time.monotonic() < deadline,
+                        f"supervised (a): server pid {pid} ({label}) launched "
+                        f"{first['launches']} in {SERVER_LAUNCH_WAIT} s")
+                self.pump(lambda: False, timeout=1.0)
+            self.pump(lambda: False, timeout=1.0)
+            later = self.server_kernel()
+            self.server_runs.append(dict(label=label, pid=pid, backend=first["backend"],
+                                         first=first["launches"], later=later["launches"]))
+
+        def boot(self) -> None:
+            super().boot()
+            self.watch_server("boot")
+
+        def bounce_section(self, section: str, label: str) -> dict:
+            server = section.startswith("fdbserver.")
+            if server:
+                self.server_runs[-1]["last"] = self.server_kernel()["launches"]
+            rec = super().bounce_section(section, label)
+            if server:
+                self.watch_server(label)
+            return rec
+
+    return CardCampaign
+
+
+def bounce_part(torch, fdb, out: str, power, device="cuda") -> tuple:
+    """(a) the campaign on `device`, then (b) one `fdbtop --once` frame
+    from its cluster.  Returns ({path: launches}, the frame)."""
+    import contextlib
+    import io
+
+    camp = make_card_campaign(fdb)(out, device=device, **BOUNCE_ARGS)
+    t0 = time.perf_counter()
+    frame = io.StringIO()
+    try:
+        camp.boot()
+        camp.rolling_bounce()
+        camp.mixed_protocol()
+        camp.coordinator_change()
+        report = camp.finish()
+        camp.server_runs[-1]["last"] = camp.server_kernel()["launches"]
+        with contextlib.redirect_stdout(frame):
+            top_rc = fdb["fdbtop"].main(["--port", str(camp.gw_port), "--once"])
+    finally:
+        camp.shutdown()
+    wall = time.perf_counter() - t0
+    failed = [c for c in report["checks"] if not c["ok"]]
+    require(report["ok"] and not failed, f"supervised (a): campaign checks failed: {failed}")
+    runs = camp.server_runs
+    require(len(runs) == 3 and len({r["pid"] for r in runs}) == 3,
+            f"supervised (a): server processes {[(r['label'], r['pid']) for r in runs]}")
+    for r in runs:
+        require(r["backend"] == device, f"supervised (a): server pid {r['pid']} backend "
+                                        f"{r['backend']}, not {device}")
+        for k in SUPERVISED_KERNELS[:1]:  # K1: once a batch
+            require(r["later"][k] > r["first"][k],
+                    f"supervised (a): server pid {r['pid']}'s {k} launches did not "
+                    f"rise: {r['first']} then {r['later']}")
+    frame = frame.getvalue()
+    require(top_rc == 0 and frame.startswith("fdbtpu top") and "proxy: version" in frame,
+            f"supervised (b): fdbtop --once printed {frame!r}")
+    launches = {k: sum(r["last"].get(k, 0) for r in runs) for k in fdb["kernels"].launches}
+    mv = report["mixed_version"]
+    log(f"supervised (a) bounce: 3 coordservers + 1 fdbserver (--device {device}) under "
+        f"fdbmonitor, load from 2 client threads: {len(report['checks'])} checks ok; "
+        f"acked commits {report['total_acks']} ({report['acked_increments']} increments, "
+        f"{report['cycle_steps']} cycle steps), acked loss {report['acked_loss']}; bounces "
+        f"(section, label, restart s, gap s, p50/p99 ms) "
+        f"{[(b['section'], b['label'], b['restart_s'], b.get('availability_gap_s'), b.get('p50_ms'), b.get('p99_ms')) for b in report['bounces']]}; "
+        f"mixed version: {mv['mismatch_events']} mismatch event(s) over {mv['peer_pairs']} "
+        f"pair(s) in {mv['window_s']} s; server processes (label, pid, backend, K1-K4 first "
+        f"read, later, last) {[(r['label'], r['pid'], r['backend'], r['first'], r['later'], r['last']) for r in runs]}; "
+        f"client errors {report['client_error_count']}; wall {wall:.1f} s on {power}")
+    log("supervised (b) fdbtop --once:\n" + frame.rstrip())
+    return {"bounce": launches}, frame
+
+
+def _cli_commands(Cli, kw) -> list:
+    cli = Cli(seed=51, n_storage_shards=2, **kw)
+    out = [cli.one_command(c) for c in (
+        "set k1 v1", "get k1", "get nothing", "set k2 v2", "getrange k k3",
+        "clear k1", "get k1", "status", "processes")]
+    proxy = next(line.split()[0] for line in out[-1].splitlines() if line.startswith("proxy"))
+    out += [cli.one_command(c) for c in (
+        f"kill {proxy}", "set after-kill yes", "get after-kill", "status")]
+    require("epoch now 2" in out[-4], f"supervised (c): the kill did not recover: {out[-4]}")
+    cli.cluster.stop()
+    return out
+
+
+def _cli_repl(Cli, kw) -> list:
+    import io
+
+    cli = Cli(seed=52, **kw)
+    out = io.StringIO()
+    cli.repl(stdin=io.StringIO("set a 1; get a\nhelp; bogus\nexit\n"), stdout=out)
+    cli.cluster.stop()
+    return [out.getvalue()]
+
+
+def _cli_move_backup_configure(Cli, kw) -> list:
+    cli = Cli(seed=1701, n_storage_shards=2, storage_replication=2, **kw)
+    out = [cli.one_command(f"set mk{i:03d} v{i}") for i in range(30)]
+    out += [cli.one_command(c) for c in (
+        "move mk010 mk020 1", "get mk015", "backup start bk-cli", "backup status",
+        "backup stop", "configure n_tlogs=3", "errorcode 1020", "status")]
+    require(out[30] == "moved", f"supervised (c): move printed {out[30]!r}")
+    cli.cluster.stop()
+    return out
+
+
+def _cli_dr(Cli, kw) -> list:
+    import io
+
+    cli = Cli(seed=61, **kw)
+    out = [cli.one_command(c) for c in (
+        "set drk v1", "dr start", "set drk2 v2", "dr status", "dr switch")]
+    c2 = cli._dr_secondary
+    db2 = c2.database()
+
+    async def check():
+        tr = db2.create_transaction()
+        return await tr.get(b"drk"), await tr.get(b"drk2")
+
+    out.append(repr(cli.cluster.run_until(cli.cluster.loop.spawn(check()), 120)))
+    refused = io.StringIO()  # the REPL prints the deposed primary's refusal
+    cli.repl(stdin=io.StringIO("set stale x\nexit\n"), stdout=refused)
+    out.append(refused.getvalue())
+    require(out[-2] == repr((b"v1", b"v2")) and "DatabaseLocked" in out[-1],
+            f"supervised (c): DR ended with {out[-2:]}")
+    cli.cluster.stop()
+    c2.stop()
+    return out
+
+
+CLI_SESSIONS = (("commands_kill", _cli_commands), ("repl", _cli_repl),
+                ("move_backup_configure", _cli_move_backup_configure), ("dr", _cli_dr))
+
+
+def cli_run(torch, fdb, part: str, device="cuda") -> dict:
+    """(c): tests/test_cli.py's sessions through the port's Cli on
+    `device`, the collector off after a collection.  Returns each
+    session's printed lines, the launches and the host wall."""
+    kernels = fdb["kernels"]
+    gc.collect()
+    gc.disable()
+    try:
+        card_sync(torch, device)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = {name: fn(fdb["cli"].Cli, dict(device=device)) for name, fn in CLI_SESSIONS}
+        wall = time.perf_counter() - t0
+        card_sync(torch, device)
+        launches = dict(kernels.launches)
+    finally:
+        gc.enable()
+    return dict(outputs=out, launches=launches, walls=dict(run=wall))
+
+
+def supervised_cluster_phase(torch, fdb, power) -> dict:
+    """Phase 20.  The flowlint run (d) and the cli session's cpu twin (c)
+    start first, in processes of their own, beside (a) and (b) on the
+    card; then (c) on the card.  Returns {path: launches}."""
+    lint = subprocess.Popen([sys.executable, "-m", "foundationdb_tpu_torch.tools.flowlint"],
+                            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    paths = {}
+    try:
+        with twin_pool() as pool:
+            cli_cpu = pool.submit(cpu_twin, "cli", ("outputs",), "cli cpu")
+            t = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                launches, _frame = bounce_part(torch, fdb, str(Path(tmp) / "bounce"), power,
+                                               CARD)
+            paths.update(launches)
+            log(f"supervised (a, b): {time.perf_counter() - t:.1f} s")
+            t = time.perf_counter()
+            gpu = cli_run(torch, fdb, "cli cuda", CARD)
+            cpu = cli_cpu.result()
+            log(f"supervised (c): {time.perf_counter() - t:.1f} s")
+        lint_out, _ = lint.communicate(timeout=600)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    require(gpu["outputs"] == cpu["outputs"],
+            "supervised (c): the cli sessions on cuda and on cpu printed different lines: "
+            + json.dumps({k: [a for a, b in zip(v, cpu["outputs"][k]) if a != b][:2]
+                          for k, v in gpu["outputs"].items()}))
+    require(all(gpu["launches"][k] > 0 for k in SUPERVISED_KERNELS),
+            f"supervised (c): the cli sessions launched {gpu['launches']}")
+    log(f"supervised (c) cli: sessions {[n for n, _ in CLI_SESSIONS]} "
+        f"({sum(len(v) for v in gpu['outputs'].values())} commands' output) equal on cuda "
+        f"and cpu; launches {json.dumps(gpu['launches'])}; wall {gpu['walls']['run']:.1f} s "
+        f"cuda, {cpu['walls']['run']:.1f} s cpu, on {power}")
+    paths["cli"] = gpu["launches"]
+    require(lint.returncode == 0 and "0 new finding(s)" in lint_out,
+            f"supervised (d): flowlint exited {lint.returncode}: {lint_out[-3000:]}")
+    log(f"supervised (d) flowlint: {lint_out.strip().splitlines()[-1]}")
+    return paths
+
+
 def port_modules() -> dict:
     """The port's modules the phases drive, by the names they use."""
     sys.path.insert(0, str(ROOT))
@@ -4450,7 +4752,7 @@ def port_modules() -> dict:
         buggify, combinators, core, coverage, knobs, serialize)
     from foundationdb_tpu_torch.runtime.core import DeterministicRandom
     from foundationdb_tpu_torch.storage import blobstore, image
-    from foundationdb_tpu_torch.tools import gateway, saturate, soak
+    from foundationdb_tpu_torch.tools import bounce, cli, fdbtop, gateway, saturate, soak
     from foundationdb_tpu_torch.workloads import attrition, consistency, readwrite, spec
     from foundationdb_tpu_torch.workloads import base as workloads_base
 
@@ -4465,7 +4767,7 @@ def port_modules() -> dict:
                 attrition=attrition, backup=backup, dr=dr, blobstore=blobstore, image=image,
                 consistency=consistency, spec=spec, gateway=gateway,
                 gateway_client=gateway_client, cluster_file=cluster_file,
-                saturate=saturate, soak=soak,
+                saturate=saturate, soak=soak, bounce=bounce, cli=cli, fdbtop=fdbtop,
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
@@ -4586,6 +4888,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(served_phase(torch, fdb, power))
     log(f"served phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(supervised_cluster_phase(torch, fdb, power))
+    log(f"supervised cluster phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

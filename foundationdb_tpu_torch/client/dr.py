@@ -145,9 +145,8 @@ class DRWorker:
             # fork the secondary.  Entries above the watermark stay on the
             # TLog and are re-peeked once it advances (the backup worker's
             # guard, roles/backup.py; the reference's DRWorker lacks it)
-            limit_v = reply.known_committed
             for version, muts in reply.entries:
-                if version > limit_v:
+                if version > reply.known_committed:
                     break
                 if version <= self.applied.get():
                     continue
@@ -160,7 +159,7 @@ class DRWorker:
                     # a restart re-reads these frames harmlessly)
                     self.applied.set(version)
                 self._fetched = version
-            tail = min(reply.end_version - 1, limit_v)
+            tail = min(reply.end_version - 1, reply.known_committed)
             if tail > self._fetched:
                 # versions with no DR-tag data still advance the cursor
                 self._fetched = tail

@@ -971,8 +971,8 @@ def pack_batch(txns, oldest: int, offset, max_key_bytes: int, *,
     longer than max_key_bytes go to pack_batch_loop (its raise-vs-drop
     semantics need byte compares).  With `grow`, a batch whose live ranges
     need a wider encoding packs at `keys.grown_key_bytes` of its longest
-    live endpoint instead of raising (past keys.WIDEST_KEY_BYTES it still
-    raises): the arrays carry their width, and the set widens to it.
+    live endpoint instead of raising: the arrays carry their width, and
+    the set widens to it.
     Returns (rbv, rev, rtv, wbv, wev, wtv, snap, active, bucketed_B)."""
     B = len(txns)
     if B == 0:
@@ -1232,9 +1232,9 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     `max_key_bytes` is the key width the set starts at.  A batch with a
     longer live endpoint widens the set in place (`_widen`), to the least
     power of two of bytes that holds it, with the verdicts and state of a
-    set built that wide; past keys.WIDEST_KEY_BYTES the batch raises
-    KeyTooLongError and nothing changes.  (The reference's set raises at
-    its width.)"""
+    set built that wide.  The card's memory is the only limit: where the
+    widened buffers do not fit, the batch raises KeyTooLongError and
+    nothing changes.  (The reference's set raises at its width.)"""
 
     # everything a dispatch, GC, regrow or compaction can move: the
     # recovery snapshot of a pipelined window.  Safe as references because
@@ -1618,13 +1618,22 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         table and the bucket index (the first lane's prefix) do not change.
         The widened state is the one a set built at that width would hold
         (keys.widen_lanes).  Rebound, never written in place, like every
-        state update (conflict/pipeline.py)."""
-        self._ks = keymod.widen_lanes(self._ks, W)
-        if self._runs_b is not None:
-            self._runs_b = keymod.widen_lanes(self._runs_b, W)
-            self._runs_e = keymod.widen_lanes(self._runs_e, W)
-        if self._rec_ks is not None:
-            self._rec_ks = keymod.widen_lanes(self._rec_ks, W)
+        state update (conflict/pipeline.py).  Every widened buffer is made
+        before any is rebound: where the card cannot hold them, raises
+        KeyTooLongError (the width and the bytes asked for) and the set
+        keeps its state, width and counts."""
+        names = [n for n in ("_ks", "_runs_b", "_runs_e", "_rec_ks")
+                 if getattr(self, n) is not None]
+        asked = sum(getattr(self, n).numel() // self._W * W * 4 for n in names)
+        try:
+            wide = [keymod.widen_lanes(getattr(self, n), W) for n in names]
+        except torch.OutOfMemoryError as e:
+            raise keymod.KeyTooLongError(
+                f"widening the conflict set to {4 * (W - 1)}-byte keys (W = "
+                f"{W}) asks {asked} bytes of {self.device}, which cannot hold "
+                f"them: {e}") from None
+        for n, t in zip(names, wide):
+            setattr(self, n, t)
         self._W, self._max_key_bytes = W, 4 * (W - 1)
         self.stats.widenings += 1
         self.stats.key_bytes = self._max_key_bytes

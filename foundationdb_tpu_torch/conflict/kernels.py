@@ -218,18 +218,23 @@ RANKS_THREADS = 128            # threads per K3 block (the kernel's kRanksThread
 RANKS_SMEM = 112 * 1024        # two K3 blocks an SM
 
 
+WIDE_WARPS = 8                 # a block of the no-staging plans: 8 warps
+
+
 class ProbePlan(NamedTuple):
     group_log2: int   # lanes per read: 2**group_log2, K rounded up, <= 32
     stride_log2: int  # summary stride S = 2**stride_log2
     n_sum: int        # summary rows per run, ceil(run_cap / S); 0: no summary
     threads: int      # per block: reads per block << group_log2
     smem: int         # dynamic shared bytes per block
+    staged: int       # 1: the reads' rows staged; 0: a warp a read, no staging
 
 
 class RanksPlan(NamedTuple):
     span_rows: int    # main rows a block stages at most
     smem: int         # dynamic shared bytes per block
     queries: int      # recent rows per block, <= RANKS_THREADS
+    staged: int       # 1: the queries staged; 0: a warp a query, no staging
 
 
 @functools.lru_cache(maxsize=None)
@@ -241,7 +246,9 @@ def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
     no summary (n_sum = 0) and the kernel ranks each read end against the
     whole run in global memory.  A block stages its reads' begins and ends
     beside the summary: PROBE_READS of them, halved until the block fits
-    SMEM_MAX.  Raises where not even one read's rows fit."""
+    SMEM_MAX.  Where not even one read's rows fit (8 W bytes, from about
+    W = 29,000) nothing is staged: a warp takes a read, its runs one after
+    another, and compares 128 lanes a step in global memory (staged = 0)."""
     group_log2 = min(max(K - 1, 0).bit_length(), 5)
     reads = min(PROBE_READS, PROBE_MAX_THREADS >> group_log2)
     stride_log2 = PROBE_MIN_STRIDE.bit_length() - 1
@@ -256,10 +263,8 @@ def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
         reads //= 2
     smem = summary + 2 * reads * W * 4  # with the reads' begins and ends
     if smem > SMEM_MAX:
-        raise ValueError(
-            f"probe_fused: one read's rows exceed shared memory at K={K}, "
-            f"run_cap={run_cap}, W={W} (block <= {SMEM_MAX} B)")
-    return ProbePlan(group_log2, stride_log2, n_sum, reads << group_log2, smem)
+        return ProbePlan(5, stride_log2, 0, 32 * WIDE_WARPS, 0, 0)
+    return ProbePlan(group_log2, stride_log2, n_sum, reads << group_log2, smem, 1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -268,8 +273,10 @@ def plan_ranks(W: int) -> RanksPlan:
     (halved until they, their 16-byte alignment slack and the least and
     the greatest query fit SMEM_MAX), staged with the main rows between
     their least and greatest rank when those fit RANKS_SMEM (else no span
-    is staged and the queries search main in global memory).  Raises
-    where not even one query fits."""
+    is staged and the queries search main in global memory).  Where not
+    even one query fits (about 12 W bytes, from about W = 19,400) nothing
+    is staged: a warp takes a query and compares 128 lanes a step in
+    global memory, its last lane + 1 inside the compare (staged = 0)."""
     row = 4 * W
 
     def fixed(queries: int) -> int:
@@ -279,10 +286,9 @@ def plan_ranks(W: int) -> RanksPlan:
     while queries > 1 and fixed(queries) > SMEM_MAX:
         queries //= 2
     if fixed(queries) > SMEM_MAX:
-        raise ValueError(f"compact_ranks: one query row of W={W} lanes "
-                         f"exceeds {SMEM_MAX} B of shared memory")
+        return RanksPlan(0, 0, WIDE_WARPS, 0)
     span_rows = max((RANKS_SMEM - fixed(queries)) // row, 0)
-    return RanksPlan(span_rows, fixed(queries) + span_rows * row, queries)
+    return RanksPlan(span_rows, fixed(queries) + span_rows * row, queries, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -338,8 +344,7 @@ _I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
     """K1: fused history + run probe.  rb, re_: int32[R, W]; snap_r:
     int32[R]; r_ok, hist_r: bool[R]; runs_b, runs_e: int32[K, run_cap, W];
-    runs_ver: int32[K].  Returns bool[R].  On the card, raises where
-    plan_probe cannot fit one read's rows in shared memory."""
+    runs_ver: int32[K].  Returns bool[R]."""
     if _is_cpu(rb):
         return probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
                                  runs_ver, hist_r)
@@ -414,8 +419,7 @@ def intra_query(beg_tab, stab, rb_r, re_r):
 
 def compact_ranks(ks, rec_ks):
     """K3: ub[j] = #ks rows <= rec_ks[j].  ks: int32[cap, W] sorted;
-    rec_ks: int32[n_rec, W].  Returns int32[n_rec].  On the card, raises
-    where plan_ranks cannot take W."""
+    rec_ks: int32[n_rec, W].  Returns int32[n_rec]."""
     if _is_cpu(ks):
         return compact_ranks_plain(ks, rec_ks)
     cap, W = ks.shape

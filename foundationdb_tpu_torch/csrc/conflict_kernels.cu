@@ -54,7 +54,14 @@
 //    search over the whole run in global memory, its compares loading four
 //    lanes at a time and stopping at the first lane that differs.  A
 //    block may then be a single partial warp (K = 1), so the group's
-//    ballot takes the mask of the lanes the block has.
+//    ballot takes the mask of the lanes the block has.  Past what shared
+//    memory holds (one read's two rows over 227 KB, from about W = 29,000:
+//    128 KB keys and up; plan_probe's staged = 0) nothing is staged:
+//    probe_fused_wide_kernel gives each read a warp, which walks the runs
+//    newer than the snapshot in order until the first conflict, as K5
+//    does, comparing 128 lanes a step in global memory (coalesced loads,
+//    a ballot for the first lane that differs).  A simple right kernel:
+//    no summary, no window, every compare from global memory.
 //
 // K5 fdb_probe  replaces _probe_kernel (pallas_kernel.py:165, built by
 //    _build_probe :213, wrapper run_conflicts_pallas :240, dispatched by
@@ -580,6 +587,105 @@ __global__ void __launch_bounds__(kRanksThreads)
   }
 }
 
+// a < b over W lanes in global memory, by one whole warp: each step the
+// warp loads 128 lanes of both rows (four coalesced 128-byte loads a row,
+// all in flight), and a ballot finds the first lane that differs.  With
+// `inc_b`, b's last lane counts 1 more (on the unsigned bits, wrapping as
+// uint32 does): the compare sees it, b is never written.  Every lane of
+// the warp returns the same answer.
+__device__ __forceinline__ bool warp_row_less(const int* __restrict__ a,
+                                              const int* __restrict__ b, int W,
+                                              bool inc_b) {
+  const int l = threadIdx.x & 31;
+  for (int w0 = 0; w0 < W; w0 += 128) {
+    int x[4], y[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int w = w0 + 32 * j + l;
+      x[j] = w < W ? a[w] : 0;
+      y[j] = w < W ? b[w] : 0;
+      if (inc_b && w == W - 1) {
+        y[j] = static_cast<int>(static_cast<unsigned>(y[j]) + 1u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned diff = __ballot_sync(kFull, x[j] != y[j]);
+      if (diff) {
+        const int src = __ffs(diff) - 1;
+        return __shfl_sync(kFull, x[j], src) < __shfl_sync(kFull, y[j], src);
+      }
+    }
+  }
+  return false;
+}
+
+// #rows of the sorted [n, W] rows below q (q's last lane + 1 with
+// `inc_q`), by one whole warp, every row and q in global memory
+__device__ __forceinline__ int warp_count_below(const int* __restrict__ rows,
+                                                int n, int W,
+                                                const int* __restrict__ q,
+                                                bool inc_q) {
+  int lo = 0;
+  int hi = n;
+  while (lo < hi) {
+    const int mid = lo + ((hi - lo) >> 1);
+    if (warp_row_less(rows + static_cast<size_t>(mid) * W, q, W, inc_q)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// K1 where one read's rows do not fit shared memory (plan_probe's staged =
+// 0): a warp a read, its runs newer than its snapshot one after another
+// until the first conflict, nothing staged
+__global__ void probe_fused_wide_kernel(
+    const int* __restrict__ rb, const int* __restrict__ re,
+    const int* __restrict__ snap, const bool* __restrict__ r_ok,
+    const bool* __restrict__ hist, const int* __restrict__ runs_b,
+    const int* __restrict__ runs_e, const int* __restrict__ runs_ver,
+    bool* __restrict__ out, int R, int K, int run_cap, int W) {
+  const int i = static_cast<int>(
+      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+  if (i >= R) return;  // warp-uniform
+  const bool h = hist[i];
+  bool conflict = false;
+  if (!h && r_ok[i]) {
+    const int s = snap[i];
+    const int* qb = rb + static_cast<size_t>(i) * W;
+    const int* qe = re + static_cast<size_t>(i) * W;
+    const size_t run_rows = static_cast<size_t>(run_cap) * W;
+    for (int k = 0; k < K && !conflict; ++k) {
+      if (runs_ver[k] <= s) continue;
+      const int rank = warp_count_below(runs_b + k * run_rows, run_cap, W, qe,
+                                        false);
+      conflict = rank > 0 &&
+                 warp_row_less(qb, runs_e + k * run_rows +
+                                       static_cast<size_t>(rank - 1) * W,
+                               W, false);
+    }
+  }
+  if ((threadIdx.x & 31) == 0) out[i] = h || conflict;
+}
+
+// K3 where one query does not fit shared memory (plan_ranks' staged = 0):
+// a warp a recent row, searched in main with its last lane + 1 inside the
+// compare
+__global__ void compact_ranks_wide_kernel(const int* __restrict__ ks,
+                                          const int* __restrict__ rec,
+                                          int* __restrict__ out, int cap,
+                                          int n_rec, int W) {
+  const int j = static_cast<int>(
+      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
+  if (j >= n_rec) return;  // warp-uniform
+  const int rank =
+      warp_count_below(ks, cap, W, rec + static_cast<size_t>(j) * W, true);
+  if ((threadIdx.x & 31) == 0) out[j] = rank;
+}
+
 __device__ __forceinline__ int clamp_to(int x, int lo, int hi) {
   return min(max(x, lo), hi);
 }
@@ -741,11 +847,23 @@ int fdb_probe_fused(const void* rb, const void* re, const void* snap,
                     const void* r_ok, const void* hist, const void* runs_b,
                     const void* runs_e, const void* runs_ver, void* out, int R,
                     int K, int run_cap, int W, int group_log2, int stride_log2,
-                    int n_sum, int threads, int smem_bytes, void* stream) {
+                    int n_sum, int threads, int smem_bytes, int staged,
+                    void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!staged) {
+    probe_fused_wide_kernel<<<blocks_for(static_cast<size_t>(R) * 32, threads),
+                              threads, 0, st>>>(
+        static_cast<const int*>(rb), static_cast<const int*>(re),
+        static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
+        static_cast<const bool*>(hist), static_cast<const int*>(runs_b),
+        static_cast<const int*>(runs_e), static_cast<const int*>(runs_ver),
+        static_cast<bool*>(out), R, K, run_cap, W);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = allow_smem(probe_fused_kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   probe_fused_kernel<<<blocks_for(R, threads >> group_log2), threads,
-                       smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+                       smem_bytes, st>>>(
       static_cast<const int*>(rb), static_cast<const int*>(re),
       static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
       static_cast<const bool*>(hist), static_cast<const int*>(runs_b),
@@ -782,12 +900,19 @@ int fdb_intra_query(const void* tab, const void* stab, const void* rb_r,
 
 int fdb_compact_ranks(const void* ks, const void* rec, void* out, int cap,
                       int n_rec, int W, int span_rows, int smem_bytes,
-                      int queries, void* stream) {
+                      int queries, int staged, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!staged) {  // a warp a query, `queries` warps a block
+    compact_ranks_wide_kernel<<<blocks_for(n_rec, queries), 32 * queries, 0,
+                                st>>>(static_cast<const int*>(ks),
+                                      static_cast<const int*>(rec),
+                                      static_cast<int*>(out), cap, n_rec, W);
+    return static_cast<int>(cudaGetLastError());
+  }
   const cudaError_t err = allow_smem(compact_ranks_narrowed_kernel, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   compact_ranks_narrowed_kernel<<<blocks_for(n_rec, queries), kRanksThreads,
-                                  smem_bytes,
-                                  static_cast<cudaStream_t>(stream)>>>(
+                                  smem_bytes, st>>>(
       static_cast<const int*>(ks), static_cast<const int*>(rec),
       static_cast<int*>(out), cap, n_rec, W, span_rows, queries);
   return static_cast<int>(cudaGetLastError());

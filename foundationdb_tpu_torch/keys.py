@@ -32,16 +32,6 @@ import torch
 # performance.rst:14); 32 gives headroom for tuple-encoded keys.
 DEFAULT_MAX_KEY_BYTES = 32
 
-# The widest key a conflict set widens to (conflict/device.py): the power
-# of two that holds FoundationDB's 10,000-byte keys
-# (CLIENT_KNOBS->KEY_SIZE_LIMIT) and the 10,001-byte `key_after` end of
-# such a key, W = 4097 lanes.  Past 1024 bytes K1 stages fewer reads a
-# block and, where no run summary fits, ranks read ends against the runs
-# in global memory; K3 takes fewer queries a block
-# (conflict/kernels.plan_probe, plan_ranks).  A set raises KeyTooLongError
-# past this width.
-WIDEST_KEY_BYTES = 16384
-
 SIGN_FLIP = np.uint32(0x80000000)
 SENT_LANE = 0x7FFFFFFF  # flipped 0xFFFFFFFF: the sentinel lane value
 I32_MIN = -(1 << 31)
@@ -189,12 +179,13 @@ class KeyTooLongError(ValueError):
 
 def grown_key_bytes(need: int) -> int:
     """The key width a set widens to for an endpoint of `need` bytes: the
-    least power of two of bytes that holds it (32 -> 64 -> ... -> 16384).
-    Raises KeyTooLongError past WIDEST_KEY_BYTES."""
-    if need > WIDEST_KEY_BYTES:
-        raise KeyTooLongError(
-            f"key of {need} bytes exceeds the widest width the conflict "
-            f"kernels plan for ({WIDEST_KEY_BYTES} bytes)")
+    least power of two of bytes that holds it (32 -> 64 -> ... -> 16384 ->
+    32768 -> ...).  There is no fixed ceiling: a set widens until the card
+    cannot hold its buffers (conflict/device.py `_widen` then raises
+    KeyTooLongError).  From 1024 bytes K1 stages fewer reads a block and
+    ranks read ends against the runs in global memory; past what shared
+    memory holds, K1 and K3 stage nothing (conflict/kernels.plan_probe,
+    plan_ranks)."""
     return max(4, 1 << (need - 1).bit_length())
 
 

@@ -614,11 +614,18 @@ class WallDriver:
             self._tick()
         return fut.result()
 
-    def serve_forever(self, wall_timeout: float | None = None) -> None:
-        """Pump IO + timers until the deadline (server main loop)."""
+    def serve_forever(self, wall_timeout: float | None = None,
+                      stop: Callable[[], bool] | None = None) -> None:
+        """Pump IO + timers until the deadline, or until `stop()` is true
+        at the end of a turn (server main loop).  `stop` is how a signal
+        ends the loop: an exception raised from a signal handler would
+        land inside whichever task was stepping, and a task keeps its
+        error (Task._step), so the loop would go on serving."""
         start = _time.monotonic()  # flowlint: ok wall-clock (server main-loop deadline is host wall)
         while wall_timeout is None or _time.monotonic() - start < wall_timeout:  # flowlint: ok wall-clock (server main-loop deadline is host wall)
             self._tick()
+            if stop is not None and stop():
+                return
 
 
 class NetDriver(WallDriver):

@@ -21,7 +21,10 @@ carries the state, which is the failure mode the test kills exercise.
 
 Copy of the reference package's module, on the port's own modules.  A
 coordinator holds no conflict set and runs nothing on the card, so it
-takes no device.
+takes no device.  `--protocol-version` (an int, 0x-prefixed allowed) is the
+wire version its transport announces at hello (RealNetwork's
+`protocol_version=`), where the reference reads an environment variable:
+a rolling upgrade's not-yet-upgraded process (tools/bounce.py).
 """
 
 from __future__ import annotations
@@ -55,14 +58,17 @@ def main(argv=None) -> None:
                          "coordinator rejoins empty, and a rolling bounce "
                          "of the whole quorum silently erases the cluster "
                          "state")
+    ap.add_argument("--protocol-version", default=None,
+                    help="wire protocol version announced at hello "
+                         "(default: this build's)")
     args = ap.parse_args(argv)
 
-    # SIGTERM = the supervisor's clean-shutdown request: unwind through
-    # the same finally as Ctrl-C so the socket closes and traces flush
-    def _sigterm(_signo, _frame):
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, _sigterm)
+    # SIGTERM = the supervisor's clean-shutdown request: the serving loop
+    # ends at the end of its turn and the same finally as Ctrl-C follows,
+    # so the socket closes and traces flush (tools/server.py says why the
+    # handler does not raise)
+    stop_requested: list[int] = []
+    signal.signal(signal.SIGTERM, lambda _signo, _frame: stop_requested.append(_signo))
 
     from ..control.coordination import Coordinator
     from ..rpc.transport import NetDriver, RealNetwork
@@ -80,7 +86,7 @@ def main(argv=None) -> None:
         trace = TraceCollector(clock=loop.now, sink=sink,
                                min_severity=knobs.TRACE_SEVERITY)
     net = RealNetwork(loop, name="coordinator", ip=args.ip, port=args.port,
-                      trace=trace)
+                      trace=trace, protocol_version=args.protocol_version)
     if trace is not None:
         trace.machine = f"coord:{net.address.port}"
         spawn_wire_metrics(loop, trace, net.wire, knobs.METRICS_INTERVAL, "tcp")
@@ -107,7 +113,9 @@ def main(argv=None) -> None:
             f.write(f"{net.address.ip}:{net.address.port}\n")
         os.replace(tmp, args.ready_file)
     try:
-        NetDriver(loop, net).serve_forever(wall_timeout=args.run_seconds)
+        if not stop_requested:
+            NetDriver(loop, net).serve_forever(wall_timeout=args.run_seconds,
+                                               stop=lambda: bool(stop_requested))
     except KeyboardInterrupt:
         pass
     finally:

@@ -16,11 +16,13 @@ runtime is the same, only the clock driver differs (the Net2/Sim2 seam).
 Multi-OS-process deployment rides rpc/transport.py's real TCP fabric.
 
 Copy of the reference package's module, on the port's own modules, with
-one flag of its own: `--device` (default cuda) is the device of every
+two flags of its own: `--device` (default cuda) is the device of every
 resolver's conflict set (the port's DeviceConflictSet, RecoverableCluster's
 default backend), so the served cluster checks conflicts on the card.
 Without a card the server exits with the cluster's error before it serves;
-`--device cpu` runs the same sets on the CPU."""
+`--device cpu` runs the same sets on the CPU.  `--protocol-version` is the
+wire version its coordinator transport announces at hello (RealNetwork's
+`protocol_version=`; the reference reads an environment variable)."""
 
 from __future__ import annotations
 
@@ -39,6 +41,9 @@ def main(argv=None) -> None:
     ap.add_argument("--engine", choices=("memory", "ssd"), default="ssd")
     ap.add_argument("--workers", type=int, default=6)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--protocol-version", default=None,
+                    help="wire protocol version announced at hello to the "
+                         "coordinators (default: this build's)")
     ap.add_argument("--device", default="cuda",
                     help="device of the resolvers' conflict sets (cuda, a "
                          "cuda:N, or cpu)")
@@ -91,13 +96,14 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     # SIGTERM is the supervisor's clean-shutdown request (fdbmonitor's
-    # kill path): route it through the same KeyboardInterrupt unwind as
-    # Ctrl-C so trace sinks flush, sockets close and the restart image
-    # (if any) is saved before exit
-    def _sigterm(_signo, _frame):
-        raise KeyboardInterrupt
-
-    signal.signal(signal.SIGTERM, _sigterm)
+    # kill path): the serving loop ends at the end of its turn and the same
+    # unwind as Ctrl-C follows, so trace sinks flush, sockets close and the
+    # restart image (if any) is saved before exit.  (Raising from the
+    # handler, as the reference does, loses the request whenever the
+    # signal lands inside a task's step: the task keeps the exception as
+    # its error and the server serves on.)
+    stop_requested: list[int] = []
+    signal.signal(signal.SIGTERM, lambda _signo, _frame: stop_requested.append(_signo))
 
     from ..control.recoverable import RecoverableCluster
     from ..runtime.knobs import CoreKnobs
@@ -134,7 +140,8 @@ def main(argv=None) -> None:
         from ..runtime.core import EventLoop
 
         loop = EventLoop()
-        rnet = RealNetwork(loop, name=f"server-{args.seed}")
+        rnet = RealNetwork(loop, name=f"server-{args.seed}",
+                           protocol_version=args.protocol_version)
         _desc, coords = parse_cluster_file(args.cluster_file)
         cstate = CoordinatedState(
             loop,
@@ -265,7 +272,9 @@ def main(argv=None) -> None:
             f.write(f"127.0.0.1:{gw.port}\n")
         os.replace(tmp, args.ready_file)
     try:
-        driver.serve_forever(wall_timeout=args.run_seconds)
+        if not stop_requested:
+            driver.serve_forever(wall_timeout=args.run_seconds,
+                                 stop=lambda: bool(stop_requested))
     except KeyboardInterrupt:
         pass
     finally:

@@ -858,11 +858,34 @@ def test_served_phase_names_its_paths(small_served):
 
 
 def test_repro_part_fails_on_a_set_that_cannot_widen_to_16k(small_served, monkeypatch):
-    """With the widest width back at 512 bytes, the 10,000-byte key stops
-    the cluster's commits, and (a) fails."""
+    """With a ceiling back at 512 bytes (a widening past it refused as the
+    card refuses one it cannot hold), the 10,000-byte key stops the
+    cluster's commits, and (a) fails."""
     from foundationdb_tpu_torch import keys
 
-    monkeypatch.setattr(keys, "WIDEST_KEY_BYTES", 512)
+    grown = keys.grown_key_bytes
+
+    def capped(need):
+        if need > 512:
+            raise keys.KeyTooLongError(f"key of {need} bytes past the 512-byte cap")
+        return grown(need)
+
+    monkeypatch.setattr(keys, "grown_key_bytes", capped)
     with pytest.raises(Exception) as err:
         chip_smoke.repro_part(torch, small_served, "cpu", "cpu")
     assert type(err.value).__name__ in ("CommitUnknownResult", "NotCommitted")
+
+
+@pytest.mark.parametrize("W", [5, 17, 65])
+def test_prefixed_lanes_encode_the_prefixed_keys(W):
+    """Phase 3's wide inputs: each 16-byte key's row at W lanes is the
+    encoding of the common prefix followed by the key, and sentinel rows
+    stay sentinel."""
+    rng = np.random.default_rng(W)
+    keys_16 = [bytes(rng.integers(0, 256, 16, dtype=np.uint8)) for _ in range(40)]
+    rows = np.stack([keys.encode_keys(keys_16, 16), np.full((40, 5), SENT, np.uint32)])
+    got = chip_smoke.prefixed_lanes(torch, keys, rows, W, "cpu")
+    prefix = chip_smoke.PREFIX_WORD.to_bytes(4, "big") * (W - 5)
+    want = keys.encode_keys([prefix + k for k in keys_16], 4 * (W - 1))
+    assert np.array_equal(keys.from_lanes(got[0]), want)
+    assert bool((got[1] == keys.SENT_LANE).all())

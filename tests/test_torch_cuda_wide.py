@@ -5,10 +5,13 @@ and at the stream's (K = 8 runs of 16384 rows, main at 2**19 rows); at W =
 513 and 4097 (2048- and 16384-byte keys: fewer reads and queries a block,
 K1 without a run summary) at small shapes, with one run (K1's block a
 partial warp), and at the default set's (K = 8 runs of 4096 rows, main at
-2**16 rows); and the
+2**16 rows); at W = 32769 (131072-byte keys, past what a block's shared
+memory holds: K1 and K3 stage nothing, a warp a read or a query) at small
+shapes, with one run, and with 8 runs of 256 rows over 4096 main rows; the
 port's default set fed keys of 20 to 204 bytes on "cuda" against the same
 set on "cpu": identical verdicts and state after every batch, widening
-32 -> 64 -> 256 on both.
+32 -> 64 -> 256 on both; and a small set widened to 131072 bytes by a
+100,000-byte key on "cuda" against "cpu".
 
 Marked `gpu`: every test asks the `cuda` fixture, which skips when no CUDA
 device is present.  On a machine with the card:
@@ -113,6 +116,62 @@ def test_widest_kernels_equal_their_plain_versions(cuda, W, shape):
     got = kernels.run_to_step_runs(runs_b, runs_e, runs_ver)
     want = kernels.run_to_step_runs_plain(runs_b, runs_e, runs_ver)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", ["small", "one_run", "runs"])
+def test_kernels_past_shared_memory_equal_their_plain_versions(cuda, shape):
+    """W = 32769: K1's and K3's plans stage nothing (a warp a read, a warp
+    a query, every compare in global memory); both equal their plain
+    versions, K3's input unchanged by the launch."""
+    W = 32769
+    assert kernels.plan_probe(8, 256, W).staged == 0
+    assert kernels.plan_ranks(W).staged == 0
+    rng = np.random.default_rng(W)
+    K, run_cap, cap, R = {"small": (3, 64, 1 << 10, 200),
+                          "one_run": (1, 64, 1 << 10, 100),
+                          "runs": (8, 256, 1 << 12, 512)}[shape]
+    lanes = lambda a: keys.to_lanes(a, cuda)  # noqa: E731
+    runs_b_np, runs_e_np = _runs(rng, K, run_cap, W)
+    runs_b, runs_e = lanes(runs_b_np), lanes(runs_e_np)
+    runs_ver = torch.from_numpy(rng.integers(0, 12, K).astype(np.int32)).to(cuda)
+    reads = _sorted_rows(rng, R, W, R - 8)
+    rng.shuffle(reads)
+    hits = rng.integers(0, K * run_cap, R // 4)  # reads of the runs' own begins
+    reads[: R // 4] = runs_b_np.reshape(-1, W)[hits]
+    rb, re_ = lanes(reads), keys.with_last_lane_inc(lanes(reads))
+    snap = torch.from_numpy(rng.integers(0, 12, R).astype(np.int32)).to(cuda)
+    r_ok = torch.from_numpy(rng.random(R) < 0.9).to(cuda)
+    hist = torch.from_numpy(rng.random(R) < 0.05).to(cuda)
+    k1 = (rb, re_, snap, r_ok, runs_b, runs_e, runs_ver, hist)
+    got = kernels.probe_fused(*k1)
+    assert torch.equal(got, kernels.probe_fused_plain(*k1))
+    assert bool((got & ~hist).any())  # some read meets a run
+    ks = lanes(_sorted_rows(rng, cap, W, cap // 2))
+    rec, _ = kernels.run_to_step_plain(runs_b[0], runs_e[0], runs_ver[:1])
+    rec_before = rec.clone()
+    assert torch.equal(kernels.compact_ranks(ks, rec), kernels.compact_ranks_plain(ks, rec))
+    assert torch.equal(rec, rec_before)
+
+
+def test_set_widened_past_shared_memory_on_the_card_as_on_the_cpu(cuda):
+    """A 100,000-byte key widens a small default set to 131072 bytes (W =
+    32769) on "cuda" and on "cpu": the same verdicts and state after every
+    batch, compactions included."""
+    small = dict(capacity=1 << 8, run_slots=3, run_capacity=32)
+    sets = [tdev.DeviceConflictSet(**small, device=d) for d in (cuda, "cpu")]
+    long_key = b"L" * 100_000
+    version = 0
+    for i in range(8):
+        version += 2
+        txns = [TxInfo(max(version - 3, 0), [(long_key[: 99_990 + i], long_key + b"\x00")],
+                       [(long_key[: 99_995 + i], long_key[: 99_995 + i] + b"\x00")]),
+                TxInfo(max(version - 1, 0), [(b"a%d" % i, b"b")], [(b"a%d" % i, b"a%d\x00" % i)])]
+        got, want = (s.resolve_batch(version, txns) for s in sets)
+        assert got == want, version
+        a, b = (s.export_state() for s in sets)
+        assert all(np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a), version
+    assert [s.stats.key_bytes for s in sets] == [131072, 131072]
+    assert sets[0].stats.compactions >= 2
 
 
 def _long_stream(seed: int, lengths=(20, 31, 32, 33, 43, 204, None, None)):

@@ -363,7 +363,7 @@ def test_plan_probe_at_the_streams_shapes():
     """K1 at the stream's shapes: 128 reads x 8 runs a block, the
     summary every 512th begin (5 KB at W=5, 9 KB at W=9)."""
     assert kernels.plan_probe(8, 1 << 14, 5) == kernels.ProbePlan(
-        group_log2=3, stride_log2=9, n_sum=32, threads=1024, smem=10240)
+        group_log2=3, stride_log2=9, n_sum=32, threads=1024, smem=10240, staged=1)
     assert kernels.plan_probe(8, 1 << 14, 9).smem == 8 * 32 * 36 + 2 * 128 * 36
 
 
@@ -416,8 +416,9 @@ def test_plan_probe_windows_hold_the_rank(seed):
 def test_plan_probe_raises_where_no_summary_fits(K, run_cap, W):
     """Where no summary fits 40 KB even at the widest stride, K1 plans
     none (n_sum = 0: each read end is ranked against the whole run);
-    where the reads' rows outgrow the block, it stages fewer reads.  It
-    raises only where one read's two rows exceed a block."""
+    where the reads' rows outgrow the block, it stages fewer reads.  Where
+    one read's two rows exceed a block it stages nothing: a warp a read,
+    eight a block, no shared memory."""
     p = kernels.plan_probe(K, run_cap, W)
     summary = K * p.n_sum * W * 4
     assert summary <= kernels.PROBE_SUMMARY_BYTES
@@ -428,9 +429,12 @@ def test_plan_probe_raises_where_no_summary_fits(K, run_cap, W):
     assert p.smem == summary + 2 * reads * W * 4 <= kernels.SMEM_MAX
     most = min(kernels.PROBE_READS, kernels.PROBE_MAX_THREADS >> p.group_log2)
     assert reads == most or summary + 4 * reads * W * 4 > kernels.SMEM_MAX
+    assert p.staged == 1
     big = kernels.SMEM_MAX // 8 + 1
-    with pytest.raises(ValueError, match=f"K={K}, run_cap={run_cap}, W={big}"):
-        kernels.plan_probe(K, run_cap, big)
+    assert kernels.plan_probe(K, run_cap, big - 1).staged == 1
+    wide = kernels.plan_probe(K, run_cap, big)
+    assert wide.staged == 0 and wide.smem == 0 and wide.n_sum == 0
+    assert wide.threads == 32 * kernels.WIDE_WARPS
 
 
 @pytest.mark.parametrize("W", [2, 5, 9, 65, 300])
@@ -447,11 +451,13 @@ def test_plan_ranks(W):
 
 def test_plan_ranks_raises_where_the_queries_do_not_fit():
     """At W = 500 the 128 query rows outgrow a block, so a block takes 64;
-    where not even one query row fits, the plan raises."""
+    where not even one query row fits, the plan stages nothing: a warp a
+    query, eight a block."""
     p = kernels.plan_ranks(500)
     assert p.queries == 64 and p.span_rows == 0 and p.smem <= kernels.SMEM_MAX
-    with pytest.raises(ValueError, match="W=20000"):
-        kernels.plan_ranks(20000)
+    assert p.staged == 1
+    assert kernels.plan_ranks(20000) == kernels.RanksPlan(
+        span_rows=0, smem=0, queries=kernels.WIDE_WARPS, staged=0)
 
 
 def test_wrappers_take_plain_only_on_cpu_and_reject_other_devices():

@@ -22,8 +22,13 @@ stay those of the reference's DeviceConflictSet built wide from the start.
   clusters, on a small device set given through `conflict_backend=`,
   commit keys of 600 and 10,000 bytes and short keys after them at the
   reference's versions and virtual times.
-- Past keys.WIDEST_KEY_BYTES (16384) the set raises KeyTooLongError and
-  its state is unchanged."""
+- No fixed ceiling: K1's and K3's planners take every power-of-two width
+  up to W = 131073 without raising (past shared memory they stage
+  nothing); the C.1 repro at a 16385-byte key commits on both default
+  clusters at the reference's versions; a set widened to 131072 bytes by a
+  100,000-byte key equals a set built at 131072 bytes and the oracle; and
+  a widening whose allocation fails halfway raises KeyTooLongError with
+  the state, `widenings` and `key_bytes` unchanged."""
 
 import gc
 import random
@@ -206,48 +211,74 @@ def test_widen_lanes_inserts_zero_words_and_keeps_sentinel_rows():
 
 def test_kernels_plan_every_grown_width():
     """K1's and K3's launch planners take every width a set can grow to,
-    up to 16384 bytes, at the stream's shapes and at the default set's;
-    past W = 4097 K1 runs without a summary, and both refuse a width
-    where one read's or one query's rows exceed a block."""
-    assert tkeys.WIDEST_KEY_BYTES == 16384
-    wide = 32
-    while wide <= tkeys.WIDEST_KEY_BYTES:
+    every power of two of bytes up to 512 KB (W = 131073), at the stream's
+    shapes and at the default set's, and never raise; past W = 4097 K1
+    runs without a summary, and where one read's or one query's rows
+    exceed a block both plan a kernel that stages nothing."""
+    wide, staged = 32, {}
+    while wide <= 1 << 19:
         W = tkeys.num_words(wide)
         for run_cap in (1 << 14, 1 << 12):
             p = kernels.plan_probe(8, run_cap, W)
-            assert p.smem <= kernels.SMEM_MAX and p.threads >= 32
+            assert p.smem <= kernels.SMEM_MAX and p.threads >= 1 << p.group_log2
+            assert p.staged or (p.smem == 0 and p.n_sum == 0)
         r = kernels.plan_ranks(W)
         assert r.smem <= kernels.SMEM_MAX and r.queries >= 1
+        assert r.staged or (r.smem == 0 and r.span_rows == 0)
+        staged[W] = (p.staged, r.staged)
         wide *= 2
-    W = tkeys.num_words(tkeys.WIDEST_KEY_BYTES)
+    assert max(staged) == 131073
+    # the last widths that stage, and the first that do not
+    assert staged[16385] == (1, 1) and staged[32769] == (0, 0)
+    W = tkeys.num_words(16384)
     assert kernels.plan_probe(8, 1 << 12, W).n_sum == 0
     assert kernels.plan_ranks(W).queries == 8
     assert kernels.plan_ranks(W).span_rows == 0
-    with pytest.raises(ValueError):
-        kernels.plan_probe(8, 1 << 12, 30000)
-    with pytest.raises(ValueError):
-        kernels.plan_ranks(20000)
+    wide_probe = kernels.plan_probe(8, 1 << 12, 30000)
+    assert (wide_probe.staged, wide_probe.smem, wide_probe.n_sum) == (0, 0, 0)
+    assert kernels.plan_ranks(20000) == kernels.RanksPlan(0, 0, kernels.WIDE_WARPS, 0)
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
-def test_a_key_past_the_widest_width_raises_and_changes_nothing(layout):
+def test_a_key_past_the_widest_width_raises_and_changes_nothing(layout, monkeypatch):
+    """The card's memory is the only ceiling: a widening whose allocation
+    fails halfway (the second buffer, forced) raises KeyTooLongError that
+    names the width and the bytes asked, and the set keeps its state,
+    `widenings` and `key_bytes`; with the allocation back, the same
+    batches widen the set and commit."""
     port = tdev.DeviceConflictSet(**LAYOUTS[layout], **SMALL, device="cpu")
     port.resolve_batch(5, [TxInfo(0, [], [(b"a" * 40, b"b")])])
     before = port.export_state()
-    too_long = b"k" * (tkeys.WIDEST_KEY_BYTES + 1)
+    stats = (port.stats.widenings, port.stats.key_bytes)
+    too_long = b"k" * 20000
+    real, calls = tkeys.widen_lanes, []
+
+    def fails_second(rows, W):
+        calls.append(W)
+        if len(calls) % 2 == 0:
+            raise torch.OutOfMemoryError("forced: no memory for the widened rows")
+        return real(rows, W)
+
+    monkeypatch.setattr(tkeys, "widen_lanes", fails_second)
     for txn in (TxInfo(4, [(b"a", too_long)], []),
                 TxInfo(4, [], [(too_long, too_long + b"\x00")])):
-        with pytest.raises(tkeys.KeyTooLongError):
+        with pytest.raises(tkeys.KeyTooLongError, match="32768-byte keys .W = 8193. asks"):
             port.resolve_batch(9, [txn])
         with pytest.raises(tkeys.KeyTooLongError):
             port.resolve_deferred(9, [txn])
         assert_state_equal(before, port.export_state(), "after the raise")
-    # an empty range and a TOO_OLD transaction encode nothing: no raise
+        assert (port.stats.widenings, port.stats.key_bytes) == stats
+    assert set(calls) == {8193}
+    monkeypatch.setattr(tkeys, "widen_lanes", real)
+    # an empty range and a TOO_OLD transaction encode nothing: no widening
     port.remove_before(2)
     assert port.resolve_batch(9, [TxInfo(4, [(too_long, b"a")], []),
                                   TxInfo(1, [(b"a", too_long)], [])]) == [
         Verdict.COMMITTED, Verdict.TOO_OLD]
     assert port.stats.key_bytes == 64
+    assert port.resolve_batch(11, [TxInfo(9, [(b"a", too_long)], [])]) == [
+        Verdict.COMMITTED]
+    assert port.stats.key_bytes == 32768 and port.stats.widenings == stats[0] + 1
 
 
 CLUSTER_KEYS = [20, 31, 32, 43, 203, 10]
@@ -345,7 +376,7 @@ def test_default_clusters_commit_keys_of_10000_bytes(kind):
     commits, back = results["port"]
     assert all(isinstance(v, int) for _n, v, _t in commits), commits
     assert back == [b"v%d" % n for n in HUGE_KEYS]
-    assert max(s.stats.key_bytes for s in sets) == tkeys.WIDEST_KEY_BYTES
+    assert max(s.stats.key_bytes for s in sets) == 16384
 
 
 # endpoint lengths of the widest stream: 600 -> 1024 bytes, then 10,000
@@ -371,11 +402,10 @@ def test_set_widened_to_16384_bytes_equals_the_oracle_and_a_set_built_wide():
     """A set from 32 bytes widens to 1024 and then 16384 bytes (W = 4097):
     every batch's verdicts equal the oracle's and a set built at 16384
     bytes; its state, widened by the same insert, equals that set's."""
-    W = tkeys.num_words(tkeys.WIDEST_KEY_BYTES)
+    W = tkeys.num_words(16384)
     oracle = OracleConflictSet()
     port = tdev.DeviceConflictSet(**TINY_SET, device="cpu")
-    built = tdev.DeviceConflictSet(max_key_bytes=tkeys.WIDEST_KEY_BYTES, **TINY_SET,
-                                   device="cpu")
+    built = tdev.DeviceConflictSet(max_key_bytes=16384, **TINY_SET, device="cpu")
     widths, verdicts = [], set()
     for version, txns in _huge_stream(8):
         want = oracle.resolve_batch(version, txns)
@@ -388,3 +418,105 @@ def test_set_widened_to_16384_bytes_equals_the_oracle_and_a_set_built_wide():
     assert verdicts == {Verdict.COMMITTED, Verdict.CONFLICT}
     assert widths == [32, 1024, 16384, 16384, 16384]
     assert port.stats.widenings == 2
+
+
+# ROADMAP C.1's repro past 16 KB: a 16385-byte key (its key_after end
+# 16386 bytes, so the set widens to 32768 bytes, W = 8193), then a
+# 12-byte key
+PAST_16K_KEYS = [16385, 12]
+PAST_16K_VERSIONS = {"sim": [11190, 21443], "recoverable": [1051972, 1081591]}
+
+
+@pytest.mark.parametrize("kind", ["sim", "recoverable"])
+def test_default_clusters_commit_keys_past_16384_bytes(kind):
+    """C.1 without a ceiling: on both default clusters, the port's
+    resolvers hosting its device set (small, through conflict_backend=),
+    the 16385-byte key and the 12-byte key after it commit at the
+    reference's versions and virtual times and read back; the set widened
+    to 32768 bytes."""
+    sets = []
+
+    def tiny(oldest=0):
+        sets.append(tdev.DeviceConflictSet(oldest, **TINY_SET, device="cpu"))
+        return sets[-1]
+
+    results = {}
+    for name, mod, kw in (
+        ("ref", jrecoverable if kind == "recoverable" else jcluster, {}),
+        ("port", trecoverable if kind == "recoverable" else tcluster,
+         dict(conflict_backend=tiny)),
+    ):
+        gc.collect()
+        gc.disable()
+        try:
+            cls = mod.RecoverableCluster if kind == "recoverable" else mod.SimCluster
+            c = cls(seed=1, **kw)
+            try:
+                results[name] = _commit_keys(c, PAST_16K_KEYS)
+            finally:
+                c.stop()
+        finally:
+            gc.enable()
+    assert results["port"] == results["ref"]
+    commits, back = results["port"]
+    assert [v for _n, v, _t in commits] == PAST_16K_VERSIONS[kind]
+    assert back == [b"v%d" % n for n in PAST_16K_KEYS]
+    assert max(s.stats.key_bytes for s in sets) == 32768
+
+
+def _key_of(n: int, tail: int) -> bytes:
+    return b"L" * (n - 2) + b"%02d" % tail
+
+
+def _past_shared_memory_stream(seed: int):
+    """Batches of keys near 100,000 bytes (ends up to 100,001: the set
+    widens to 131072 bytes, W = 32769) mixed with short keys, conflicts
+    both ways, GC once."""
+    rng = random.Random(seed)
+    version = 0
+    for i in range(5):
+        version += rng.randrange(1, 4)
+        txns = []
+        for _ in range(rng.randrange(2, 5)):
+            snap = rng.randrange(max(version - 6, 0), version)
+
+            def pick():
+                if i == 0 or rng.random() < 0.4:
+                    k = _rand_key(rng)
+                    return k, k + b"\x00"
+                a, b = sorted((_key_of(100_000, rng.randrange(8)),
+                               _key_of(99_990 + rng.randrange(8), rng.randrange(8))))
+                return (a, b) if a < b else (a, a + b"\x00")
+
+            txns.append(TxInfo(snap, [pick() for _ in range(rng.randrange(3))],
+                               [pick() for _ in range(rng.randrange(1, 3))]))
+        yield version, txns, (version - 4 if i == 2 else None)
+
+
+def test_set_widened_to_131072_bytes_equals_a_set_built_wide_and_the_oracle():
+    """A set from 32 bytes widens to 131072 bytes (W = 32769, past what a
+    K1 or K3 block's shared memory holds) on a 100,000-byte key: every
+    batch's verdicts equal the oracle's and those of a set built at 131072
+    bytes, and its state, widened by the same insert, equals that set's.
+    (The reference's set built at 131072 bytes does not finish compiling
+    its first batch's 32769-operand lexsort in minutes on a CPU, so the set
+    built wide is the port's; the 256-byte tests above hold the widening
+    itself against the reference's set built wide at 256 bytes.)"""
+    W = tkeys.num_words(131072)
+    oracle = OracleConflictSet()
+    port = tdev.DeviceConflictSet(**TINY_SET, device="cpu")
+    built = tdev.DeviceConflictSet(max_key_bytes=131072, **TINY_SET, device="cpu")
+    widths, verdicts = [], set()
+    for version, txns, floor in _past_shared_memory_stream(4):
+        want = oracle.resolve_batch(version, txns)
+        assert port.resolve_batch(version, txns) == want, version
+        assert built.resolve_batch(version, txns) == want, version
+        assert_state_equal(built.export_state(), widened(port.export_state(), W), version)
+        widths.append(port.stats.key_bytes)
+        verdicts.update(want)
+        if floor is not None:
+            for s in (oracle, port, built):
+                s.remove_before(floor)
+    assert verdicts == {Verdict.COMMITTED, Verdict.CONFLICT}
+    assert widths[0] == 32 and widths[-1] == 131072
+    assert port.stats.widenings == 1 and port.stats.compactions >= 1
