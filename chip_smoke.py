@@ -80,7 +80,11 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               vs_baseline, p50/p99 and the resolver e2e rate; its
               page_cache (preads saved), metrics_series (ResolverMetrics
               samples of 2 resolvers on the card, their launches) and
-              commit_wire (bytes, frames a flush) blocks present;
+              commit_wire (bytes, frames a flush) blocks present; its
+              kernel.phase (the post batches' sort / scan / merge /
+              compact ms, backend cuda) and kernel.phase_profile
+              (phase_timings at its small shapes, conforming to
+              PHASE_PROFILE_SCHEMA) blocks;
  11. legacy   phase 4's stream through the legacy layouts
               (incremental=False): the flat full merge once per merge_impl
               (scatter, sort, gather) and the LSM recent level (scatter).
@@ -288,6 +292,25 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               through the port's Cli on "cuda", K1-K4 launched, every
               printed line equal to a spawned "cpu" twin's.  (d) `python -m
               foundationdb_tpu_torch.tools.flowlint` exits 0 on the tree.
+ 21. root scripts  the ports of the repository root's scripts.  (a)
+              phase_timings.collect() at the reference's full shapes on the
+              card: the report conforms (backend cuda), K1/K2 once a
+              prefill batch of its two sets, K2 once a call of every
+              truncation from +intra on, K3 once a compaction call; the
+              ladder, the LSM amortisation and the merge shootout printed;
+              then every truncation's and merge's digest at the small
+              shapes, runs pending and folded, equal on cuda and on "cpu"
+              (a spawned twin, started after the timed run).  (b) profile_kernel's primitive table at
+              its shapes (CAP = 2**19, R = 16384, Wn = 8192), every row
+              and the WHOLE resolve_core row printed, K2 once a call of
+              the latter.  (c) the profile2 table.  (d) graft_entry:
+              entry() on cuda equals entry(device="cpu") output for output
+              (verdicts, state, count, buckets, convergence, iterations),
+              and dryrun_multichip(4) passes with its [multichip] lines,
+              the partitions on the card(s), K1-K4 launched.  (e)
+              bench_debug at the bench's shapes: K1/K2 once a batch, K4
+              once and K3 once a run at the compaction, each batch's
+              verdict sum equal to a synchronous run's on the same batches.
 
 Each path is driven with the launch counts set to 0 just before it and read
 just after.  Prints each phase's seconds, the kernels' JSON line
@@ -300,8 +323,9 @@ included: phase 15's as `cluster_a`, `cluster_b`, `cluster_c_cuda`, phase
 `readback_drill`, `long_keys`, phase 19's as `long_keys_16k`, `served` (the
 server process's own counts), `saturate`, `soak` (the workers' summed), phase
 20's as `bounce` (the server processes' counts summed, each read just before
-its process was bounced or stopped) and `cli`, and phase 10's bench probe
-as `bench_metrics_series`; K1, K3
+its process was bounced or stopped) and `cli`, phase 21's as
+`phase_timings`, `primitives`, `graft_entry`, `graft_dryrun` and
+`bench_debug`, and phase 10's bench probe as `bench_metrics_series`; K1, K3
 and K4 carry phase 3's wide checks under `wide`), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
@@ -1674,6 +1698,8 @@ def bench_phase(fdb, power):
     kernels.reset_launches()
     doc = bench.run_headline("cuda")
     launches = dict(kernels.launches)
+    # the phase profile block, as bench.run adds it (its launches on no path)
+    doc["kernel"]["phase_profile"] = bench.phase_profile_probe("cuda", "small")
     # the bench's probes, as bench.run adds them; the metrics_series
     # probe's cluster launches on its own resolvers' sets, counted alone
     doc["page_cache"] = bench.page_cache_probe()
@@ -1686,6 +1712,12 @@ def bench_phase(fdb, power):
     require(k["parity_batches"] == bench.TIMED_BATCHES
             and k["e2e_parity_batches"] == bench.E2E_BATCHES + 2 and doc["value"] > 0,
             f"bench: {doc}")
+    phase, profile = k["phase"], k["phase_profile"]
+    require(k["phase_backend"] == CARD and min(phase.values()) >= 0
+            and min(phase["sort_ms"], phase["scan_ms"], phase["merge_ms"]) > 0
+            and not fdb["status"].check_phase_profile(profile)
+            and profile["backend"] == CARD and profile["small"],
+            f"bench: phase {phase}, phase_profile {profile}")
     pc, wire = doc["page_cache"], doc["commit_wire"]
     require(series["ResolverMetrics"] and probe_launches["probe_fused"] > 0
             and probe_launches["intra_fixpoint"] > 0
@@ -1713,6 +1745,10 @@ def bench_phase(fdb, power):
         f"card (launches {json.dumps(probe_launches)}); commit_wire {wire['bytes']} B, "
         f"encode {wire['encode_ms']} ms, decode {wire['decode_ms']} ms, "
         f"{wire['frames_per_flush']} frames a flush")
+    log(f"bench: phase (the post batches) {json.dumps(phase)}; phase_profile (small) "
+        f"cumulative_ms {json.dumps(profile['cumulative_ms'])}, lsm "
+        f"{json.dumps(profile['lsm'])}, merge shootout "
+        f"{json.dumps(profile['merge_shootout_ms'])}")
     log(f"bench: launches {json.dumps(launches)}")
     return launches, probe_launches
 
@@ -4735,10 +4771,164 @@ def supervised_cluster_phase(torch, fdb, power) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the root scripts' ports (phase_timings, profile_kernel's
+# primitive table, profile2, graft_entry, bench_debug)
+
+PHASE_REPS = 5  # phase_timings.collect()'s repetitions at its full shapes
+ROOT_PATHS = ("phase_timings", "primitives", "graft_entry", "graft_dryrun", "bench_debug")
+
+
+def phase_digests(device: str) -> dict:
+    """phase_timings' truncation digests at its small shapes on `device`:
+    on the sets as the reference profiles them (runs pending), then with
+    the runs folded into main.  The "cpu" run is (a)'s twin, in the twin
+    pool's process."""
+    import torch
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    pt = port_modules()["phase_timings"]
+    p = pt.prepare(small=True, device=device)
+    out = {"pending": pt.digests(p)}
+    p.flat._compact_runs()
+    p.lsm._compact_runs()
+    out["compacted"] = pt.digests(p)
+    return out
+
+
+def phase_timings_part(torch, fdb, power) -> tuple:
+    """(a): collect() at its full shapes on the card.  The report conforms
+    to PHASE_PROFILE_SCHEMA with backend cuda; K1 and K2 once a prefill
+    batch of its two sets, K2 once a call of each truncation from +intra on
+    (one untimed call and PHASE_REPS timed), K3 once a compaction call.
+    Returns (launches, the report)."""
+    kernels, pt = fdb["kernels"], fdb["phase_timings"]
+    kernels.reset_launches()
+    report = pt.collect(device=CARD, reps=PHASE_REPS)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    problems = fdb["status"].check_phase_profile(report)
+    require(not problems and report["backend"] == CARD and not report["small"],
+            f"root (a): the phase profile does not conform: {problems}")
+    prefill = fdb["bench"].PREFILL_BATCHES
+    require_launches(launches, {"probe_fused": 2 * prefill,
+                                "intra_fixpoint": 2 * prefill + 3 * (PHASE_REPS + 1),
+                                "compact_ranks": 4, "run_to_step": 0, "probe": 0,
+                                "intra_query": 0}, "root (a) phase_timings")
+    log(f"root (a) phase_timings at cap {report['cap']}, {report['shapes']}: "
+        f"cumulative_ms {json.dumps(report['cumulative_ms'])}; phases_ms "
+        f"{json.dumps(report['phases_ms'])}; intra_iters {report['intra_iters']}; "
+        f"rtt_ms {report['rtt_ms']:.4f}; lsm {json.dumps(report['lsm'])}; merge shootout "
+        f"{json.dumps(report['merge_shootout_ms'])}; on {power}")
+    return launches, report
+
+
+def bench_debug_sync(fdb) -> list:
+    """bench_debug's stream through a set of its own, every batch
+    synchronous: the timed batches' padded verdict sums."""
+    bd, bench, tdev = fdb["bench_debug"], fdb["bench"], fdb["device"]
+    words, pre, timed = bd.stream(bench.TXNS_PER_BATCH, bench.PREFILL_BATCHES)
+    cs = tdev.DeviceConflictSet(max_key_bytes=bench.MAX_KEY_BYTES, capacity=bench.CAP,
+                                device=CARD)
+    for b in pre:
+        cs.resolve_arrays(b["version"], *bench.device_pack(words, b, tdev._bucket))
+    return [int(cs.resolve_arrays(b["version"], *bench.device_pack(words, b, tdev._bucket))
+                .sum()) for b in timed]
+
+
+def root_scripts_phase(torch, fdb, power) -> dict:
+    """Phase 21.  (a)'s cpu twin runs in a spawned process beside the cuda
+    digests, after the timed run: the truncations are bound by the host's
+    launches, and a process starting beside them slows them.  Returns
+    {path: launches}."""
+    kernels, pk, ge, bd = (fdb["kernels"], fdb["profile_kernel"], fdb["graft_entry"],
+                           fdb["bench_debug"])
+    paths = {}
+    t = time.perf_counter()
+    paths["phase_timings"], _report = phase_timings_part(torch, fdb, power)
+    with twin_pool() as pool:
+        twin = pool.submit(phase_digests, "cpu")
+        got = phase_digests(CARD)
+        want = twin.result()
+    require(got == want, f"root (a): the truncation digests differ, cuda {got}, cpu {want}")
+    log(f"root (a): {time.perf_counter() - t:.1f} s; the digests of every truncation and "
+        f"merge at the small shapes equal on cuda and cpu, runs pending and folded: "
+        f"{json.dumps(got)}")
+
+    t = time.perf_counter()
+    kernels.reset_launches()
+    rows = pk.primitive_table(CARD, pk.TABLE_SHAPES)
+    torch.cuda.synchronize()
+    paths["primitives"] = dict(kernels.launches)
+    require([label for label, _ms in rows] == [r[0] for r in pk.PRIMITIVES],
+            f"root (b): rows {rows}")
+    # K2 runs once a call of the WHOLE row: one untimed call and 3 timed
+    require_launches(paths["primitives"], {"intra_fixpoint": 4, "probe_fused": 0,
+                                           "compact_ranks": 0, "run_to_step": 0},
+                     "root (b) primitives")
+    log(f"root (b) primitive table: {time.perf_counter() - t:.1f} s; "
+        f"{json.dumps(dict(rows))} ms on {power}")
+
+    t = time.perf_counter()
+    rows = fdb["profile2"].run(CARD)
+    require(all(np.isfinite(ms) for _label, ms in rows), f"root (c): {rows}")
+    log(f"root (c) profile2: {time.perf_counter() - t:.1f} s; {json.dumps(dict(rows))} ms "
+        f"on {power}")
+
+    t = time.perf_counter()
+    kernels.reset_launches()
+    fn, args = ge.entry(CARD)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    paths["graft_entry"] = dict(kernels.launches)
+    cfn, cargs = ge.entry("cpu")
+    for i, (a, b) in enumerate(zip(out, cfn(*cargs), strict=True)):
+        require(torch.equal(a.cpu(), b), f"root (d): entry() output {i} differs on cuda")
+    require_launches(paths["graft_entry"], {"intra_fixpoint": 1, "probe_fused": 0},
+                     "root (d) entry")
+    kernels.reset_launches()
+    ge.dryrun_multichip(SHARDS, CARD)
+    torch.cuda.synchronize()
+    paths["graft_dryrun"] = dict(kernels.launches)
+    require(all(paths["graft_dryrun"][k] > 0 for k in MAIN_PATH),
+            f"root (d): the dry run launched {paths['graft_dryrun']}")
+    log(f"root (d) graft entry: {time.perf_counter() - t:.1f} s; entry() on cuda equals "
+        f"entry(device='cpu') (verdicts {out[0][:4].tolist()}, {int(out[6])} fixpoint "
+        f"iterations); dryrun_multichip({SHARDS}) OK, {SHARDS} partitions on "
+        f"{torch.cuda.device_count()} card(s), launches {json.dumps(paths['graft_dryrun'])}")
+
+    t = time.perf_counter()
+    bench = fdb["bench"]
+    kernels.reset_launches()
+    batches = bd.run(CARD, txns=bench.TXNS_PER_BATCH, cap=bench.CAP,
+                     prefill=bench.PREFILL_BATCHES)
+    torch.cuda.synchronize()
+    paths["bench_debug"] = dict(kernels.launches)
+    n = bench.PREFILL_BATCHES + bd.TIMED
+    # the default set folds its 8 runs at the first timed batch: K4 once,
+    # K3 once a run
+    require_launches(paths["bench_debug"], {"probe_fused": n, "intra_fixpoint": n,
+                                            "run_to_step": 1, "compact_ranks": 8},
+                     "root (e) bench_debug")
+    sync = bench_debug_sync(fdb)
+    got = [b["verdict_sum"] for b in batches]
+    require(got == sync, f"root (e): verdict sums {got}, synchronous {sync}")
+    log(f"root (e) bench_debug: {time.perf_counter() - t:.1f} s; verdict sums {got} equal "
+        f"the synchronous run's; dispatch ms {[round(b['dispatch_ms'], 3) for b in batches]}, "
+        f"execute+fetch ms {[round(b['execute_ms'], 3) for b in batches]} on {power}")
+    for k in MAIN_PATH:
+        require(sum(p[k] for p in paths.values()) > 0,
+                f"root: {k} launched on none of {ROOT_PATHS}")
+    return paths
+
+
 def port_modules() -> dict:
     """The port's modules the phases drive, by the names they use."""
     sys.path.insert(0, str(ROOT))
-    from foundationdb_tpu_torch import bench, cluster, keys
+    from foundationdb_tpu_torch import (
+        bench, bench_debug, cluster, graft_entry, keys, phase_timings, profile2,
+        profile_kernel)
     from foundationdb_tpu_torch.conflict import (
         _build, device, kernels, native, oracle, pipeline, supervisor)
     from foundationdb_tpu_torch.conflict.api import TxInfo, Verdict
@@ -4768,6 +4958,8 @@ def port_modules() -> dict:
                 consistency=consistency, spec=spec, gateway=gateway,
                 gateway_client=gateway_client, cluster_file=cluster_file,
                 saturate=saturate, soak=soak, bounce=bounce, cli=cli, fdbtop=fdbtop,
+                phase_timings=phase_timings, profile_kernel=profile_kernel,
+                profile2=profile2, bench_debug=bench_debug, graft_entry=graft_entry,
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
@@ -4891,6 +5083,9 @@ def main() -> int:
     t = time.perf_counter()
     new_paths.update(supervised_cluster_phase(torch, fdb, power))
     log(f"supervised cluster phase: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    new_paths.update(root_scripts_phase(torch, fdb, power))
+    log(f"root scripts phase: {time.perf_counter() - t:.1f} s")
 
     log(f"total: {time.perf_counter() - t_start:.1f} s on {power}")
     by_path = {"flat": launches, "referee": referee_launches}

@@ -2,6 +2,7 @@
 CUDA card against the native CPU skip list, with abort-set parity.
 
     python -m foundationdb_tpu_torch.bench     # needs one CUDA card
+    python -m foundationdb_tpu_torch.bench --phase-profile {small,full,off}
 
 The counterpart of the reference package's root `bench.py` headline path,
 with the same stream and constants: history pre-populated to ~64K live
@@ -20,7 +21,12 @@ marshalling is not what is compared):
     check_pipelined();
   * parity: every timed batch's verdicts equal the native set's, or the
     run exits non-zero;
-  * a synchronous pass over 6 more batches gives the per-batch p50/p99;
+  * a synchronous pass over 6 more batches gives the per-batch p50/p99,
+    and, with phase timing on for those batches only, the per-phase split
+    (`kernel.phase`: sort_ms, scan_ms, merge_ms, compact_ms);
+  * `kernel.phase_profile`: phase_timings.collect() in this process (the
+    truncation ladder, the LSM amortisation, the merge shootout), at its
+    reduced shapes unless --phase-profile says full or off;
   * resolver end to end: 6 batches of TxInfo through PipelinedPacker +
     BatchStager into resolve_arrays(sync=False), host packing included;
     its verdicts, warm batches included, must equal the native set's on
@@ -75,6 +81,7 @@ MAX_KEY_BYTES = 16
 KEY_POOL = 1 << 20
 WINDOW = PREFILL_BATCHES + TIMED_BATCHES + 2  # no GC mid-run: window covers it
 CAP = 1 << 19
+REC_CAP = 1 << 17  # LSM recent level: ~8 batches (2*8192 boundaries each)
 SEED = 20260729
 # the reference bench's BEST_KNOWN (search, merge, lsm, incremental) =
 # (bucket, scatter, True, True); scatter folds and the incremental layout
@@ -271,16 +278,38 @@ def _resolver_e2e(dev: torch.device, n_batches: int, n_txns: int, set_args: dict
 
 
 def run(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY_POOL,
-        cap: int = CAP, run_capacity: int = BEST_KNOWN["run_capacity"]) -> dict:
+        cap: int = CAP, run_capacity: int = BEST_KNOWN["run_capacity"],
+        phase_profile: str = "small") -> dict:
     """The whole bench on `device` (CUDA unless the caller asks for the
     CPU, where the check runs its plain torch versions: the tests' small
-    shapes): the headline, then the reference's three probes as blocks of
-    the same document.  Raises on any failure, and SystemExit on a parity
-    mismatch."""
+    shapes): the headline with its phase profile (`phase_profile`:
+    "small", "full" or "off"), then the reference's three probes as blocks
+    of the same document.  Raises on any failure, and SystemExit on a
+    parity mismatch."""
     doc = run_headline(device, txns=txns, key_pool=key_pool, cap=cap,
                        run_capacity=run_capacity)
+    if phase_profile != "off":
+        doc["kernel"]["phase_profile"] = phase_profile_probe(device, phase_profile, txns)
     return dict(doc, page_cache=page_cache_probe(), commit_wire=commit_wire_probe(),
                 metrics_series=metrics_series_probe(tdev.resolve_device(device)))
+
+
+def phase_profile_probe(device=None, mode: str = "small",
+                        txns: int = TXNS_PER_BATCH) -> dict:
+    """The kernel.phase_profile block: phase_timings.collect() in this
+    process ("small": the reduced shapes; "full": the reference's), with
+    the bench's transactions a batch.  Raises when the report does not
+    conform to PHASE_PROFILE_SCHEMA."""
+    from . import phase_timings
+    from .control.status import check_phase_profile
+
+    if mode not in ("small", "full"):
+        raise ValueError(f"phase_profile must be small, full or off, not {mode!r}")
+    report = phase_timings.collect(small=mode == "small", device=device, txns=txns)
+    problems = check_phase_profile(report)
+    if problems:
+        raise RuntimeError(f"phase profile does not conform: {problems}")
+    return report
 
 
 def run_headline(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY_POOL,
@@ -343,12 +372,17 @@ def run_headline(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY
     _check_parity("timed", nat_verdicts, dev_verdicts)
 
     # ---------------- per-batch latency ----------------
+    # each post batch's wall alone, and with phase timing on for just these
+    # batches, the per-phase sort/scan/merge split (each phase its own
+    # dispatch, waited out; the timed stream above stayed fused)
     sync_ms = []
+    cs._phase_timing = True
     for b in post:
         packed = device_pack(pool_words, b, tdev._bucket)
         t0 = time.perf_counter()
         cs.resolve_arrays(b["version"], *packed)
         sync_ms.append((time.perf_counter() - t0) * 1e3)
+    cs._phase_timing = False
     snap = cs.kernel_stats()
     kernel = {
         "occupancy": round(snap["occupancy"], 4),
@@ -367,6 +401,8 @@ def run_headline(device=None, *, txns: int = TXNS_PER_BATCH, key_pool: int = KEY
         "merge_impl": snap["merge_impl"],
         "native_checks_per_sec": round(native_rate, 1),
         "parity_batches": len(timed),
+        "phase": {k: round(v, 2) for k, v in snap["phase"].items()},
+        "phase_backend": dev.type,
     }
 
     # ---------------- resolver e2e (input pipeline) ----------------
@@ -610,9 +646,16 @@ def wire_flush_probe(n_frames: int = 64) -> dict:
         b.close()
 
 
-def main() -> None:
-    print(json.dumps(run()))
+def main(argv=()) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="python -m foundationdb_tpu_torch.bench",
+                                 description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phase-profile", choices=("small", "full", "off"), default="small",
+                    help="the kernel.phase_profile block's shapes, or none")
+    args = ap.parse_args(list(argv))
+    print(json.dumps(run(phase_profile=args.phase_profile)))
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -20,6 +20,7 @@ import torch
 
 import bench as ref_bench
 from foundationdb_tpu_torch import bench
+from foundationdb_tpu_torch.control.status import check_phase_profile
 from tests.torch_threads import one_torch_thread  # noqa: F401  (the probes' cluster)
 
 REPO_ROOT = Path(__file__).resolve().parent.parent
@@ -29,7 +30,7 @@ PORT = REPO_ROOT / "foundationdb_tpu_torch"
 def test_constants_match_the_reference():
     for name in ("TXNS_PER_BATCH", "READS_PER_TXN", "TIMED_BATCHES",
                  "PREFILL_BATCHES", "KEY_BYTES", "MAX_KEY_BYTES", "KEY_POOL",
-                 "WINDOW", "CAP", "SEED"):
+                 "WINDOW", "CAP", "REC_CAP", "SEED"):
         assert getattr(bench, name) == getattr(ref_bench, name), name
     search, merge, lsm, incremental = ref_bench.BEST_KNOWN
     assert (bench.BEST_KNOWN["search_impl"], bench.BEST_KNOWN["lsm"]) == (search, lsm)
@@ -64,8 +65,11 @@ def test_packers_match_the_reference():
 def test_run_small_on_cpu_passes_parity():
     """The whole bench at a small size on the CPU: the native set and the
     port's best-known set agree on all 16 timed batches (a mismatch would
-    be a SystemExit), and the document is one well-formed JSON object."""
-    doc = bench.run("cpu", txns=64, key_pool=1 << 10, cap=1 << 11, run_capacity=128)
+    be a SystemExit), and the document is one well-formed JSON object,
+    with the reference's phase blocks: the post batches' phase split and
+    the embedded phase profile, which conforms to its schema."""
+    doc = bench.run("cpu", txns=64, key_pool=1 << 10, cap=1 << 11, run_capacity=128,
+                    phase_profile="small")
     line = json.dumps(doc)
     assert json.loads(line) == doc and "\n" not in line
     assert doc["metric"] == "occ_conflict_checks_per_sec_cpu_64k_live_ranges"
@@ -79,6 +83,25 @@ def test_run_small_on_cpu_passes_parity():
     assert k["resolve_ms_p50"] <= k["resolve_ms_p99"]
     assert 0 < k["abort_rate"] < 1
     assert k["probe_impl"] == "plain" and k["merge_impl"] == "scatter"
+    assert k["phase_backend"] == "cpu"
+    assert list(k["phase"]) == ["sort_ms", "scan_ms", "merge_ms", "compact_ms"]
+    assert min(k["phase"]["sort_ms"], k["phase"]["scan_ms"], k["phase"]["merge_ms"]) > 0
+    profile = k["phase_profile"]
+    assert check_phase_profile(profile) == []
+    assert (profile["backend"], profile["small"]) == ("cpu", True)
+    assert profile["shapes"]["n_txn"] == 64 and profile["cap"] == 1 << 15
+
+
+def test_phase_profile_off_and_unknown(monkeypatch):
+    """--phase-profile off leaves the block out; another word raises."""
+    monkeypatch.setattr(bench, "page_cache_probe", dict)
+    monkeypatch.setattr(bench, "commit_wire_probe", dict)
+    monkeypatch.setattr(bench, "metrics_series_probe", lambda _dev: {})
+    small = dict(txns=16, key_pool=1 << 8, cap=1 << 10, run_capacity=64)
+    doc = bench.run("cpu", phase_profile="off", **small)
+    assert "phase_profile" not in doc["kernel"] and "phase" in doc["kernel"]
+    with pytest.raises(ValueError, match="small, full or off"):
+        bench.run("cpu", phase_profile="tiny", **small)
 
 
 def test_parity_mismatch_exits_nonzero(monkeypatch):
@@ -163,7 +186,8 @@ def test_every_module_imports_without_jax_or_the_reference():
                 "client.directory_layer", "client.taskbucket", "client.multiversion",
                 "client.backup", "client.dr", "storage.blobstore", "storage.image",
                 "control.election", "workloads.consistency", "workloads.blob_backup",
-                "workloads.save_and_kill"):
+                "workloads.save_and_kill", "phase_timings", "profile2", "bench_debug",
+                "graft_entry"):
         assert f"foundationdb_tpu_torch.{new}" in mods
     code = (
         "import importlib, sys\n"

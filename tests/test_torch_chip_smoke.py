@@ -889,3 +889,59 @@ def test_prefixed_lanes_encode_the_prefixed_keys(W):
     want = keys.encode_keys([prefix + k for k in keys_16], 4 * (W - 1))
     assert np.array_equal(keys.from_lanes(got[0]), want)
     assert bool((got[1] == keys.SENT_LANE).all())
+
+
+@pytest.fixture
+def small_root(monkeypatch):
+    """Phase 21 at a small size on the CPU: the bench's transactions a batch
+    and capacities cut (its 8 prefill batches kept, so bench_debug's set
+    compacts at its first timed batch), the primitive table at small shapes,
+    every run on "cpu", the twin in this process, and counting wrappers
+    standing in for the kernels' launch counts."""
+    from foundationdb_tpu_torch import bench, profile_kernel
+
+    monkeypatch.setattr(chip_smoke, "CARD", "cpu")
+    monkeypatch.setattr(chip_smoke, "twin_pool", InProcess)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for fn, name in (("probe_fused", "probe_fused"), ("intra_fixpoint", "intra_fixpoint"),
+                     ("compact_ranks", "compact_ranks"), ("run_to_step_runs", "run_to_step")):
+        def counted(*a, _real=getattr(kernels, fn), _name=name, **k):
+            kernels.launches[_name] += 1
+            return _real(*a, **k)
+        monkeypatch.setattr(kernels, fn, counted)
+    monkeypatch.setattr(bench, "TXNS_PER_BATCH", 48)
+    monkeypatch.setattr(bench, "CAP", 1 << 12)
+    monkeypatch.setattr(bench, "REC_CAP", 1 << 10)
+    monkeypatch.setattr(profile_kernel, "TABLE_SHAPES",
+                        profile_kernel.Shapes(cap=1 << 12, R=256, Wn=128, W=5, B=128))
+    return chip_smoke.port_modules()
+
+
+def test_root_scripts_phase_names_its_paths(small_root, capsys):
+    """Phase 21 end to end at a small size: the phase profile conforms and
+    its launch counts hold, the digests equal between two runs, the tables
+    print every row, entry() and the dry run pass, bench_debug's sums equal
+    the synchronous run's; five paths come back, K1-K4 launched across them."""
+    paths = chip_smoke.root_scripts_phase(torch, small_root, "cpu")
+    assert tuple(paths) == chip_smoke.ROOT_PATHS
+    assert paths["graft_entry"]["intra_fixpoint"] == 1
+    assert all(paths["graft_dryrun"][k] > 0 for k in chip_smoke.MAIN_PATH)
+    out = capsys.readouterr().out
+    assert "WHOLE resolve_core kernel" in out and "searchsorted 49K into CAP" in out
+    assert out.count("[multichip] bench-class dryrun") == 2
+
+
+def test_root_scripts_phase_catches_a_wrong_bench_debug_sum(small_root, monkeypatch):
+    """A bench_debug whose verdict sum is off by one fails (e)."""
+    bd = small_root["bench_debug"]
+    real = bd.run
+
+    def off_by_one(*a, **k):
+        out = real(*a, **k)
+        out[-1]["verdict_sum"] += 1
+        return out
+
+    monkeypatch.setattr(bd, "run", off_by_one)
+    with pytest.raises(RuntimeError, match=r"root \(e\): verdict sums"):
+        chip_smoke.root_scripts_phase(torch, small_root, "cpu")
