@@ -8,13 +8,17 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
   1. device   the card's name, device count, name and power limit;
   2. build    nvcc builds the conflict kernels from csrc/, and the
               compiler's -Xptxas -v lines are printed, K1's and K3's with
-              the dynamic shared memory a block takes at phase 3's shapes;
+              the dynamic shared memory a block takes at phase 3's
+              shapes, and the warp plans' blocks an SM at each wide W
+              (cudaOccupancyMaxActiveBlocksPerMultiprocessor);
   3. kernels  each kernel (K1-K5, K2's per-query referee) on seeded inputs
               at the resolver's full-width shapes, held against its plain
               torch version on the same CUDA tensors (exact: integer
               functions), timed with L2 cold and warm, and set against the
               least time the bytes and operations its inputs need would
-              take the card; K5 also against K1 with no history bit set,
+              take the card (a search's bytes: each compare from the lanes
+              both bounds of its interval share with the key, trace_search);
+              K5 also against K1 with no history bit set,
               and K5 | history against K1; K5's cold time (the
               thread-per-read design K1 had before its redesign) is
               printed beside K1's.  K2, the whole intra fixpoint in one
@@ -25,12 +29,17 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               over the 8 runs of a compaction at once; then K1, K3 and K4
               again at W = 17, 65, 129, 513, 4097, 8193, 16385 and 32769
               lanes (64- to 131072-byte keys, the widths a set widens to;
-              from W = 32769 K1 and K3 take their no-staging plans, a warp
-              a read or a query: the same keys
-              behind a common prefix; from W = 4097 at the default set's
+              from W = 257 K1 and K3 take their warp plans, a warp a
+              (read, run) pair or a query), K1 and K3 on two inputs:
+              `prefixed`, the same keys behind a common prefix filling the
+              width, and `widened`, the stream's 16-byte keys as a widened
+              set holds them with every range [k, key_after(k)) (a key and
+              its end differ only in the last lane); K4 on `prefixed`;
+              from W = 4097 at the default set's
               shapes, 8 runs of 4096 rows, main at 2**16 rows, 4096
-              reads), each against its plain version, with the dynamic
-              shared memory a block takes at those widths;
+              reads; each against its plain version, with its plan, and
+              the profiler's record of the CUDA kernel that plan launches
+              (the phase fails without one);
   4. stream   the full-width resolver stream (8192 txns per batch, 2 point
               reads + 1 point write each, uniform 16-byte keys, 8 prefill
               + 16 timed batches, GC from the 10th batch) through
@@ -326,15 +335,28 @@ server process's own counts), `saturate`, `soak` (the workers' summed), phase
 its process was bounced or stopped) and `cli`, phase 21's as
 `phase_timings`, `primitives`, `graft_entry`, `graft_dryrun` and
 `bench_debug`, and phase 10's bench probe as `bench_metrics_series`; K1, K3
-and K4 carry phase 3's wide checks under `wide`), then
+and K4 carry phase 3's wide checks under `wide`, by W and, for K1 and K3,
+by input, each with the CUDA kernel its plan launched), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
 script, it exits non-zero before printing any result.
+
+    python3 chip_smoke.py --sweep OUT.json
+
+times only K1 and K3 (cold) at W = 17 to 32769 on both of phase 3's wide
+inputs under every plan the package beside the script offers (its warp and
+staged plans, and the warp plans' choices; a package from before the warp
+plans, its own), each bit-exact with its plain version, then phase 18
+(b)'s and phase 19 (a)'s runs with K1's and K3's device ms (an event pair
+around each launch), and writes the numbers to OUT.json.  Copied beside an older checkout of
+the package, it times that checkout's kernels on the same inputs.
 """
 
 from __future__ import annotations
 
+import argparse
+import functools
 import gc
 import json
 import subprocess
@@ -388,22 +410,24 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
      "intra_fixpoint_kernel"),
 )
 SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
-# the kernels of K1's and K3's no-staging plans (W past shared memory)
-WIDE_SYMBOLS = {"probe_fused": "probe_fused_wide_kernel",
-                "compact_ranks": "compact_ranks_wide_kernel"}
+# the kernels of K1's and K3's warp plans (from kernels.WARP_FROM_W)
+WIDE_SYMBOLS = {"probe_fused": "probe_fused_warp_kernel",
+                "compact_ranks": "compact_ranks_warp_kernel"}
 MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
-# phase 3's wider lanes: 64- to 131072-byte keys; from W = 32769 (128 KB
-# keys) K1 and K3 stage nothing (kernels.plan_probe, plan_ranks)
+# phase 3's wider lanes: 64- to 131072-byte keys; from W = 257 (1024-byte
+# keys, kernels.WARP_FROM_W) K1 and K3 take their warp plans
 WIDE_W = (17, 65, 129, 513, 4097, 8193, 16385, 32769)
 # from W = 4097 (16 KB keys) phase 3 takes the default set's shapes
 # (DeviceConflictSet(): K = 8 runs of 4096 rows, main at 2**16 rows) and
 # WIDEST_READS reads: at the stream's, main alone would be ~8.6 GB at W =
 # 4097; at W = 32769 the default set's main is ~8.6 GB, its runs as much
 WIDEST_FROM = 4097
-WIDE_FEW_REPS = 8193  # from this W a launch takes tens to hundreds of ms
+WIDE_FEW_REPS = 8193  # from this W K4 takes 13-53 ms a launch, K1 and K3 up to ~11
 DEFAULT_SET = dict(capacity=1 << 16, run_slots=8, run_capacity=1 << 12)
 WIDEST_READS = 4096
 WIDE_KERNELS = ("probe_fused", "compact_ranks", "run_to_step")
+WIDE_TIMED = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
+              "bound_ms", "bound_by")
 CHAIN_TXNS = 1024  # the chain batch of phase 3: txn t reads what t - 1 writes
 # cudaLaunchKernel and, for K2, cudaLaunchCooperativeKernel
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
@@ -454,6 +478,11 @@ def call_ms(torch, fn, reps: int, warm: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def planned_symbol(name: str, plan) -> str:
+    """The CUDA kernel K1's or K3's wrapper launches under `plan`."""
+    return WIDE_SYMBOLS[name] if plan.warp else SYMBOLS[name]
+
+
 def launch_ms(torch, fn, reps: int, flush=None) -> float:
     """Median time of one launch between its own pair of CUDA events.
     Before each launch the stream first writes `flush` (when given: the
@@ -487,8 +516,8 @@ def _is_kernel(key: str, symbol: str) -> bool:
 def device_ms(torch, fn, symbol: str, reps: int) -> float | None:
     """The kernel's own duration per launch, from the profiler's device
     records (CUPTI) of `reps` launches, over the launches it recorded.  It
-    may miss launches of long kernels (W = 8193's K1, ~90 ms: one of three
-    recorded); None when it recorded none."""
+    may miss launches of long kernels (K4 at W = 32769, ~53 ms); None when
+    it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -541,32 +570,37 @@ def _points(torch, elems):
     return torch.stack([elems.long(), elems.long()], 1)
 
 
-def _first_diff(torch, a, b):
-    """Per row pair: the lane where a lexicographic compare of a with b
-    decides (the first lane that differs, the last when none does) and
-    whether a < b."""
+def _share(torch, a, b):
+    """Per row pair: how many leading lanes a and b share (W when equal)
+    and whether a < b."""
     W = a.shape[1]
     diff = a != b
-    first = torch.where(diff.any(1), diff.to(torch.int32).argmax(1), W - 1)
-    at = first[:, None]
-    return first, a.gather(1, at)[:, 0] < b.gather(1, at)[:, 0]
+    share = torch.where(diff.any(1), diff.to(torch.int32).argmax(1), W)
+    at = torch.clamp(share, max=W - 1)[:, None]
+    return share, a.gather(1, at)[:, 0] < b.gather(1, at)[:, 0]
 
 
-def _lanes_upto(torch, rows, first, W: int):
-    """Lanes 0..first[j] of row rows[j], as an inclusive element range."""
-    start = rows.long() * W
-    return torch.stack([start, start + first.long()], 1)
+def _lanes(torch, rows, start, end, W: int):
+    """Lanes start[j]..end[j] of row rows[j], as an inclusive element
+    range."""
+    base = rows.long() * W
+    return torch.stack([base + start.long(), base + end.long()], 1)
 
 
 def trace_search(torch, table, qq, qid):
-    """Replays count_below of csrc/conflict_kernels.cu: the binary search
-    of the sorted rows `table` for #rows < qq[j].  qid[j] is query j's row
-    in its own buffer.  Returns the ranks, the lanes the searches read of
-    the table and of the query buffer (inclusive element ranges, one a
-    compare), the search steps and the lanes compared."""
+    """Replays the least reading of a binary search of the sorted rows
+    `table` for #rows < qq[j]: each compare reads the mid row and the query
+    from the lanes that both bounds of the interval share with the query,
+    min(lcp(table[lo - 1], q), lcp(table[hi], q)) (0 for a bound not yet
+    narrowed), which every row between shares too, to the first lane that
+    differs (the last when none does).  qid[j] is query j's row in its own
+    buffer.  Returns the ranks, the lanes the searches read of the table
+    and of the query buffer (inclusive element ranges, one a compare), the
+    search steps and the lanes compared."""
     n, W = table.shape
     lo = torch.zeros(qq.shape[0], dtype=torch.long, device=qq.device)
     hi = torch.full_like(lo, n)
+    l_lo, l_hi = torch.zeros_like(lo), torch.zeros_like(lo)
     t_el, q_el = [lo.new_zeros((0, 2))], [lo.new_zeros((0, 2))]
     steps = lanes = 0
     while True:
@@ -574,13 +608,17 @@ def trace_search(torch, table, qq, qid):
         if a.numel() == 0:
             return lo, torch.cat(t_el), torch.cat(q_el), steps, lanes
         mid = lo[a] + (hi[a] - lo[a]) // 2
-        first, less = _first_diff(torch, table[mid], qq[a])
-        t_el.append(_lanes_upto(torch, mid, first, W))
-        q_el.append(_lanes_upto(torch, qid[a], first, W))
+        start = torch.minimum(l_lo[a], l_hi[a])
+        share, less = _share(torch, table[mid], qq[a])
+        end = torch.clamp(share, max=W - 1)
+        t_el.append(_lanes(torch, mid, start, end, W))
+        q_el.append(_lanes(torch, qid[a], start, end, W))
         steps += a.numel()
-        lanes += int((first + 1).sum())
+        lanes += int((end - start + 1).sum())
         lo[a] = torch.where(less, mid + 1, lo[a])
+        l_lo[a] = torch.where(less, share, l_lo[a])
         hi[a] = torch.where(less, hi[a], mid)
+        l_hi[a] = torch.where(less, l_hi[a], share)
 
 
 def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver,
@@ -610,10 +648,11 @@ def probe_fused_work(torch, rb, re_, snap, r_ok, runs_b, runs_e, runs_ver,
         steps, lanes = steps + s, lanes + n_lanes
         hit = rank > 0
         a, rank = a[hit], rank[hit]
-        first, less = _first_diff(torch, rb[a], runs_e[k][rank - 1])
-        el["rb"].append(_lanes_upto(torch, a, first, W))
-        el["runs_e"].append(_lanes_upto(torch, k * cap + rank - 1, first, W))
-        lanes += int((first + 1).sum())
+        share, less = _share(torch, rb[a], runs_e[k][rank - 1])
+        end, zero = torch.clamp(share, max=W - 1), torch.zeros_like(share)
+        el["rb"].append(_lanes(torch, a, zero, end, W))
+        el["runs_e"].append(_lanes(torch, k * cap + rank - 1, zero, end, W))
+        lanes += int((end + 1).sum())
         conflict[a] = less
     n_bytes = ((2 if fused else 1) * R + SECTOR  # hist, out; runs_ver
                + SECTOR * _sectors(torch, (~hist).nonzero()[:, 0], 1)
@@ -691,6 +730,51 @@ def prefixed_lanes(torch, keys_mod, rows, W: int, dev):
     out[..., -1] += 4 * (W - w0)
     out.masked_fill_((narrow == keys_mod.SENT_LANE).all(-1, keepdim=True), keys_mod.SENT_LANE)
     return out
+
+
+def widened_lanes(torch, keys_mod, rows, W: int, dev, after: bool = False):
+    """uint32 lane rows of 16-byte keys as lanes of W on `dev`, as a
+    widened set holds them (keys.widen_lanes: the data words, INT32_MIN
+    words, the length lane); with `after`, each live row is its key_after
+    (k + b"\\0": the length lane + 1, the one lane in which the two
+    differ).  Sentinel rows stay sentinel."""
+    out = keys_mod.widen_lanes(keys_mod.to_lanes(np.ascontiguousarray(rows), dev), W)
+    if after:
+        out[..., -1] += (out[..., -1] != keys_mod.SENT_LANE).to(out.dtype)
+    return out
+
+
+WIDE_INPUTS = ("widened", "prefixed")  # phase 3's two inputs at each wide W
+
+
+def wide_inputs(torch, keys_mod, kernels, kind: str, W: int, dev, base: dict, cut):
+    """Phase 3's K1 and K3 inputs at width W: (K1's arguments, main, the
+    recent rows).  `prefixed`: every key behind a common prefix that fills
+    the width, each range as at W = 5.  `widened`: the same 16-byte keys
+    as a widened set holds them, every range a point range [k,
+    key_after(k)) (in main too: each key beside its key_after), so a key
+    and its end differ only in the last lane; sentinel tails kept.  `base`
+    holds phase 3's narrow rows, `cut` is wide_cut's (rows of each run,
+    the reads' slice, the step over main's keys)."""
+    rows, reads, step = cut
+    k1 = base["k1"]
+    if kind == "prefixed":
+        wide = lambda a: prefixed_lanes(torch, keys_mod, a, W, dev)  # noqa: E731
+        runs_b, runs_e = wide(base["runs_b"][:, :rows]), wide(base["runs_e"][:, :rows])
+        rb, re_ = wide(base["rb"][reads]), wide(base["re"][reads])
+        ks = wide(base["main"][::step])
+    else:
+        wide = lambda a, after=False: widened_lanes(torch, keys_mod, a, W, dev, after)  # noqa: E731
+        runs_b, runs_e = wide(base["runs_b"][:, :rows]), wide(base["runs_b"][:, :rows], True)
+        rb, re_ = wide(base["rb"][reads]), wide(base["rb"][reads], True)
+        keys = base["main_keys"][::step]
+        n_live = 2 * len(keys)
+        cap = base["main"][::step].shape[0]
+        ks = torch.full((cap, W), keys_mod.SENT_LANE, dtype=torch.int32, device=dev)
+        ks[:n_live] = torch.stack([wide(keys), wide(keys, True)], 1).reshape(n_live, W)
+    rec, _ = kernels.run_to_step_plain(runs_b[1], runs_e[1], k1[6][1])
+    return ((rb, re_, k1[2][reads], k1[3][reads], runs_b, runs_e, k1[6], k1[7][reads]),
+            ks, rec)
 
 
 def wide_cut(W: int, run_cap: int, cap: int, R: int):
@@ -781,55 +865,14 @@ def fixpoint_check(check, results, torch, kernels, fx, key, reps):
 # phase 3: each kernel against its plain version
 
 
-def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
-    keys_mod, kernels, tdev, rmq = fdb["keys"], fdb["kernels"], fdb["device"], fdb["rmq"]
+def kernel_inputs(torch, keys_mod, dev, rng, pool, succ) -> dict:
+    """Phase 3's seeded inputs at the stream's shapes: K1's arguments
+    (`k1`), the narrow rows they were made of (`runs_b`, `runs_e`, `rb`,
+    `re`: uint32), and K3's main (`main`, its keys alone `main_keys`)."""
     run_cap = SET_ARGS["run_capacity"]
     W = keys_mod.num_words(SET_ARGS["max_key_bytes"])
     R = TXNS * READS_PER_TXN
     lanes = lambda a: keys_mod.to_lanes(a, dev)  # noqa: E731
-    results = {}
-    kernels.reset_launches()
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    log(f"kernels: an event pair with no launch between reads "
-        f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
-        f"per-launch time below)")
-
-    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None, symbol=None):
-        """`cold`: the main path finds the kernel's inputs out of L2, so
-        its `ms` (and the plain version's) is timed after a flush.  `key`:
-        where the results go (the kernel's name by default).  `symbol`: the
-        CUDA kernel the wrapper launches, when not SYMBOLS[name] (K1's and
-        K3's no-staging plans launch kernels of their own)."""
-        torch.cuda.synchronize()
-        n_bytes, n_ops, replay = work
-        # compared in their own dtype (K4's outputs at W = 32769 are 8.6 GB:
-        # an int64 copy of both would not fit beside the inputs)
-        mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
-        err = max((int((g[g != w].long() - w[g != w].long()).abs().max())
-                   if bool((g != w).any()) else 0) for g, w in zip(got, want))
-        require(replay is None or torch.equal(replay.long(), got[0].long()),
-                f"{name}: the replay that counts its work disagrees with it")
-        warm_ms = launch_ms(torch, fn, reps)
-        cold_ms = launch_ms(torch, fn, reps, flush)
-        own_ms = device_ms(torch, fn, symbol or SYMBOLS[name], reps)
-        back_to_back = call_ms(torch, fn, reps)
-        plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        ms = cold_ms if cold else warm_ms
-        results[key or name] = dict(mismatches=mismatches, max_abs_err=err, ms=ms,
-                                    cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
-                                    call_ms=back_to_back, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by)
-        log(f"kernel {key or name}: mismatches={mismatches} ms={ms:.6f} "
-            f"({'cold' if cold else 'warm'} L2, as on the main path) "
-            f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
-            f"device_ms={own_ms if own_ms is None else f'{own_ms:.6f}'} (profiler, warm) "
-            f"call_ms={back_to_back:.6f} (back to back, host launch included) "
-            f"plain_ms={plain_ms:.6f} bound_us={bound_ms * 1e3:.3f} ({bound_by}: "
-            f"{n_bytes} B, {n_ops} ops) ms/bound={ms / bound_ms:.1f} "
-            f"launches={kernels.launches[name]} (this phase)")
-        require(mismatches == 0, f"kernel {name} disagrees with its plain version")
-
     # K1: 8 runs of ~8K point intervals (one dead, one empty), 16384
     # reads with padding (sentinel) rows and TOO_OLD (r_ok False) rows
     half = run_cap // 2  # a batch's 8192 point writes, before coalescing
@@ -858,6 +901,80 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     k1 = (lanes(rb_np), lanes(re_np), torch.from_numpy(snap_np).to(dev),
           torch.from_numpy(r_ok_np).to(dev), runs_b, runs_e, runs_ver,
           torch.from_numpy(hist_np).to(dev))
+    # K3: ~447K live boundaries of main at cap 2**19 (the stream's size
+    # after 24 batches) against one run's step rows (2 * run_cap,
+    # sentinels included)
+    cap = SET_ARGS["capacity"]
+    idx = np.unique(rng.integers(0, len(pool), int(0.48 * cap)))
+    b, e = point_rows(keys_mod, pool, succ, idx)
+    main_keys = np.concatenate([keys_mod.encode_keys([b""], KEY_BYTES), b])
+    main_keys = main_keys[np.lexsort(main_keys.T[::-1])]
+    main = np.concatenate([main_keys, e])
+    main = main[np.lexsort(main.T[::-1])]
+    ks_np = np.full((cap, W), 0xFFFFFFFF, np.uint32)
+    ks_np[: len(main)] = main
+    return dict(k1=k1, runs=runs, runs_b=np.stack([r[0] for r in runs]),
+                runs_e=np.stack([r[1] for r in runs]), rb=rb_np, re=re_np, main=ks_np,
+                main_keys=main_keys)
+
+
+def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
+    keys_mod, kernels, tdev, rmq = fdb["keys"], fdb["kernels"], fdb["device"], fdb["rmq"]
+    run_cap = SET_ARGS["run_capacity"]
+    R = TXNS * READS_PER_TXN
+    lanes = lambda a: keys_mod.to_lanes(a, dev)  # noqa: E731
+    results = {}
+    kernels.reset_launches()
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    log(f"kernels: an event pair with no launch between reads "
+        f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
+        f"per-launch time below)")
+
+    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None, symbol=None):
+        """`cold`: the main path finds the kernel's inputs out of L2, so
+        its `ms` (and the plain version's) is timed after a flush.  `key`:
+        where the results go (the kernel's name by default).  `symbol`: the
+        CUDA kernel the wrapper's plan launches (planned_symbol), which the
+        profiler must record; SYMBOLS[name] by default."""
+        torch.cuda.synchronize()
+        n_bytes, n_ops, replay = work
+        # compared in their own dtype (K4's outputs at W = 32769 are 8.6 GB:
+        # an int64 copy of both would not fit beside the inputs)
+        mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+        err = max((int((g[g != w].long() - w[g != w].long()).abs().max())
+                   if bool((g != w).any()) else 0) for g, w in zip(got, want))
+        require(replay is None or torch.equal(replay.long(), got[0].long()),
+                f"{name}: the replay that counts its work disagrees with it")
+        warm_ms = launch_ms(torch, fn, reps)
+        cold_ms = launch_ms(torch, fn, reps, flush)
+        symbol = symbol or SYMBOLS[name]
+        own_ms = device_ms(torch, fn, symbol, reps)
+        require(own_ms is not None, f"{key or name}: the profiler recorded no launch of "
+                                    f"{symbol}, the planned kernel")
+        back_to_back = call_ms(torch, fn, reps)
+        plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        ms = cold_ms if cold else warm_ms
+        results[key or name] = dict(symbol=symbol, mismatches=mismatches,
+                                    max_abs_err=err, ms=ms,
+                                    cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
+                                    call_ms=back_to_back, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by)
+        log(f"kernel {key or name}: {symbol} mismatches={mismatches} ms={ms:.6f} "
+            f"({'cold' if cold else 'warm'} L2, as on the main path) "
+            f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
+            f"device_ms={own_ms if own_ms is None else f'{own_ms:.6f}'} (profiler, warm) "
+            f"call_ms={back_to_back:.6f} (back to back, host launch included) "
+            f"plain_ms={plain_ms:.6f} bound_us={bound_ms * 1e3:.3f} ({bound_by}: "
+            f"{n_bytes} B, {n_ops} ops) ms/bound={ms / bound_ms:.1f} "
+            f"launches={kernels.launches[name]} (this phase)")
+        require(mismatches == 0, f"kernel {name} disagrees with its plain version")
+
+    # K1: 8 runs of ~8K point intervals (one dead, one empty), 16384
+    # reads with padding (sentinel) rows and TOO_OLD (r_ok False) rows
+    base = kernel_inputs(torch, keys_mod, dev, rng, pool, succ)
+    k1, runs, ks_np = base["k1"], base["runs"], base["main"]
+    runs_b, runs_e, runs_ver = k1[4:7]
     check("probe_fused", [kernels.probe_fused(*k1)],
           [kernels.probe_fused_plain(*k1)], probe_fused_work(torch, *k1),
           fn=lambda: kernels.probe_fused(*k1),
@@ -916,13 +1033,6 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     # K3: ~447K live boundaries of main at cap 2**19 (the stream's size
     # after 24 batches) against one run's step rows (2 * run_cap,
     # sentinels included)
-    cap = SET_ARGS["capacity"]
-    idx = np.unique(rng.integers(0, len(pool), int(0.48 * cap)))
-    b, e = point_rows(keys_mod, pool, succ, idx)
-    main = np.concatenate([keys_mod.encode_keys([b""], KEY_BYTES), b, e])
-    main = main[np.lexsort(main.T[::-1])]
-    ks_np = np.full((cap, W), 0xFFFFFFFF, np.uint32)
-    ks_np[: len(main)] = main
     ks = lanes(ks_np)
     u_b, u_e = lanes(runs[1][0]), lanes(runs[1][1])
     rec, _ = kernels.run_to_step_plain(u_b, u_e, runs_ver[1])
@@ -942,46 +1052,45 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
     # K1, K3 and K4 at the wider keys a set widens to (64 to 131072 bytes),
     # at the stream's K, run_cap and cap up to W = 513 and at the default
-    # set's from WIDEST_FROM: the same inputs (the first 4096 rows of each
-    # run, every 8th main row, the last WIDEST_READS reads there), each key
-    # behind a common prefix that fills the width, so every compare runs
-    # to the end
+    # set's from WIDEST_FROM (the first 4096 rows of each run, every 8th
+    # main row, the last WIDEST_READS reads there); K1 and K3 on both of
+    # wide_inputs' inputs, K4 (a copy, whatever the keys) on `prefixed`
     for W_wide in WIDE_W:
-        torch.cuda.empty_cache()  # the last width's blocks: gigabytes at W >= 8193
-        wide = lambda a, W=W_wide: prefixed_lanes(torch, keys_mod, a, W, dev)  # noqa: E731
-        rows, reads, step = wide_cut(W_wide, run_cap, SET_ARGS["capacity"], R)
-        # ~30 ms a launch at W = 4097, hundreds from WIDE_FEW_REPS
-        reps = 50 if W_wide < WIDEST_FROM else 10 if W_wide < WIDE_FEW_REPS else 3
-        plan_k1 = kernels.plan_probe(SET_ARGS["run_slots"], rows, W_wide)
+        cut = wide_cut(W_wide, run_cap, SET_ARGS["capacity"], R)
+        # K1 and K3 take 0.1-11 ms a launch from W = 257, K4 7-53 ms from 4097
+        reps = 50 if W_wide < WIDEST_FROM else 20 if W_wide < WIDE_FEW_REPS else 10
+        plan_k1 = kernels.plan_probe(SET_ARGS["run_slots"], cut[0], W_wide)
         plan_k3 = kernels.plan_ranks(W_wide)
         log(f"kernels at W={W_wide}: K1 plan {plan_k1._asdict()}; K3 plan "
             f"{plan_k3._asdict()}")
-        runs_bw = wide(np.stack([r[0][:rows] for r in runs]))
-        runs_ew = wide(np.stack([r[1][:rows] for r in runs]))
-        k1w = (wide(rb_np[reads]), wide(re_np[reads]), k1[2][reads], k1[3][reads],
-               runs_bw, runs_ew, k1[6], k1[7][reads])
-        check("probe_fused", [kernels.probe_fused(*k1w)],
-              [kernels.probe_fused_plain(*k1w)], probe_fused_work(torch, *k1w),
-              fn=lambda: kernels.probe_fused(*k1w),
-              plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=reps, cold=True,
-              key=f"probe_fused_w{W_wide}",
-              symbol=None if plan_k1.staged else WIDE_SYMBOLS["probe_fused"])
-        ks_w = wide(ks_np[::step])
-        rec_w, _ = kernels.run_to_step_plain(runs_bw[1], runs_ew[1], runs_ver[1])
-        check("compact_ranks", [kernels.compact_ranks(ks_w, rec_w)],
-              [kernels.compact_ranks_plain(ks_w, rec_w)],
-              compact_ranks_work(torch, keys_mod, ks_w, rec_w),
-              fn=lambda: kernels.compact_ranks(ks_w, rec_w),
-              plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=reps,
-              cold=True, key=f"compact_ranks_w{W_wide}",
-              symbol=None if plan_k3.staged else WIDE_SYMBOLS["compact_ranks"])
-        del k1w, ks_w, rec_w  # K4's outputs and its plain version's take their room
+        for kind in WIDE_INPUTS:
+            torch.cuda.empty_cache()  # the last input's blocks: gigabytes at W >= 8193
+            k1w, ks_w, rec_w = wide_inputs(torch, keys_mod, kernels, kind, W_wide, dev,
+                                           base, cut)
+            suffix = f"_w{W_wide}" + ("" if kind == "prefixed" else f"_{kind}")
+            check("probe_fused", [kernels.probe_fused(*k1w)],
+                  [kernels.probe_fused_plain(*k1w)], probe_fused_work(torch, *k1w),
+                  fn=lambda: kernels.probe_fused(*k1w),
+                  plain_fn=lambda: kernels.probe_fused_plain(*k1w), reps=reps, cold=True,
+                  key="probe_fused" + suffix, symbol=planned_symbol("probe_fused", plan_k1))
+            check("compact_ranks", [kernels.compact_ranks(ks_w, rec_w)],
+                  [kernels.compact_ranks_plain(ks_w, rec_w)],
+                  compact_ranks_work(torch, keys_mod, ks_w, rec_w),
+                  fn=lambda: kernels.compact_ranks(ks_w, rec_w),
+                  plain_fn=lambda: kernels.compact_ranks_plain(ks_w, rec_w), reps=reps,
+                  cold=True, key="compact_ranks" + suffix,
+                  symbol=planned_symbol("compact_ranks", plan_k3))
+            for name, plan in (("probe_fused", plan_k1), ("compact_ranks", plan_k3)):
+                results[name + suffix]["plan"] = "warp" if plan.warp else "staged"
+            del k1w, ks_w, rec_w  # K4's outputs and its plain version's take their room
+        runs_bw = prefixed_lanes(torch, keys_mod, base["runs_b"][:, :cut[0]], W_wide, dev)
+        runs_ew = prefixed_lanes(torch, keys_mod, base["runs_e"][:, :cut[0]], W_wide, dev)
         k4w = (runs_bw, runs_ew, runs_ver)
         check("run_to_step", list(kernels.run_to_step_runs(*k4w)),
               list(kernels.run_to_step_runs_plain(*k4w)),
               run_to_step_work(*runs_bw.shape),
               fn=lambda: kernels.run_to_step_runs(*k4w),
-              plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=2 * reps,
+              plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=reps,
               cold=True, key=f"run_to_step_w{W_wide}")
         del runs_bw, runs_ew, k4w
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
@@ -4963,7 +5072,136 @@ def port_modules() -> dict:
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
+# `--sweep`: the widths where K1 and K3 change plans (kernels.WARP_FROM_W)
+SWEEP_W = (17, 33, 65, 129, 257, 513, 1025, 2049, 4097, 8193, 16385, 32769)
+SWEEP_REPS = 5
+SWEEP_QUERIES = (16, 32)  # K3's warp plan at other block sizes
+
+
+def sweep_variants(kernels, K: int, rows: int, W: int) -> list:
+    """(plan, K1's keywords, K3's keywords) for each plan the package
+    beside this script offers at width W: the warp plan everywhere, the
+    staged plan below T (kernels.WARP_FROM_W: past it, the parent's run
+    times the plans the warp plan replaced), and from T the warp plan's
+    choices (K1's read ends staged or read from L2; K3's queries a
+    block).  A package from before the warp plan offers its own plans
+    only, named "before"."""
+    if not hasattr(kernels, "plan_probe_warp"):
+        return [("before", {}, {})]
+    warp = kernels.plan_probe_warp(K, W)
+    out = [("warp", {"plan": warp}, {"plan": kernels.RANKS_WARP_PLAN})]
+    if W < kernels.WARP_FROM_W:
+        return out + [("staged", {"plan": kernels.plan_probe_staged(K, rows, W)},
+                       {"plan": kernels.plan_ranks_staged(W)})]
+    for name, stage in (("staged", kernels.SMEM_MAX), ("l2", 0)):
+        p1 = kernels.plan_probe_warp(K, W, stage)
+        if p1 != warp:
+            out.append((f"warp_ends_{name}", {"plan": p1}, None))
+    for q in SWEEP_QUERIES:
+        out.append((f"warp_q{q}", None, {"plan": kernels.RANKS_WARP_PLAN._replace(queries=q)}))
+    return out
+
+
+def kernel_event_ms(torch, kernels, fn) -> dict:
+    """Runs fn with K1's and K3's wrappers timed launch by launch: a CUDA
+    event pair around each (behind a ~0.1 ms device spin, so the pair
+    times the device's work, not the host's).  Returns their device ms and
+    launches in fn, by wrapper.  (The profiler's trace of phase 19 (a),
+    with its 2049-pass sorts, takes longer to read back than the run.)"""
+    pairs = {"probe_fused": [], "compact_ranks": []}
+    real = [(name, getattr(kernels, name)) for name in pairs]
+
+    def timed(*a, _inner, _name, **k):
+        torch.cuda._sleep(SPIN_CYCLES)
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = _inner(*a, **k)
+        stop.record()
+        pairs[_name].append((start, stop))
+        return out
+
+    for name, inner in real:
+        setattr(kernels, name, functools.partial(timed, _inner=inner, _name=name))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for name, inner in real:
+            setattr(kernels, name, inner)
+    return {name: dict(ms=sum(a.elapsed_time(b) for a, b in got), launches=len(got))
+            for name, got in pairs.items()}
+
+
+def sweep(torch, fdb, dev, power, out: Path) -> None:
+    """K1 and K3 cold at every SWEEP_W on both of phase 3's wide inputs
+    (kernel_inputs from SEED), under each of sweep_variants' plans, each
+    bit-exact with its plain version; then phase 18 (b)'s and phase 19
+    (a)'s runs under the profiler, with K1's and K3's device ms.  Writes
+    the measurements to `out` as JSON."""
+    keys_mod, kernels = fdb["keys"], fdb["kernels"]
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    pool, succ = key_pool(rng)
+    base = kernel_inputs(torch, keys_mod, dev, rng, pool, succ)
+    log(f"sweep: inputs at {time.perf_counter() - t0:.1f} s")
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    rows = []
+    for W in SWEEP_W:
+        cut = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"],
+                       TXNS * READS_PER_TXN)
+        for kind in WIDE_INPUTS:
+            torch.cuda.empty_cache()
+            k1w, ks_w, rec_w = wide_inputs(torch, keys_mod, kernels, kind, W, dev, base, cut)
+            want = {"probe_fused": kernels.probe_fused_plain(*k1w),
+                    "compact_ranks": kernels.compact_ranks_plain(ks_w, rec_w)}
+            for plan, kw1, kw3 in sweep_variants(kernels, SET_ARGS["run_slots"], cut[0], W):
+                for name, kw, fn in (
+                        ("probe_fused", kw1, lambda kw: kernels.probe_fused(*k1w, **kw)),
+                        ("compact_ranks", kw3,
+                         lambda kw: kernels.compact_ranks(ks_w, rec_w, **kw))):
+                    if kw is None:
+                        continue
+                    require(torch.equal(fn(kw), want[name]),
+                            f"sweep: {name} ({plan} plan) at W={W} on {kind} disagrees "
+                            f"with its plain version")
+                    row = dict(W=W, input=kind, kernel=name, plan=plan,
+                               cold_ms=launch_ms(torch, lambda: fn(kw), SWEEP_REPS, flush))
+                    rows.append(row)
+                    log("sweep " + json.dumps(row))
+            del k1w, ks_w, rec_w, want
+        log(f"sweep: W={W} done at {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for path, run in (("long_keys", lambda: long_key_run(torch, fdb, *LONG_RUN)),
+                      ("long_keys_16k", lambda: repro_part(torch, fdb, power))):
+        runs[path] = kernel_event_ms(torch, kernels, run)
+        log(f"sweep {path}: K1 and K3 device ms (event pairs) {json.dumps(runs[path])} "
+            f"at {time.perf_counter() - t0:.1f} s")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(dict(power=power, rows=rows, paths=runs), indent=1))
+    log(f"sweep: written to {out}")
+
+
+def wide_entries(results: dict, k: str) -> dict:
+    """Phase 3's numbers of wide kernel k for the kernels line: by W, and
+    for K1 and K3 by input ("W=129" the prefixed input, "W=129 widened"),
+    each with the CUDA kernel its plan launched."""
+    inputs = WIDE_INPUTS if k in WIDE_SYMBOLS else ("prefixed",)
+    out = {}
+    for w in WIDE_W:
+        for kind in inputs:
+            r = results[f"{k}_w{w}" + ("" if kind == "prefixed" else f"_{kind}")]
+            out[f"W={w}" + ("" if kind == "prefixed" else f" {kind}")] = {
+                key: r[key] for key in ("symbol", *WIDE_TIMED, "max_abs_err", "plan")
+                if key in r}
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--sweep", metavar="OUT",
+                        help="only time K1 and K3 at SWEEP_W under every plan the "
+                             "package offers, and write the numbers to OUT (JSON)")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -4987,25 +5225,41 @@ def main() -> int:
     t = time.perf_counter()
     _build.build()
     log(f"build: {time.perf_counter() - t:.1f} s")
+    if args.sweep:
+        sweep(torch, fdb, dev, power, Path(args.sweep))
+        log(f"sweep: {time.perf_counter() - t_start:.1f} s on {power}")
+        return 0
     W = keys.num_words(SET_ARGS["max_key_bytes"])
 
     def smem_at(W):
         rows = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"], 0)[0]
-        return {SYMBOLS["probe_fused"]: kernels.plan_probe(
-                    SET_ARGS["run_slots"], rows, W).smem,
-                SYMBOLS["compact_ranks"]: kernels.plan_ranks(W).smem}
+        p1 = kernels.plan_probe(SET_ARGS["run_slots"], rows, W)
+        p3 = kernels.plan_ranks(W)
+        return {planned_symbol("probe_fused", p1): p1.smem,
+                planned_symbol("compact_ranks", p3): p3.smem}
 
-    smem, wide_smem = smem_at(W), {w: smem_at(w) for w in WIDE_W}
+    smem = {w: smem_at(w) for w in (W, *WIDE_W)}
+    symbols = (*SYMBOLS.values(), *WIDE_SYMBOLS.values())
     entry = None
     for line in _build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
-            entry = next((s for s in smem if s in line), None)
+            entry = next((s for s in symbols if s in line), None)
         if "ptxas" in line or "Used" in line or "spill" in line:
-            extra = (f"  [+ {smem[entry]} B dynamic shared memory per block at "
-                     f"phase 3's shapes; " + ", ".join(
-                         f"{wide_smem[w][entry]} B at W={w}" for w in WIDE_W) + "]"
-                     if entry and "Used" in line else "")
+            at = {w: m[entry] for w, m in smem.items() if entry in m}
+            extra = ("  [+ dynamic shared memory per block: " + ", ".join(
+                f"{b} B at W={w}" for w, b in at.items()) + "]"
+                if at and "Used" in line else "")
             log("  " + line.strip() + extra)
+    for w in WIDE_W:
+        p1 = kernels.plan_probe(SET_ARGS["run_slots"], wide_cut(
+            w, SET_ARGS["run_capacity"], SET_ARGS["capacity"], 0)[0], w)
+        if p1.warp:
+            log(f"occupancy at W={w}: {WIDE_SYMBOLS['probe_fused']} "
+                f"{kernels.warp_plan_occupancy('probe_fused', p1)} blocks of "
+                f"{p1.threads} threads an SM ({p1.smem} B shared); "
+                f"{WIDE_SYMBOLS['compact_ranks']} "
+                f"{kernels.warp_plan_occupancy('compact_ranks', kernels.plan_ranks(w))} "
+                f"blocks of {32 * kernels.WARP_BLOCK_WARPS} threads an SM")
 
     rng = np.random.default_rng(SEED)
     pool, succ = key_pool(rng)
@@ -5093,16 +5347,13 @@ def main() -> int:
     by_path.update(supervised, bench=bench_launches, bench_metrics_series=series_launches)
     by_path.update(new_paths)
     path_launches = dict(launches, **referee_launches)
-    timed = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
-             "bound_ms", "bound_by")
-    wide_keys = timed + ("max_abs_err",)
+    timed = WIDE_TIMED
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCE, replaces=where,
              launches=path_launches[k], max_abs_err=results[k]["max_abs_err"],
              **{key: results[k][key] for key in timed}, library_ms=None,
              launches_by_path={p: n.get(k, 0) for p, n in by_path.items()},
-             **({"wide": {f"W={w}": {key: results[f"{k}_w{w}"][key] for key in wide_keys}
-                          for w in WIDE_W}} if k in WIDE_KERNELS else {}))
+             **({"wide": wide_entries(results, k)} if k in WIDE_KERNELS else {}))
         for k, where, _symbol in KERNELS
     ]}))
     print(power)

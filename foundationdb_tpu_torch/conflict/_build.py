@@ -95,4 +95,6 @@ def load() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.fdb_cuda_error_string.argtypes = [ctypes.c_int]
     lib.fdb_cuda_error_string.restype = ctypes.c_char_p
+    lib.fdb_warp_plan_occupancy.argtypes = [_I] * 3
+    lib.fdb_warp_plan_occupancy.restype = ctypes.c_int
     return lib

@@ -27,9 +27,12 @@ calls it either: like the reference's `run_conflicts`, it is K1's unfused
 referee, and its kernel keeps the thread-per-read design that K1's
 parallel-over-runs kernel replaced.  The source note of each kernel (bound
 on the card, what the design does about it) is at the top of
-csrc/conflict_kernels.cu.  K1's and K3's launch geometry comes from
-`plan_probe` and `plan_ranks`, pure functions of the shapes.  All are
-integer functions: kernel and plain version agree exactly.
+csrc/conflict_kernels.cu.  K1's and K3's plan and launch geometry come
+from `plan_probe` and `plan_ranks`, pure functions of the shapes: the
+staged kernels below WARP_FROM_W lanes, the warp kernels (a warp a (read,
+run) pair, a warp a query, each search skipping the lanes its bounds share
+with its key) from it.  All are integer functions: kernel and plain
+version agree exactly.
 """
 
 from __future__ import annotations
@@ -205,6 +208,17 @@ def run_to_step_runs_plain(runs_b, runs_e, runs_ver):
 # launch plans of K1 and K3 (pure functions of the shapes)
 
 SMEM_MAX = 227 * 1024          # dynamic shared memory one block may take
+# T: from this key width (lanes) on, K1 and K3 take the warp plan (a warp
+# a (read, run) pair, a warp a query, every search skipping the lanes its
+# bounds share with its key); below it, the stream's W = 5 included, the
+# staged plans.  Set from the card sweep (`chip_smoke.py --sweep`, cold ms,
+# NVIDIA H100 80GB HBM3 at 700 W, PERF.md section 6): at W = 129 K1's warp
+# plan loses on short keys in a widened set (0.1566 against the staged
+# plan's 0.0815); at W = 257 the warp plans win all four (K1 0.1604 against
+# 0.2189 on those keys and 0.1871 against 0.8702 behind a common prefix;
+# K3 0.0768 against 0.2911 and 0.0969 against 0.9653), and by more at every
+# wider W.
+WARP_FROM_W = 257
 PROBE_READS = 128              # reads per K1 block (the TPU's READ_BLOCK)
 PROBE_MAX_THREADS = 1024
 # the least summary stride: of 128 (the TPU kernel's SUMMARY_STRIDE) to
@@ -216,79 +230,130 @@ PROBE_MAX_STRIDE = 1 << 16
 PROBE_SUMMARY_BYTES = 40 * 1024
 RANKS_THREADS = 128            # threads per K3 block (the kernel's kRanksThreads)
 RANKS_SMEM = 112 * 1024        # two K3 blocks an SM
-
-
-WIDE_WARPS = 8                 # a block of the no-staging plans: 8 warps
+WARP_BLOCK_WARPS = 8           # warps of a warp-plan block (K3's kRanksWarps)
+PROBE_STAGE_BYTES = 96 * 1024  # K1's warp plan stages its read ends up to this
+RANKS_WARP_QUERIES = 8         # recent rows per warp-plan K3 block: a query a warp
 
 
 class ProbePlan(NamedTuple):
-    group_log2: int   # lanes per read: 2**group_log2, K rounded up, <= 32
+    group_log2: int   # a read's lanes (staged) or warps (warp plan): 2**group_log2
     stride_log2: int  # summary stride S = 2**stride_log2
-    n_sum: int        # summary rows per run, ceil(run_cap / S); 0: no summary
-    threads: int      # per block: reads per block << group_log2
+    n_sum: int        # summary rows per run, ceil(run_cap / S); 0 in the warp plan
+    threads: int      # per block
     smem: int         # dynamic shared bytes per block
-    staged: int       # 1: the reads' rows staged; 0: a warp a read, no staging
+    warp: int         # 1: the warp plan; 0: the staged plan
 
 
 class RanksPlan(NamedTuple):
     span_rows: int    # main rows a block stages at most
     smem: int         # dynamic shared bytes per block
-    queries: int      # recent rows per block, <= RANKS_THREADS
-    staged: int       # 1: the queries staged; 0: a warp a query, no staging
+    queries: int      # recent rows per block
+    warp: int         # 1: the warp plan; 0: the staged plan
+
+
+def _group_log2(K: int) -> int:
+    """log2 of K rounded up to a power of two, at most 32."""
+    return min(max(K - 1, 0).bit_length(), 5)
+
+
+def _summary_log2(K: int, run_cap: int, W: int) -> int | None:
+    """log2 of the least summary stride >= PROBE_MIN_STRIDE whose summary
+    (every S-th begin of every run) fits PROBE_SUMMARY_BYTES; None where
+    none up to PROBE_MAX_STRIDE does."""
+    for stride_log2 in range(PROBE_MIN_STRIDE.bit_length() - 1,
+                             PROBE_MAX_STRIDE.bit_length()):
+        if K * -(-run_cap >> stride_log2) * W * 4 <= PROBE_SUMMARY_BYTES:
+            return stride_log2
+    return None
 
 
 @functools.lru_cache(maxsize=None)
 def plan_probe(K: int, run_cap: int, W: int) -> ProbePlan:
-    """K1's launch: one lane per (read, run) pair, a read's lanes in one
-    warp.  The summary stride is the least power of two >= PROBE_MIN_STRIDE
-    whose summary (every S-th begin of every run) fits PROBE_SUMMARY_BYTES;
-    where none up to PROBE_MAX_STRIDE does (wide keys, many runs) there is
-    no summary (n_sum = 0) and the kernel ranks each read end against the
-    whole run in global memory.  A block stages its reads' begins and ends
-    beside the summary: PROBE_READS of them, halved until the block fits
-    SMEM_MAX.  Where not even one read's rows fit (8 W bytes, from about
-    W = 29,000) nothing is staged: a warp takes a read, its runs one after
-    another, and compares 128 lanes a step in global memory (staged = 0)."""
-    group_log2 = min(max(K - 1, 0).bit_length(), 5)
+    """K1's launch: the warp plan from W = WARP_FROM_W (T = 257 lanes,
+    keys of 1024 bytes), and where the staged plan's run summary does not
+    fit (hundreds of runs); else the staged plan."""
+    if W >= WARP_FROM_W or _summary_log2(K, run_cap, W) is None:
+        return plan_probe_warp(K, W)
+    return plan_probe_staged(K, run_cap, W)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_probe_staged(K: int, run_cap: int, W: int) -> ProbePlan:
+    """K1's staged plan: one lane per (read, run) pair, a read's lanes in
+    one warp.  The summary stride is the least power of two >=
+    PROBE_MIN_STRIDE whose summary (every S-th begin of every run) fits
+    PROBE_SUMMARY_BYTES.  A block stages its reads' begins and ends beside
+    the summary: PROBE_READS of them (at most PROBE_MAX_THREADS lanes),
+    halved until the block fits SMEM_MAX.  Raises where no summary fits or
+    not even one read's rows do."""
+    group_log2 = _group_log2(K)
     reads = min(PROBE_READS, PROBE_MAX_THREADS >> group_log2)
-    stride_log2 = PROBE_MIN_STRIDE.bit_length() - 1
-    while (summary := K * -(-run_cap >> stride_log2) * W * 4) > PROBE_SUMMARY_BYTES:
-        if 1 << stride_log2 >= PROBE_MAX_STRIDE:
-            break
-        stride_log2 += 1
-    n_sum = -(-run_cap >> stride_log2)
-    if summary > PROBE_SUMMARY_BYTES:
-        summary = n_sum = 0
+    stride_log2 = _summary_log2(K, run_cap, W)
+    if stride_log2 is None:
+        raise ValueError(f"no K1 summary of {K} runs of {run_cap} rows fits at W={W}")
+    summary = K * -(-run_cap >> stride_log2) * W * 4
     while reads > 1 and summary + 2 * reads * W * 4 > SMEM_MAX:
         reads //= 2
     smem = summary + 2 * reads * W * 4  # with the reads' begins and ends
     if smem > SMEM_MAX:
-        return ProbePlan(5, stride_log2, 0, 32 * WIDE_WARPS, 0, 0)
-    return ProbePlan(group_log2, stride_log2, n_sum, reads << group_log2, smem, 1)
+        raise ValueError(f"K1's staged plan does not fit a block at W={W}")
+    return ProbePlan(group_log2, stride_log2, -(-run_cap >> stride_log2),
+                     reads << group_log2, smem, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_probe_warp(K: int, W: int, stage_bytes: int = PROBE_STAGE_BYTES) -> ProbePlan:
+    """K1's warp plan: a warp per (read, run) pair, K rounded up to a power
+    of two (at most 32; a warp then takes every 32nd run) warps a read,
+    and as many reads as make WARP_BLOCK_WARPS warps (at least one).  The
+    block stages its read ends in shared memory where they fit
+    `stage_bytes` (each (W + 6) & ~3 ints: stage_async's alignment
+    shift); else each search reads its key from L2 (a sweep times both)."""
+    group_log2 = _group_log2(K)
+    reads = max(WARP_BLOCK_WARPS >> group_log2, 1)
+    staged = reads * 4 * ((W + 6) & ~3)
+    smem = staged if staged <= min(stage_bytes, SMEM_MAX) else 0
+    return ProbePlan(group_log2, 0, 0, 32 * (reads << group_log2), smem, 1)
 
 
 @functools.lru_cache(maxsize=None)
 def plan_ranks(W: int) -> RanksPlan:
-    """K3's launch: RANKS_THREADS threads a block, and as many queries
-    (halved until they, their 16-byte alignment slack and the least and
-    the greatest query fit SMEM_MAX), staged with the main rows between
-    their least and greatest rank when those fit RANKS_SMEM (else no span
-    is staged and the queries search main in global memory).  Where not
-    even one query fits (about 12 W bytes, from about W = 19,400) nothing
-    is staged: a warp takes a query and compares 128 lanes a step in
-    global memory, its last lane + 1 inside the compare (staged = 0)."""
+    """K3's launch: the warp plan from W = WARP_FROM_W (T = 257 lanes,
+    keys of 1024 bytes), else the staged plan."""
+    return RANKS_WARP_PLAN if W >= WARP_FROM_W else plan_ranks_staged(W)
+
+
+# K3's warp plan: kRanksWarps warps and RANKS_WARP_QUERIES queries a block
+RANKS_WARP_PLAN = RanksPlan(0, 0, RANKS_WARP_QUERIES, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_ranks_staged(W: int) -> RanksPlan:
+    """K3's staged plan: RANKS_THREADS threads and as many queries a block,
+    staged with their 16-byte alignment slack and the least and the
+    greatest query, and with the main rows between their least and
+    greatest rank when those fit RANKS_SMEM (else no span is staged and
+    the queries search main in global memory).  Raises where the queries
+    do not fit a block (from about W = 440)."""
     row = 4 * W
+    fixed = RANKS_THREADS * row + 16 + 4 * ((2 * W + 3) & ~3) + 12
+    if fixed > SMEM_MAX:
+        raise ValueError(f"K3's staged plan does not fit a block at W={W}")
+    span_rows = max((RANKS_SMEM - fixed) // row, 0)
+    return RanksPlan(span_rows, fixed + span_rows * row, RANKS_THREADS, 0)
 
-    def fixed(queries: int) -> int:
-        return queries * row + 16 + 4 * ((2 * W + 3) & ~3) + 12
 
-    queries = RANKS_THREADS
-    while queries > 1 and fixed(queries) > SMEM_MAX:
-        queries //= 2
-    if fixed(queries) > SMEM_MAX:
-        return RanksPlan(0, 0, WIDE_WARPS, 0)
-    span_rows = max((RANKS_SMEM - fixed(queries)) // row, 0)
-    return RanksPlan(span_rows, fixed(queries) + span_rows * row, queries, 1)
+def warp_plan_occupancy(name: str, plan: ProbePlan | RanksPlan) -> int:
+    """Blocks of K1's ("probe_fused") or K3's ("compact_ranks") warp-plan
+    kernel that one SM of the current card holds at once under `plan`
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Needs the card."""
+    k1 = name == "probe_fused"
+    threads = plan.threads if k1 else 32 * WARP_BLOCK_WARPS
+    got = _build.load().fdb_warp_plan_occupancy(0 if k1 else 1, threads, plan.smem)
+    if got < 0:
+        msg = _build.load().fdb_cuda_error_string(-got).decode()
+        raise RuntimeError(f"occupancy of {name}'s warp plan: cuda error {-got} ({msg})")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -341,10 +406,12 @@ _I32, _I64, _BOOL = torch.int32, torch.int64, torch.bool
 # wrappers
 
 
-def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
+def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r, *,
+                plan: ProbePlan | None = None):
     """K1: fused history + run probe.  rb, re_: int32[R, W]; snap_r:
     int32[R]; r_ok, hist_r: bool[R]; runs_b, runs_e: int32[K, run_cap, W];
-    runs_ver: int32[K].  Returns bool[R]."""
+    runs_ver: int32[K].  `plan`: plan_probe's unless given (a sweep times
+    both plans).  Returns bool[R]."""
     if _is_cpu(rb):
         return probe_fused_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
                                  runs_ver, hist_r)
@@ -361,7 +428,7 @@ def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r):
         _check("runs_e", runs_e, _I32, (K, run_cap, W), dev),
         _check("runs_ver", runs_ver, _I32, (K,), dev),
     ]
-    plan = plan_probe(K, run_cap, W)
+    plan = plan or plan_probe(K, run_cap, W)
     out = torch.empty(R, dtype=_BOOL, device=dev)
     if R:
         _launch("fdb_probe_fused", dev, *ptrs, out.data_ptr(), R, K, run_cap, W,
@@ -417,9 +484,10 @@ def intra_query(beg_tab, stab, rb_r, re_r):
     return out
 
 
-def compact_ranks(ks, rec_ks):
+def compact_ranks(ks, rec_ks, *, plan: RanksPlan | None = None):
     """K3: ub[j] = #ks rows <= rec_ks[j].  ks: int32[cap, W] sorted;
-    rec_ks: int32[n_rec, W].  Returns int32[n_rec]."""
+    rec_ks: int32[n_rec, W].  `plan`: plan_ranks' unless given (a sweep
+    times both plans).  Returns int32[n_rec]."""
     if _is_cpu(ks):
         return compact_ranks_plain(ks, rec_ks)
     cap, W = ks.shape
@@ -429,7 +497,7 @@ def compact_ranks(ks, rec_ks):
         _check("ks", ks, _I32, (cap, W), dev),
         _check("rec_ks", rec_ks, _I32, (n_rec, W), dev),
     ]
-    plan = plan_ranks(W)
+    plan = plan or plan_ranks(W)
     out = torch.empty(n_rec, dtype=_I32, device=dev)
     if n_rec:
         _launch("fdb_compact_ranks", dev, *ptrs, out.data_ptr(), cap, n_rec, W,

@@ -11,8 +11,10 @@
 // _build.py).  Every entry point launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after its launch; the Python
 // wrapper (conflict/kernels.py) raises on a non-zero code.  K1 and K3 take
-// their launch geometry (threads, shared bytes, summary stride) from the
-// wrapper's pure planners, kernels.plan_probe and kernels.plan_ranks.
+// their plan and launch geometry (threads, shared bytes, summary stride)
+// from the wrapper's pure planners, kernels.plan_probe and
+// kernels.plan_ranks: the staged kernels below T = kernels.WARP_FROM_W
+// lanes, the warp kernels from it.
 //
 // K1 fdb_probe_fused  replaces _probe_fused_kernel (pallas_kernel.py:189,
 //    built by _build_probe_fused :292, wrapper run_conflicts_fused :322).
@@ -46,22 +48,39 @@
 //    history bit is set, or whose r_ok is false, loads nothing of the
 //    runs; a run not newer than the snapshot is skipped without a load.
 //    Unlike K5, a read's lanes do not stop at its first conflict.
-//    Wide keys (up to W = 4097 lanes, 16 KB keys; kernels.plan_probe): a
-//    read's two rows take 8 W bytes of shared memory, so the plan halves
-//    the reads a block stages until the block fits 227 KB (4 reads at W =
-//    4097), and where no summary fits 40 KB even at a stride of 2^16 it
-//    plans none (n_sum = 0): each read end is then ranked by a binary
-//    search over the whole run in global memory, its compares loading four
-//    lanes at a time and stopping at the first lane that differs.  A
-//    block may then be a single partial warp (K = 1), so the group's
-//    ballot takes the mask of the lanes the block has.  Past what shared
-//    memory holds (one read's two rows over 227 KB, from about W = 29,000:
-//    128 KB keys and up; plan_probe's staged = 0) nothing is staged:
-//    probe_fused_wide_kernel gives each read a warp, which walks the runs
-//    newer than the snapshot in order until the first conflict, as K5
-//    does, comparing 128 lanes a step in global memory (coalesced loads,
-//    a ballot for the first lane that differs).  A simple right kernel:
-//    no summary, no window, every compare from global memory.
+//    The stream's design above serves W below T = kernels.WARP_FROM_W = 257
+//    lanes (keys under 1024 bytes; a read's two rows take 8 W bytes of
+//    shared memory, so the plan halves the reads a block stages until the
+//    block fits 227 KB).  From T on, and where no run summary fits (hundreds
+//    of runs), K1 is probe_fused_warp_kernel, the design for wide keys:
+//    Bound: bytes — the sectors of the searches' least reading
+//    (chip_smoke.trace_search): each compare reads the mid row and the read
+//    end from the lanes both bounds of its interval already share with the
+//    end (every row between shares them, the rows being sorted) to the first
+//    lane that differs; then the read begin and ends[rank - 1] to theirs.
+//    Where the time went before (PR 12-13's plans, one thread a compare,
+//    four lanes a load): a compare that ties on a long prefix (keys behind a
+//    common prefix; a key against its key_after, which a widened set makes
+//    differ only in the last lane; sentinel tails) is W / 4 dependent loads,
+//    and a search repeats it at every step; blocks of 8-32 threads ran one
+//    an SM.  The design: (1) a warp compares two rows, 128 lanes a step
+//    (four coalesced 128-byte loads a row, all in flight, a ballot for the
+//    first lane that differs); (2) each compare starts at the lanes both
+//    bounds share with the key, rounded down to a 128-lane step
+//    (warp_search), so a search of n rows reads about W + 128 log2 n lanes
+//    where one from lane 0 reads W log2 n; (3) a warp per (read, run) pair,
+//    not a warp a read: K times
+//    the warps in flight, a block of 8 warps (one read at K = 8), the runs'
+//    verdicts ORed in a shared flag with one store a read and no atomics;
+//    a warp whose read is already in conflict stops; (4) the block's read
+//    ends, which each of its warps re-reads at every step, staged once in
+//    shared memory (cp.async, stage_async's 16-byte copies) where they fit
+//    kernels.PROBE_STAGE_BYTES (96 KB: up to W ~ 24,500 at K = 8), else
+//    read from L2 (W = 32769: a row is 128 KB, and one block an SM would
+//    hold it).  A read with its history bit set or r_ok false loads
+//    nothing, as below T.  Registers and occupancy:
+//    chip_smoke.py phase 2 prints them (-Xptxas -v, and
+//    cudaOccupancyMaxActiveBlocksPerMultiprocessor at each wide W).
 //
 // K5 fdb_probe  replaces _probe_kernel (pallas_kernel.py:165, built by
 //    _build_probe :213, wrapper run_conflicts_pallas :240, dispatched by
@@ -159,12 +178,29 @@
 //    path the queries are one run's step rows in key order, so a block
 //    spans a few thousand main rows and takes the staged branch; a block
 //    whose queries are all equal (the sentinel tail) does one search and
-//    no other load of main.  Wide keys (kernels.plan_ranks): a block takes
-//    128 queries while they fit shared memory with the least and the
-//    greatest query, and halves that as W grows (8 at W = 4097, 16 KB a
-//    row); the 128 threads still run the 129-ary search, and where the
-//    queries leave no room for a span every query searches main in global
-//    memory.
+//    no other load of main.  This design serves W below T =
+//    kernels.WARP_FROM_W = 257 lanes (the queries take 4 W bytes each of
+//    shared memory).  From T on, K3 is compact_ranks_warp_kernel, the
+//    design for wide keys.  Bound: bytes — the sectors of each query's
+//    least reading (chip_smoke.trace_search, as K1's).  Before (PR 12-13),
+//    one thread a compare, four lanes a load, every compare from lane 0;
+//    and a step function's rows tie on long prefixes (a key and its
+//    key_after differ only in the last lane; sentinel rows, their last
+//    lane + 1, in all but the last).  The design: a warp a query, the warp
+//    compare and prefix-skipping search of K1's warp plan (warp_search with
+//    the query's last lane + 1 inside the compare: the query is never
+//    written), and PR 3's narrowing of a block of consecutive queries
+//    (kernels.RANKS_WARP_QUERIES, 8 warps) where the block's first and last
+//    query share more than one 128-lane step (a long common prefix, or the
+//    sentinel tail): those two are ranked in all of main, and every query
+//    between them searches only between their ranks, starting past the
+//    lanes it shares with both (the lcp identities in
+//    compact_ranks_warp_kernel's comment), so the shared prefix is read
+//    once a block, not once a step; a block of equal queries searches
+//    once.  A block of distinct short keys has no prefix to save: its
+//    queries search at once, none waiting on another.  A query outside its
+//    block's first and last (not in key order: not on the main path)
+//    searches all of main, so any input is ranked right.
 
 // K4 fdb_run_to_step  replaces _interleave_kernel (pallas_kernel.py:416,
 //    built by _build_interleave :428, wrapper run_to_step_pallas :453), for
@@ -190,6 +226,8 @@ constexpr int kThreads = 256;  // intra_query, K4, K5
 constexpr int kFixThreads = 512;  // K2's block
 constexpr int kProbeMaxThreads = 1024;
 constexpr int kRanksThreads = 128;  // K3's block: a compile-time divisor
+constexpr int kRanksWarps = 8;  // K3's warp-plan block
+constexpr int kWarpProbeMaxReads = 32;  // K1's warp-plan block: reads, at most
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kSentLane = 0x7FFFFFFF;
 constexpr int kI32Max = 0x7FFFFFFF;
@@ -267,23 +305,6 @@ __device__ __forceinline__ int* stage_async(int* buf, const int* src, int n) {
   return dst;
 }
 
-// #rows of the sorted [n, W] block lexicographically below q, the rows in
-// global memory: each compare loads four lanes at a time
-__device__ __forceinline__ int count_below4(const int* __restrict__ rows, int n,
-                                            int W, const int* __restrict__ q) {
-  int lo = 0;
-  int hi = n;
-  while (lo < hi) {
-    const int mid = lo + ((hi - lo) >> 1);
-    if (row_less4(rows + static_cast<size_t>(mid) * W, q, W)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
 // #rows of the sorted [n, W] block lexicographically below q
 __device__ __forceinline__ int count_below(const int* __restrict__ rows, int n,
                                            int W, const int* __restrict__ q) {
@@ -300,8 +321,8 @@ __device__ __forceinline__ int count_below(const int* __restrict__ rows, int n,
   return lo;
 }
 
-// K1: a block is `threads >> group_log2` reads x all K runs; n_sum == 0:
-// no summary, every read end ranked against the whole run
+// K1 below kernels.WARP_FROM_W: a block is `threads >> group_log2` reads x
+// all K runs
 __global__ void __launch_bounds__(kProbeMaxThreads)
     probe_fused_kernel(const int* __restrict__ rb, const int* __restrict__ re,
                        const int* __restrict__ snap,
@@ -350,13 +371,6 @@ __global__ void __launch_bounds__(kProbeMaxThreads)
     for (int k = g; k < K && !conflict; k += G) {
       if (runs_ver[k] <= s) continue;
       const int* begins = runs_b + k * run_rows;
-      if (n_sum == 0) {
-        const int rank = count_below4(begins, run_cap, W, qe);
-        conflict = rank > 0 &&
-                   row_less4(qb, runs_e + k * run_rows +
-                                     static_cast<size_t>(rank - 1) * W, W);
-        continue;
-      }
       const int c = count_below(summary + static_cast<size_t>(k) * n_sum * W,
                                 n_sum, W, qe);
       if (c == 0) continue;  // begins[0] >= read end: rank 0
@@ -587,25 +601,30 @@ __global__ void __launch_bounds__(kRanksThreads)
   }
 }
 
-// a < b over W lanes in global memory, by one whole warp: each step the
-// warp loads 128 lanes of both rows (four coalesced 128-byte loads a row,
-// all in flight), and a ballot finds the first lane that differs.  With
-// `inc_b`, b's last lane counts 1 more (on the unsigned bits, wrapping as
-// uint32 does): the compare sees it, b is never written.  Every lane of
-// the warp returns the same answer.
-__device__ __forceinline__ bool warp_row_less(const int* __restrict__ a,
-                                              const int* __restrict__ b, int W,
-                                              bool inc_b) {
+// The first lane at which rows a and b differ as the compare sees them
+// (with `inc_a` / `inc_b`, that row's last lane counts 1 more, on the
+// unsigned bits, wrapping as uint32 does: neither row is written), W when
+// none does; *less: a < b.  The caller guarantees that the two agree on
+// lanes [0, from), so the walk starts at `from` rounded down to a 128-lane
+// step.  By one whole warp: each step loads 128 lanes of both rows (four
+// coalesced 128-byte loads a row, all in flight) and a ballot finds the
+// first lane that differs.  (Wider steps, or prefetching the next steps
+// to L2, cost registers and so blocks an SM: both ran slower on the card.)
+// Every lane of the warp returns the same.
+__device__ __forceinline__ int warp_first_diff(const int* __restrict__ a, bool inc_a,
+                                               const int* __restrict__ b, bool inc_b,
+                                               int W, int from, bool* less) {
   const int l = threadIdx.x & 31;
-  for (int w0 = 0; w0 < W; w0 += 128) {
+  for (int w0 = from & ~127; w0 < W; w0 += 128) {
     int x[4], y[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int w = w0 + 32 * j + l;
       x[j] = w < W ? a[w] : 0;
       y[j] = w < W ? b[w] : 0;
-      if (inc_b && w == W - 1) {
-        y[j] = static_cast<int>(static_cast<unsigned>(y[j]) + 1u);
+      if (w == W - 1) {
+        if (inc_a) x[j] = static_cast<int>(static_cast<unsigned>(x[j]) + 1u);
+        if (inc_b) y[j] = static_cast<int>(static_cast<unsigned>(y[j]) + 1u);
       }
     }
 #pragma unroll
@@ -613,77 +632,193 @@ __device__ __forceinline__ bool warp_row_less(const int* __restrict__ a,
       const unsigned diff = __ballot_sync(kFull, x[j] != y[j]);
       if (diff) {
         const int src = __ffs(diff) - 1;
-        return __shfl_sync(kFull, x[j], src) < __shfl_sync(kFull, y[j], src);
+        *less = __shfl_sync(kFull, x[j], src) < __shfl_sync(kFull, y[j], src);
+        return w0 + 32 * j + src;
       }
     }
   }
-  return false;
+  *less = false;
+  return W;
 }
 
-// #rows of the sorted [n, W] rows below q (q's last lane + 1 with
-// `inc_q`), by one whole warp, every row and q in global memory
-__device__ __forceinline__ int warp_count_below(const int* __restrict__ rows,
-                                                int n, int W,
-                                                const int* __restrict__ q,
-                                                bool inc_q) {
-  int lo = 0;
-  int hi = n;
+// #rows of the sorted rows[lo, hi) below q (its last lane + 1 with
+// `inc_q`), the rank known to lie in [lo, hi], by one whole warp.  *l_lo
+// is how many leading lanes rows[lo - 1] shares with q as the compare
+// sees it, *l_hi the same of rows[hi] (0 where unknown or where the row
+// does not exist).  The rows are sorted, so every row between shares the
+// lesser of the two with q: each compare starts there, and the side that
+// moves takes the mid row's share.  Returns the rank, with *l_lo and *l_hi
+// the shares of the final bounds.
+__device__ __forceinline__ int warp_search(const int* __restrict__ rows, int lo,
+                                           int hi, int W, const int* __restrict__ q,
+                                           bool inc_q, int* l_lo, int* l_hi) {
+  int a = *l_lo;
+  int b = *l_hi;
   while (lo < hi) {
     const int mid = lo + ((hi - lo) >> 1);
-    if (warp_row_less(rows + static_cast<size_t>(mid) * W, q, W, inc_q)) {
+    bool less;
+    const int f = warp_first_diff(rows + static_cast<size_t>(mid) * W, false, q,
+                                  inc_q, W, min(a, b), &less);
+    if (less) {
       lo = mid + 1;
+      a = f;
     } else {
       hi = mid;
+      b = f;
     }
   }
+  *l_lo = a;
+  *l_hi = b;
   return lo;
 }
 
-// K1 where one read's rows do not fit shared memory (plan_probe's staged =
-// 0): a warp a read, its runs newer than its snapshot one after another
-// until the first conflict, nothing staged
-__global__ void probe_fused_wide_kernel(
-    const int* __restrict__ rb, const int* __restrict__ re,
-    const int* __restrict__ snap, const bool* __restrict__ r_ok,
-    const bool* __restrict__ hist, const int* __restrict__ runs_b,
-    const int* __restrict__ runs_e, const int* __restrict__ runs_ver,
-    bool* __restrict__ out, int R, int K, int run_cap, int W) {
-  const int i = static_cast<int>(
-      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  if (i >= R) return;  // warp-uniform
-  const bool h = hist[i];
-  bool conflict = false;
-  if (!h && r_ok[i]) {
+// K1 from W = kernels.WARP_FROM_W: a warp per (read, run) pair.  A block
+// is `reads` reads x G = 2^group_log2 warps (warp g of a read takes runs g,
+// g + G, ...); with `stage`, the block's read ends are staged in shared
+// memory first ([reads][(W + 6) & ~3] ints, 16-byte copies where they
+// can).  The runs' results meet in a shared flag a read: one store a read.
+__global__ void __launch_bounds__(kProbeMaxThreads)
+    probe_fused_warp_kernel(const int* __restrict__ rb, const int* __restrict__ re,
+                            const int* __restrict__ snap,
+                            const bool* __restrict__ r_ok,
+                            const bool* __restrict__ hist,
+                            const int* __restrict__ runs_b,
+                            const int* __restrict__ runs_e,
+                            const int* __restrict__ runs_ver,
+                            bool* __restrict__ out, int R, int K, int run_cap,
+                            int W, int group_log2, int stage) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ int hit[kWarpProbeMaxReads];
+  const int warp = threadIdx.x >> 5;
+  const int reads = static_cast<int>(blockDim.x >> 5) >> group_log2;
+  const int r0 = blockIdx.x * reads;
+  const int n_reads = min(reads, R - r0);
+  const int local = warp >> group_log2;
+  const int i = r0 + local;
+  const bool valid = local < n_reads;
+  const int* qe = re + static_cast<size_t>(valid ? i : r0) * W;
+  if (stage) {
+    const int stride = (W + 6) & ~3;  // W and stage_async's shift, 16-byte rows
+    for (int r = 0; r < n_reads; ++r) {
+      int* row = stage_async(smem + static_cast<size_t>(r) * stride,
+                             re + static_cast<size_t>(r0 + r) * W, W);
+      if (r == local) qe = row;
+    }
+    copy_async_wait();
+  }
+  if (threadIdx.x < reads) hit[threadIdx.x] = 0;
+  __syncthreads();
+
+  if (valid && !hist[i] && r_ok[i]) {  // warp-uniform
     const int s = snap[i];
     const int* qb = rb + static_cast<size_t>(i) * W;
-    const int* qe = re + static_cast<size_t>(i) * W;
     const size_t run_rows = static_cast<size_t>(run_cap) * W;
-    for (int k = 0; k < K && !conflict; ++k) {
+    volatile int* mine = hit + local;
+    for (int k = warp & ((1 << group_log2) - 1); k < K; k += 1 << group_log2) {
       if (runs_ver[k] <= s) continue;
-      const int rank = warp_count_below(runs_b + k * run_rows, run_cap, W, qe,
-                                        false);
-      conflict = rank > 0 &&
-                 warp_row_less(qb, runs_e + k * run_rows +
-                                       static_cast<size_t>(rank - 1) * W,
-                               W, false);
+      if (__any_sync(kFull, *mine != 0)) break;  // another warp found one
+      int l_lo = 0, l_hi = 0;
+      const int rank = warp_search(runs_b + k * run_rows, 0, run_cap, W, qe,
+                                   false, &l_lo, &l_hi);
+      if (rank == 0) continue;
+      bool less;
+      warp_first_diff(qb, false,
+                      runs_e + k * run_rows + static_cast<size_t>(rank - 1) * W,
+                      false, W, 0, &less);
+      if (less) {
+        if ((threadIdx.x & 31) == 0) *mine = 1;
+        break;
+      }
     }
   }
-  if ((threadIdx.x & 31) == 0) out[i] = h || conflict;
+  __syncthreads();
+  if (threadIdx.x < n_reads) {
+    out[r0 + threadIdx.x] = hist[r0 + threadIdx.x] || hit[threadIdx.x] != 0;
+  }
 }
 
-// K3 where one query does not fit shared memory (plan_ranks' staged = 0):
-// a warp a recent row, searched in main with its last lane + 1 inside the
-// compare
-__global__ void compact_ranks_wide_kernel(const int* __restrict__ ks,
-                                          const int* __restrict__ rec,
-                                          int* __restrict__ out, int cap,
-                                          int n_rec, int W) {
-  const int j = static_cast<int>(
-      (static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5);
-  if (j >= n_rec) return;  // warp-uniform
-  const int rank =
-      warp_count_below(ks, cap, W, rec + static_cast<size_t>(j) * W, true);
-  if ((threadIdx.x & 31) == 0) out[j] = rank;
+// K3 from W = kernels.WARP_FROM_W: a block is kRanksWarps warps and
+// `queries` consecutive recent rows, a warp a query.  Warp 1 first walks
+// the last query against the first: P, the lanes they share.  Where they
+// differ within the first 128-lane step (distinct keys, as in a step
+// function of short keys), narrowing would save only the top steps of
+// each search and chain two searches, so every query searches all of
+// main at once.  Else (a long shared prefix, or equal queries: the
+// sentinel tail) warp 0 ranks the first query in all of main and warp 1
+// the last unless it equals the first (so a block of equal queries
+// searches once), and every other query is walked against the first and,
+// from min(that share, P) (lcp(x, z) >= min(lcp(x, y), lcp(y, z)) for any
+// rows), against the last: where it lies between them (in key order, one
+// run's step rows, as on the main path) its rank lies between theirs, and
+// the sorted-lcp identity (lcp(a, c) = min(lcp(a, b), lcp(b, c)) for
+// a <= b <= c) gives the lanes it shares with both bounds, so its search
+// starts past them.  A query outside them searches all of main.  Every
+// compare sees a query with its last lane + 1.
+__global__ void __launch_bounds__(32 * kRanksWarps)
+    compact_ranks_warp_kernel(const int* __restrict__ ks,
+                              const int* __restrict__ rec,
+                              int* __restrict__ out, int cap, int n_rec, int W,
+                              int queries) {
+  // P; lo and the lanes rows[lo - 1] shares with the first query; hi (-1:
+  // the last query equals the first) and the lanes rows[hi] shares with
+  // the last
+  __shared__ int bounds[5];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int j0 = blockIdx.x * queries;
+  const int n = min(queries, n_rec - j0);
+  const int* first = rec + static_cast<size_t>(j0) * W;
+  const int* last = first + static_cast<size_t>(n - 1) * W;
+  if (warp == 1) {
+    bool less;
+    const int shared = warp_first_diff(first, true, last, true, W, 0, &less);
+    if (lane == 0) bounds[0] = shared;
+  }
+  __syncthreads();
+  const int P = bounds[0];
+  if (P < 128) {  // block-uniform
+    for (int j = warp; j < n; j += kRanksWarps) {
+      int a = 0, b = 0;
+      const int rank = warp_search(ks, 0, cap, W, first + static_cast<size_t>(j) * W,
+                                   true, &a, &b);
+      if (lane == 0) out[j0 + j] = rank;
+    }
+    return;
+  }
+  if (warp < 2 && (warp == 0 || P < W)) {
+    int a = 0, b = 0;
+    const int rank = warp_search(ks, 0, cap, W, warp ? last : first, true, &a, &b);
+    if (lane == 0) {
+      bounds[1 + 2 * warp] = rank;
+      bounds[2 + 2 * warp] = warp ? b : a;
+      if (warp == 0) out[j0] = rank;
+    }
+  } else if (warp == 1 && lane == 0) {
+    bounds[3] = -1;  // the last query equals the first: rank lo
+    bounds[4] = 0;
+  }
+  __syncthreads();
+  const int lo = bounds[1];
+  const int hi = bounds[3] < 0 ? lo : bounds[3];
+  for (int j = warp; j < n; j += kRanksWarps) {
+    if (j == 0) continue;
+    const int* q = first + static_cast<size_t>(j) * W;
+    int rank = hi;
+    if (j < n - 1) {
+      bool after, before;  // first < q, q < last
+      const int f1 = warp_first_diff(first, true, q, true, W, 0, &after);
+      const int f2 = warp_first_diff(q, true, last, true, W, min(f1, P), &before);
+      int a = 0, b = 0, from = 0, to = cap;
+      if ((f1 == W || after) && (f2 == W || before)) {
+        a = min(bounds[2], f1);
+        b = min(f2, bounds[4]);
+        from = lo;
+        to = hi;
+      }
+      rank = warp_search(ks, from, to, W, q, true, &a, &b);
+    }
+    if (lane == 0) out[j0 + j] = rank;
+  }
 }
 
 __device__ __forceinline__ int clamp_to(int x, int lo, int hi) {
@@ -843,21 +978,47 @@ const char* fdb_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Blocks of a warp-plan kernel (0: K1's, 1: K3's) that one SM holds at
+// once with `threads` threads and `smem_bytes` of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); minus the error code
+// when the runtime refuses.
+int fdb_warp_plan_occupancy(int kernel, int threads, int smem_bytes) {
+  int blocks = 0;
+  cudaError_t err;
+  if (kernel == 0) {
+    err = allow_smem(probe_fused_warp_kernel, smem_bytes);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, probe_fused_warp_kernel, threads, smem_bytes);
+    }
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, compact_ranks_warp_kernel, threads, smem_bytes);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return blocks;
+}
+
 int fdb_probe_fused(const void* rb, const void* re, const void* snap,
                     const void* r_ok, const void* hist, const void* runs_b,
                     const void* runs_e, const void* runs_ver, void* out, int R,
                     int K, int run_cap, int W, int group_log2, int stride_log2,
-                    int n_sum, int threads, int smem_bytes, int staged,
+                    int n_sum, int threads, int smem_bytes, int warp,
                     void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!staged) {
-    probe_fused_wide_kernel<<<blocks_for(static_cast<size_t>(R) * 32, threads),
-                              threads, 0, st>>>(
+  if (warp) {  // `threads` / 32 warps: reads of 2^group_log2 warps each
+    const cudaError_t err = allow_smem(probe_fused_warp_kernel, smem_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    probe_fused_warp_kernel<<<blocks_for(R, (threads >> 5) >> group_log2), threads,
+                              smem_bytes, st>>>(
         static_cast<const int*>(rb), static_cast<const int*>(re),
         static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
         static_cast<const bool*>(hist), static_cast<const int*>(runs_b),
         static_cast<const int*>(runs_e), static_cast<const int*>(runs_ver),
-        static_cast<bool*>(out), R, K, run_cap, W);
+        static_cast<bool*>(out), R, K, run_cap, W, group_log2, smem_bytes > 0);
     return static_cast<int>(cudaGetLastError());
   }
   const cudaError_t err = allow_smem(probe_fused_kernel, smem_bytes);
@@ -900,13 +1061,14 @@ int fdb_intra_query(const void* tab, const void* stab, const void* rb_r,
 
 int fdb_compact_ranks(const void* ks, const void* rec, void* out, int cap,
                       int n_rec, int W, int span_rows, int smem_bytes,
-                      int queries, int staged, void* stream) {
+                      int queries, int warp, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!staged) {  // a warp a query, `queries` warps a block
-    compact_ranks_wide_kernel<<<blocks_for(n_rec, queries), 32 * queries, 0,
+  if (warp) {  // a warp a query, `queries` a block
+    if (queries < 1) return static_cast<int>(cudaErrorInvalidValue);
+    compact_ranks_warp_kernel<<<blocks_for(n_rec, queries), 32 * kRanksWarps, 0,
                                 st>>>(static_cast<const int*>(ks),
                                       static_cast<const int*>(rec),
-                                      static_cast<int*>(out), cap, n_rec, W);
+                                      static_cast<int*>(out), cap, n_rec, W, queries);
     return static_cast<int>(cudaGetLastError());
   }
   const cudaError_t err = allow_smem(compact_ranks_narrowed_kernel, smem_bytes);

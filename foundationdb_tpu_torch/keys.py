@@ -182,9 +182,8 @@ def grown_key_bytes(need: int) -> int:
     least power of two of bytes that holds it (32 -> 64 -> ... -> 16384 ->
     32768 -> ...).  There is no fixed ceiling: a set widens until the card
     cannot hold its buffers (conflict/device.py `_widen` then raises
-    KeyTooLongError).  From 1024 bytes K1 stages fewer reads a block and
-    ranks read ends against the runs in global memory; past what shared
-    memory holds, K1 and K3 stage nothing (conflict/kernels.plan_probe,
+    KeyTooLongError).  From 1024 bytes (W = 257 lanes) K1 and K3 take
+    their warp plans (conflict/kernels.WARP_FROM_W, plan_probe,
     plan_ranks)."""
     return max(4, 1 << (need - 1).bit_length())
 

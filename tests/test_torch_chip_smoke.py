@@ -891,6 +891,49 @@ def test_prefixed_lanes_encode_the_prefixed_keys(W):
     assert bool((got[1] == keys.SENT_LANE).all())
 
 
+@pytest.mark.parametrize("W", [9, 17, 129])
+def test_widened_lanes_encode_keys_and_their_key_after(W):
+    """Phase 3's `widened` input: each 16-byte key's row at W lanes is the
+    encoding a widened set holds (keys.widen_lanes), its `after` row the
+    encoding of key + b"\\0", the two differing only in the last lane;
+    sentinel rows stay sentinel."""
+    rng = np.random.default_rng(W)
+    keys_16 = [bytes(rng.integers(0, 256, 16, dtype=np.uint8)) for _ in range(30)]
+    rows = np.concatenate([keys.encode_keys(keys_16, 16), np.full((5, 5), SENT, np.uint32)])
+    got = chip_smoke.widened_lanes(torch, keys, rows, W, "cpu")
+    after = chip_smoke.widened_lanes(torch, keys, rows, W, "cpu", after=True)
+    assert np.array_equal(keys.from_lanes(got[:30]), keys.encode_keys(keys_16, 4 * (W - 1)))
+    assert np.array_equal(keys.from_lanes(after[:30]),
+                          keys.encode_keys([k + b"\x00" for k in keys_16], 4 * (W - 1)))
+    assert torch.equal(got[:30, :-1], after[:30, :-1])
+    assert bool((got[30:] == keys.SENT_LANE).all()) and torch.equal(got[30:], after[30:])
+
+
+def test_trace_search_reads_less_behind_a_shared_prefix():
+    """The corrected yardstick: behind a common prefix filling the width a
+    search reads each row's prefix only until both bounds share it, so it
+    counts far fewer lanes than compares that all start at lane 0, with
+    the same ranks."""
+    rng = np.random.default_rng(4)
+    W = 65
+    table = chip_smoke.prefixed_lanes(torch, keys, _rows(rng, 400), W, "cpu")
+    qq = chip_smoke.prefixed_lanes(torch, keys, _rows(rng, 100), W, "cpu")
+    rank, t_el, _q_el, steps, lanes = chip_smoke.trace_search(torch, table, qq,
+                                                              torch.arange(100))
+    assert torch.equal(rank.to(torch.int32), lower_bound(table, qq))
+    lo = torch.zeros(100, dtype=torch.long)
+    hi = torch.full_like(lo, len(table))
+    from_zero = 0
+    while bool((lo < hi).any()):
+        a = (lo < hi).nonzero()[:, 0]
+        mid = (lo[a] + hi[a]) // 2
+        share, less = chip_smoke._share(torch, table[mid], qq[a])
+        from_zero += int((torch.clamp(share, max=W - 1) + 1).sum())
+        lo[a] = torch.where(less, mid + 1, lo[a])
+        hi[a] = torch.where(less, hi[a], mid)
+    assert steps <= lanes and 2 * lanes < from_zero
+
+
 @pytest.fixture
 def small_root(monkeypatch):
     """Phase 21 at a small size on the CPU: the bench's transactions a batch

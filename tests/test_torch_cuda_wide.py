@@ -1,13 +1,15 @@
 """K1, K3 and K4 at the wider keys a conflict set widens to, on the card:
 each held against its plain torch version on the same CUDA tensors (exact),
-at W = 17, 65 and 129 lanes (64-, 256- and 512-byte keys), at small shapes
-and at the stream's (K = 8 runs of 16384 rows, main at 2**19 rows); at W =
-513 and 4097 (2048- and 16384-byte keys: fewer reads and queries a block,
-K1 without a run summary) at small shapes, with one run (K1's block a
-partial warp), and at the default set's (K = 8 runs of 4096 rows, main at
-2**16 rows); at W = 32769 (131072-byte keys, past what a block's shared
-memory holds: K1 and K3 stage nothing, a warp a read or a query) at small
-shapes, with one run, and with 8 runs of 256 rows over 4096 main rows; the
+at W = 17, 65 and 129 lanes (64-, 256- and 512-byte keys: K1's and K3's
+staged plans), at small shapes and at the stream's (K = 8 runs of 16384
+rows, main at 2**19 rows); at W = 513 and 4097 (2048- and 16384-byte keys:
+their warp plans, from kernels.WARP_FROM_W) at small shapes, with one run,
+and at the default set's (K = 8 runs of 4096 rows, main at 2**16 rows); at
+W = 32769 (131072-byte keys: the warp plans with the read ends in global
+memory) at small shapes, with one run, and with 8 runs of 256 rows over
+4096 main rows; the stream's 16-byte keys as a widened set holds them, every
+range [k, key_after(k)), at W = 129, 513 and 4097 under the warp plans and
+at W = 129 under the staged ones; the
 port's default set fed keys of 20 to 204 bytes on "cuda" against the same
 set on "cpu": identical verdicts and state after every batch, widening
 32 -> 64 -> 256 on both; and a small set widened to 131072 bytes by a
@@ -118,14 +120,104 @@ def test_widest_kernels_equal_their_plain_versions(cuda, W, shape):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+def _widened(rng, n: int, W: int):
+    """n sorted distinct 16-byte keys at width W as a widened set holds
+    them (keys.widen_lanes), and each one's key_after (its length lane +
+    1): the two differ only in the last lane."""
+    raw = np.unique(rng.integers(0, 256, size=(n, 16), dtype=np.uint8), axis=0)
+    raw[: n // 8, :12] = raw[0, :12]  # keys sharing 12 of their 16 bytes
+    raw = np.unique(raw, axis=0)
+    k = keys.widen_lanes(keys.to_lanes(keys.encode_fixed(raw, 16)), W)
+    after = k.clone()
+    after[:, -1] += 1
+    return k, after
+
+
+def _sent(n: int, W: int) -> torch.Tensor:
+    return torch.full((n, W), keys.SENT_LANE, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("W,plan", [(129, "warp"), (129, "staged"), (129, "ends_l2"),
+                                    (513, "warp"), (513, "ends_l2"), (4097, "warp"),
+                                    (4097, "ends_l2")])
+def test_widened_keys_equal_their_plain_versions(cuda, W, plan):
+    """The stream's 16-byte keys as a widened set holds them, every range
+    [k, key_after(k)) (a key and its end differ only in the last lane),
+    runs and main with sentinel tails, recent rows of a run's step
+    function: K1 and K3 under the warp plan (K1's read ends staged; with
+    "ends_l2", read from L2, and K3 one query a block), and at W = 129 the
+    staged plan too, each equal to its plain version."""
+    rng = np.random.default_rng(W + 2)
+    K, run_cap, cap, R = 4, 96, 1 << 11, 300
+    pool_k, pool_a = _widened(rng, 1200, W)
+    pick = lambda n: torch.from_numpy(np.sort(rng.choice(len(pool_k), n, replace=False)))  # noqa: E731
+    runs_b, runs_e = _sent(K * run_cap, W).reshape(K, run_cap, W), _sent(K * run_cap, W)
+    runs_e = runs_e.reshape(K, run_cap, W)
+    for k in range(K):
+        idx = pick(int(rng.integers(0, run_cap)))
+        runs_b[k, : len(idx)], runs_e[k, : len(idx)] = pool_k[idx], pool_a[idx]
+    rb = pool_k[torch.from_numpy(rng.integers(0, len(pool_k), R))]
+    hits = torch.from_numpy(rng.integers(0, K * run_cap, R // 3))
+    rb[: R // 3] = runs_b.reshape(-1, W)[hits]  # reads of the runs' keys (some sentinel)
+    re_ = keys.with_last_lane_inc(rb)
+    idx = pick(700)
+    main = torch.stack([pool_k[idx], pool_a[idx]], 1).reshape(-1, W)
+    ks = torch.cat([main, _sent(cap - len(main), W)])
+    runs_ver = torch.from_numpy(rng.integers(0, 12, K).astype(np.int32))
+    k1 = tuple(t.to(cuda) for t in (
+        rb, re_, torch.from_numpy(rng.integers(0, 12, R).astype(np.int32)),
+        torch.from_numpy(rng.random(R) < 0.9), runs_b, runs_e, runs_ver,
+        torch.from_numpy(rng.random(R) < 0.05)))
+    ks = ks.to(cuda)
+    rec, _ = kernels.run_to_step_plain(k1[4][0], k1[5][0], k1[6][:1])
+    p1, p3 = {
+        "warp": lambda: (kernels.plan_probe_warp(K, W), kernels.RANKS_WARP_PLAN),
+        "ends_l2": lambda: (kernels.plan_probe_warp(K, W, 0),
+                            kernels.RANKS_WARP_PLAN._replace(queries=1)),
+        "staged": lambda: (kernels.plan_probe_staged(K, run_cap, W),
+                           kernels.plan_ranks_staged(W)),
+    }[plan]()
+    got = kernels.probe_fused(*k1, plan=p1)
+    assert torch.equal(got, kernels.probe_fused_plain(*k1))
+    assert bool((got & ~k1[7]).any())  # some read meets a run
+    assert torch.equal(kernels.compact_ranks(ks, rec, plan=p3),
+                       kernels.compact_ranks_plain(ks, rec))
+
+
+@pytest.mark.parametrize("W", (513, 4097))
+def test_warp_k3_ranks_queries_in_any_order(cuda, W):
+    """K3's warp plan on queries that share all but their last word with
+    main (each block narrows) and with one another: in key order, in key
+    order with a sentinel tail and equal runs of queries, and shuffled
+    (queries outside their block's first and last search all of main):
+    each equal to the plain version, the queries unchanged."""
+    rng = np.random.default_rng(W + 3)
+    ks = keys.to_lanes(_sorted_rows(rng, 1 << 11, W, 1 << 10), cuda)
+    live = keys.to_lanes(_sorted_rows(rng, 300, W, 300), cuda)
+    live = torch.cat([live, ks[:200]])
+    live = live[torch.from_numpy(np.lexsort(keys.from_lanes(live).T[::-1]).copy()).to(cuda)]
+    tail = torch.full((70, W), keys.SENT_LANE, dtype=torch.int32, device=cuda)
+    sorted_rec = torch.cat([live, tail])
+    dup = torch.cat([live[:50].repeat_interleave(3, 0), live[50:], tail])
+    shuffled = sorted_rec[torch.from_numpy(rng.permutation(len(sorted_rec))).to(cuda)]
+    for rec in (sorted_rec, dup, shuffled):
+        before = rec.clone()
+        got = kernels.compact_ranks(ks, rec)
+        assert kernels.plan_ranks(W).warp == 1
+        assert torch.equal(got, kernels.compact_ranks_plain(ks, rec))
+        assert torch.equal(rec, before)
+
+
 @pytest.mark.parametrize("shape", ["small", "one_run", "runs"])
 def test_kernels_past_shared_memory_equal_their_plain_versions(cuda, shape):
-    """W = 32769: K1's and K3's plans stage nothing (a warp a read, a warp
-    a query, every compare in global memory); both equal their plain
-    versions, K3's input unchanged by the launch."""
+    """W = 32769: K1's and K3's warp plans (a warp a (read, run) pair, a
+    warp a query, the read ends past what a block stages: every compare in
+    global memory); both equal their plain versions, K3's input unchanged
+    by the launch."""
     W = 32769
-    assert kernels.plan_probe(8, 256, W).staged == 0
-    assert kernels.plan_ranks(W).staged == 0
+    assert kernels.plan_probe(8, 256, W).warp == 1
+    assert kernels.plan_probe(8, 256, W).smem == 0
+    assert kernels.plan_ranks(W).warp == 1
     rng = np.random.default_rng(W)
     K, run_cap, cap, R = {"small": (3, 64, 1 << 10, 200),
                           "one_run": (1, 64, 1 << 10, 100),

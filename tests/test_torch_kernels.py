@@ -363,7 +363,7 @@ def test_plan_probe_at_the_streams_shapes():
     """K1 at the stream's shapes: 128 reads x 8 runs a block, the
     summary every 512th begin (5 KB at W=5, 9 KB at W=9)."""
     assert kernels.plan_probe(8, 1 << 14, 5) == kernels.ProbePlan(
-        group_log2=3, stride_log2=9, n_sum=32, threads=1024, smem=10240, staged=1)
+        group_log2=3, stride_log2=9, n_sum=32, threads=1024, smem=10240, warp=0)
     assert kernels.plan_probe(8, 1 << 14, 9).smem == 8 * 32 * 36 + 2 * 128 * 36
 
 
@@ -412,36 +412,51 @@ def test_plan_probe_windows_hold_the_rank(seed):
         assert bool(((lo <= rank) & (rank <= hi))[hit].all())
 
 
-@pytest.mark.parametrize("K,run_cap,W", [(8, 1 << 26, 9), (3000, 64, 5), (8, 64, 300)])
+@pytest.mark.parametrize("K,run_cap,W", [(8, 1 << 26, 9), (3000, 64, 5), (80, 64, 129),
+                                         (8, 64, 300)])
 def test_plan_probe_raises_where_no_summary_fits(K, run_cap, W):
-    """Where no summary fits 40 KB even at the widest stride, K1 plans
-    none (n_sum = 0: each read end is ranked against the whole run);
-    where the reads' rows outgrow the block, it stages fewer reads.  Where
-    one read's two rows exceed a block it stages nothing: a warp a read,
-    eight a block, no shared memory."""
-    p = kernels.plan_probe(K, run_cap, W)
-    summary = K * p.n_sum * W * 4
-    assert summary <= kernels.PROBE_SUMMARY_BYTES
-    assert p.n_sum == 0 or K * -(-run_cap >> p.stride_log2) * W * 4 == summary
-    if K * -(-run_cap // kernels.PROBE_MAX_STRIDE) * W * 4 > kernels.PROBE_SUMMARY_BYTES:
-        assert p.n_sum == 0
+    """Where no run summary fits 40 KB even at the widest stride (many or
+    huge runs), or from T = kernels.WARP_FROM_W lanes on, K1 takes the
+    warp plan; the staged planner raises there.  Just below T, with a
+    summary that fits, K1 keeps the staged plan."""
+    T = kernels.WARP_FROM_W
+    no_summary = K * -(-run_cap // kernels.PROBE_MAX_STRIDE) * W * 4 > kernels.PROBE_SUMMARY_BYTES
+    assert no_summary or W >= T
+    assert kernels.plan_probe(K, run_cap, W) == kernels.plan_probe_warp(K, W)
+    with pytest.raises(ValueError):
+        kernels.plan_probe_staged(K, run_cap, W if no_summary else 8 * T)
+    p = kernels.plan_probe(8, 1 << 14, T - 1)
+    assert p.warp == 0 and p.n_sum > 0 and p == kernels.plan_probe_staged(8, 1 << 14, T - 1)
     reads = p.threads >> p.group_log2
-    assert p.smem == summary + 2 * reads * W * 4 <= kernels.SMEM_MAX
-    most = min(kernels.PROBE_READS, kernels.PROBE_MAX_THREADS >> p.group_log2)
-    assert reads == most or summary + 4 * reads * W * 4 > kernels.SMEM_MAX
-    assert p.staged == 1
-    big = kernels.SMEM_MAX // 8 + 1
-    assert kernels.plan_probe(K, run_cap, big - 1).staged == 1
-    wide = kernels.plan_probe(K, run_cap, big)
-    assert wide.staged == 0 and wide.smem == 0 and wide.n_sum == 0
-    assert wide.threads == 32 * kernels.WIDE_WARPS
+    assert p.smem == 8 * p.n_sum * (T - 1) * 4 + 2 * reads * (T - 1) * 4 <= kernels.SMEM_MAX
+    assert kernels.plan_probe(8, 1 << 14, T).warp == 1
+
+
+@pytest.mark.parametrize("K", [0, 1, 3, 8, 32, 40])
+@pytest.mark.parametrize("W", [kernels.WARP_FROM_W, 4097, 32769])
+def test_plan_probe_warp_geometry(K, W):
+    """K1's warp plan: K rounded up to a power of two (at most 32) warps a
+    read, reads making WARP_BLOCK_WARPS warps (at least one); the read
+    ends staged ((W + 6) & ~3 ints each) where they fit
+    PROBE_STAGE_BYTES, else none (read from L2)."""
+    p = kernels.plan_probe(K, 1 << 12, W)
+    G = 1 << p.group_log2
+    reads = p.threads // 32 // G
+    assert p.warp == 1 and (p.stride_log2, p.n_sum) == (0, 0)
+    assert G >= min(K, 32) and G <= max(2 * K - 1, 1) and G <= 32
+    assert p.threads % 32 == 0 and p.threads <= kernels.PROBE_MAX_THREADS
+    assert reads * G == max(kernels.WARP_BLOCK_WARPS, G)
+    staged = reads * 4 * ((W + 6) // 4 * 4)
+    assert p.smem == (staged if staged <= kernels.PROBE_STAGE_BYTES else 0)
+    assert kernels.plan_probe_warp(K, W, 0).smem == 0
 
 
 @pytest.mark.parametrize("W", [2, 5, 9, 65, 300])
 def test_plan_ranks(W):
-    """K3: 128 queries a block; at W=5 the span a block stages holds the
-    stream's ~3.6K main rows per 128 step rows, two blocks an SM."""
-    p = kernels.plan_ranks(W)
+    """K3's staged plan: 128 queries a block; at W=5 the span a block
+    stages holds the stream's ~3.6K main rows per 128 step rows, two
+    blocks an SM."""
+    p = kernels.plan_ranks_staged(W)
     fixed = kernels.RANKS_THREADS * 4 * W + 16 + 4 * (-(-2 * W // 4) * 4) + 12
     assert p.smem == fixed + p.span_rows * 4 * W <= kernels.SMEM_MAX
     assert p.span_rows == 0 or p.smem <= kernels.RANKS_SMEM
@@ -450,14 +465,20 @@ def test_plan_ranks(W):
 
 
 def test_plan_ranks_raises_where_the_queries_do_not_fit():
-    """At W = 500 the 128 query rows outgrow a block, so a block takes 64;
-    where not even one query row fits, the plan stages nothing: a warp a
-    query, eight a block."""
-    p = kernels.plan_ranks(500)
-    assert p.queries == 64 and p.span_rows == 0 and p.smem <= kernels.SMEM_MAX
-    assert p.staged == 1
-    assert kernels.plan_ranks(20000) == kernels.RanksPlan(
-        span_rows=0, smem=0, queries=kernels.WIDE_WARPS, staged=0)
+    """K3's staged plan takes 128 queries a block up to W = 440 and raises
+    past it (at W = 500 they outgrow a block); plan_ranks gives it below T
+    (kernels.WARP_FROM_W) and the warp plan from T on: a warp a query,
+    RANKS_WARP_QUERIES queries a block, nothing staged."""
+    T = kernels.WARP_FROM_W
+    p = kernels.plan_ranks_staged(T - 1)
+    assert p.queries == kernels.RANKS_THREADS and p.warp == 0 and p.smem <= kernels.SMEM_MAX
+    assert kernels.plan_ranks(T - 1) == p
+    for W in (500, 20000):
+        with pytest.raises(ValueError):
+            kernels.plan_ranks_staged(W)
+    for W in (T, 500, 20000, 32769):
+        assert kernels.plan_ranks(W) == kernels.RANKS_WARP_PLAN == kernels.RanksPlan(
+            span_rows=0, smem=0, queries=kernels.RANKS_WARP_QUERIES, warp=1)
 
 
 def test_wrappers_take_plain_only_on_cpu_and_reject_other_devices():

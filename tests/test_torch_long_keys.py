@@ -212,31 +212,30 @@ def test_widen_lanes_inserts_zero_words_and_keeps_sentinel_rows():
 def test_kernels_plan_every_grown_width():
     """K1's and K3's launch planners take every width a set can grow to,
     every power of two of bytes up to 512 KB (W = 131073), at the stream's
-    shapes and at the default set's, and never raise; past W = 4097 K1
-    runs without a summary, and where one read's or one query's rows
-    exceed a block both plan a kernel that stages nothing."""
-    wide, staged = 32, {}
+    shapes and at the default set's, and never raise: the staged plans
+    below T = kernels.WARP_FROM_W (257 lanes, 1024-byte keys), the warp
+    plans from it, K1's staging its read ends only while they fit
+    PROBE_STAGE_BYTES."""
+    wide, plans = 32, {}
     while wide <= 1 << 19:
         W = tkeys.num_words(wide)
         for run_cap in (1 << 14, 1 << 12):
             p = kernels.plan_probe(8, run_cap, W)
             assert p.smem <= kernels.SMEM_MAX and p.threads >= 1 << p.group_log2
-            assert p.staged or (p.smem == 0 and p.n_sum == 0)
+            assert not p.warp or (p.n_sum == 0 and p.smem <= kernels.PROBE_STAGE_BYTES)
         r = kernels.plan_ranks(W)
         assert r.smem <= kernels.SMEM_MAX and r.queries >= 1
-        assert r.staged or (r.smem == 0 and r.span_rows == 0)
-        staged[W] = (p.staged, r.staged)
+        assert not r.warp or (r.smem == 0 and r.span_rows == 0)
+        plans[W] = (p.warp, r.warp)
         wide *= 2
-    assert max(staged) == 131073
-    # the last widths that stage, and the first that do not
-    assert staged[16385] == (1, 1) and staged[32769] == (0, 0)
-    W = tkeys.num_words(16384)
-    assert kernels.plan_probe(8, 1 << 12, W).n_sum == 0
-    assert kernels.plan_ranks(W).queries == 8
-    assert kernels.plan_ranks(W).span_rows == 0
-    wide_probe = kernels.plan_probe(8, 1 << 12, 30000)
-    assert (wide_probe.staged, wide_probe.smem, wide_probe.n_sum) == (0, 0, 0)
-    assert kernels.plan_ranks(20000) == kernels.RanksPlan(0, 0, kernels.WIDE_WARPS, 0)
+    assert max(plans) == 131073
+    # the last widths of the staged plans, and the first of the warp plans
+    assert kernels.WARP_FROM_W == 257
+    assert plans[129] == (0, 0) and plans[257] == (1, 1)
+    assert all(plans[W] == (1, 1) for W in plans if W >= 257)
+    assert kernels.plan_probe(8, 1 << 12, 4097).smem > 0
+    assert kernels.plan_probe(8, 1 << 12, 32769).smem == 0
+    assert kernels.plan_ranks(20000) == kernels.RANKS_WARP_PLAN
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
