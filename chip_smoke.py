@@ -422,12 +422,12 @@ WIDE_W = (17, 65, 129, 513, 4097, 8193, 16385, 32769)
 # WIDEST_READS reads: at the stream's, main alone would be ~8.6 GB at W =
 # 4097; at W = 32769 the default set's main is ~8.6 GB, its runs as much
 WIDEST_FROM = 4097
-WIDE_FEW_REPS = 8193  # from this W K4 takes 13-53 ms a launch, K1 and K3 up to ~11
+WIDE_FEW_REPS = 8193  # from this W K1, K3 and K4 take 0.5-11 ms a launch
 DEFAULT_SET = dict(capacity=1 << 16, run_slots=8, run_capacity=1 << 12)
 WIDEST_READS = 4096
 WIDE_KERNELS = ("probe_fused", "compact_ranks", "run_to_step")
 WIDE_TIMED = ("ms", "cold_ms", "warm_ms", "device_ms", "call_ms", "plain_ms",
-              "bound_ms", "bound_by")
+              "bound_ms", "bound_by", "library_ms")
 CHAIN_TXNS = 1024  # the chain batch of phase 3: txn t reads what t - 1 writes
 # cudaLaunchKernel and, for K2, cudaLaunchCooperativeKernel
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel")
@@ -516,7 +516,7 @@ def _is_kernel(key: str, symbol: str) -> bool:
 def device_ms(torch, fn, symbol: str, reps: int) -> float | None:
     """The kernel's own duration per launch, from the profiler's device
     records (CUPTI) of `reps` launches, over the launches it recorded.  It
-    may miss launches of long kernels (K4 at W = 32769, ~53 ms); None when
+    may miss launches of long kernels (K1 at W = 32769, ~11 ms); None when
     it recorded none."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -697,6 +697,12 @@ def run_to_step_work(K: int, rcap: int, W: int):
     """K4: a pure copy, so it reads every input byte whatever the data:
     the runs' rows and versions in, the step rows and values out."""
     return 2 * K * rcap * W * 4 * 2 + 2 * K * rcap * 4 + 4 * K, 0, None
+
+
+def run_to_step_library(torch, runs_b, runs_e):
+    """K4's rows in one PyTorch call, its yardstick: [K, rcap, 2, W], which
+    is rows[K, 2 rcap, W] in memory.  The port never calls it."""
+    return torch.stack((runs_b, runs_e), dim=2)
 
 
 def compact_ranks_work(torch, keys_mod, ks, rec):
@@ -918,6 +924,64 @@ def kernel_inputs(torch, keys_mod, dev, rng, pool, succ) -> dict:
                 main_keys=main_keys)
 
 
+def kernel_check(torch, kernels, results: dict, flush, name, got, want, work, fn,
+                 plain_fn, reps, cold, key=None, symbol=None, library_fn=None):
+    """Phase 3's check of one kernel: `got` (the kernel's outputs) must
+    equal `want` (its plain version's); times `fn` (the kernel) warm, cold
+    (after writing `flush`), by the profiler and back to back, `plain_fn`
+    and `library_fn`, and records them with the bound of `work` in
+    results[key].  `cold`: the main path finds the kernel's inputs out of L2, so
+    its `ms` (and the plain version's) is timed after a flush.  `key`:
+    where the results go (the kernel's name by default).  `symbol`: the
+    CUDA kernel the wrapper's plan launches (planned_symbol), which the
+    profiler must record; SYMBOLS[name] by default.  `library_fn`: one
+    PyTorch call computing the kernel's first output, timed as the
+    yardstick `library_ms` (None without one); the port never calls it."""
+    torch.cuda.synchronize()
+    n_bytes, n_ops, replay = work
+    # compared in their own dtype (K4's outputs at W = 32769 are 8.6 GB:
+    # an int64 copy of both would not fit beside the inputs)
+    mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
+    err = max((int((g[g != w].long() - w[g != w].long()).abs().max())
+               if bool((g != w).any()) else 0) for g, w in zip(got, want))
+    require(replay is None or torch.equal(replay.long(), got[0].long()),
+            f"{name}: the replay that counts its work disagrees with it")
+    warm_ms = launch_ms(torch, fn, reps)
+    cold_ms = launch_ms(torch, fn, reps, flush)
+    symbol = symbol or SYMBOLS[name]
+    own_ms = device_ms(torch, fn, symbol, reps)
+    require(own_ms is not None, f"{key or name}: the profiler recorded no launch of "
+                                f"{symbol}, the planned kernel")
+    back_to_back = call_ms(torch, fn, reps)
+    plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
+    library_ms = None
+    if library_fn is not None:
+        lib = library_fn()
+        require(torch.equal(lib.reshape(got[0].shape), got[0]),
+                f"{key or name}: the library call's yardstick disagrees with the kernel")
+        del lib
+        library_ms = launch_ms(torch, library_fn, reps, flush if cold else None)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    ms = cold_ms if cold else warm_ms
+    results[key or name] = dict(symbol=symbol, mismatches=mismatches,
+                                max_abs_err=err, ms=ms,
+                                cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
+                                call_ms=back_to_back, plain_ms=plain_ms,
+                                bound_ms=bound_ms, bound_by=bound_by,
+                                library_ms=library_ms)
+    log(f"kernel {key or name}: {symbol} mismatches={mismatches} ms={ms:.6f} "
+        f"({'cold' if cold else 'warm'} L2, as on the main path) "
+        f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
+        f"device_ms={own_ms if own_ms is None else f'{own_ms:.6f}'} (profiler, warm) "
+        f"call_ms={back_to_back:.6f} (back to back, host launch included) "
+        f"plain_ms={plain_ms:.6f} "
+        f"library_ms={library_ms if library_ms is None else f'{library_ms:.6f}'} "
+        f"bound_us={bound_ms * 1e3:.3f} ({bound_by}: "
+        f"{n_bytes} B, {n_ops} ops) ms/bound={ms / bound_ms:.2f} "
+        f"launches={kernels.launches[name]} (this phase)")
+    require(mismatches == 0, f"kernel {name} disagrees with its plain version")
+
+
 def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     keys_mod, kernels, tdev, rmq = fdb["keys"], fdb["kernels"], fdb["device"], fdb["rmq"]
     run_cap = SET_ARGS["run_capacity"]
@@ -929,46 +993,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     log(f"kernels: an event pair with no launch between reads "
         f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
         f"per-launch time below)")
-
-    def check(name, got, want, work, fn, plain_fn, reps, cold, key=None, symbol=None):
-        """`cold`: the main path finds the kernel's inputs out of L2, so
-        its `ms` (and the plain version's) is timed after a flush.  `key`:
-        where the results go (the kernel's name by default).  `symbol`: the
-        CUDA kernel the wrapper's plan launches (planned_symbol), which the
-        profiler must record; SYMBOLS[name] by default."""
-        torch.cuda.synchronize()
-        n_bytes, n_ops, replay = work
-        # compared in their own dtype (K4's outputs at W = 32769 are 8.6 GB:
-        # an int64 copy of both would not fit beside the inputs)
-        mismatches = sum(int((g != w).sum()) for g, w in zip(got, want))
-        err = max((int((g[g != w].long() - w[g != w].long()).abs().max())
-                   if bool((g != w).any()) else 0) for g, w in zip(got, want))
-        require(replay is None or torch.equal(replay.long(), got[0].long()),
-                f"{name}: the replay that counts its work disagrees with it")
-        warm_ms = launch_ms(torch, fn, reps)
-        cold_ms = launch_ms(torch, fn, reps, flush)
-        symbol = symbol or SYMBOLS[name]
-        own_ms = device_ms(torch, fn, symbol, reps)
-        require(own_ms is not None, f"{key or name}: the profiler recorded no launch of "
-                                    f"{symbol}, the planned kernel")
-        back_to_back = call_ms(torch, fn, reps)
-        plain_ms = launch_ms(torch, plain_fn, max(3, reps // 10), flush if cold else None)
-        bound_ms, bound_by = bound(n_bytes, n_ops)
-        ms = cold_ms if cold else warm_ms
-        results[key or name] = dict(symbol=symbol, mismatches=mismatches,
-                                    max_abs_err=err, ms=ms,
-                                    cold_ms=cold_ms, warm_ms=warm_ms, device_ms=own_ms,
-                                    call_ms=back_to_back, plain_ms=plain_ms,
-                                    bound_ms=bound_ms, bound_by=bound_by)
-        log(f"kernel {key or name}: {symbol} mismatches={mismatches} ms={ms:.6f} "
-            f"({'cold' if cold else 'warm'} L2, as on the main path) "
-            f"cold_ms={cold_ms:.6f} warm_ms={warm_ms:.6f} "
-            f"device_ms={own_ms if own_ms is None else f'{own_ms:.6f}'} (profiler, warm) "
-            f"call_ms={back_to_back:.6f} (back to back, host launch included) "
-            f"plain_ms={plain_ms:.6f} bound_us={bound_ms * 1e3:.3f} ({bound_by}: "
-            f"{n_bytes} B, {n_ops} ops) ms/bound={ms / bound_ms:.1f} "
-            f"launches={kernels.launches[name]} (this phase)")
-        require(mismatches == 0, f"kernel {name} disagrees with its plain version")
+    check = functools.partial(kernel_check, torch, kernels, results, flush)
 
     # K1: 8 runs of ~8K point intervals (one dead, one empty), 16384
     # reads with padding (sentinel) rows and TOO_OLD (r_ok False) rows
@@ -1043,13 +1068,15 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           plain_fn=lambda: kernels.compact_ranks_plain(ks, rec), reps=50, cold=True)
 
     # K4: the 8 runs of a compaction (of the stream's shape) as step
-    # functions, in one launch
+    # functions, in one launch; its yardstick is the rows' torch.stack
+    # (vals, under 10% of the bytes at W = 5 and 1% from W = 65, left out)
     k4 = (runs_b, runs_e, runs_ver)
     check("run_to_step", list(kernels.run_to_step_runs(*k4)),
           list(kernels.run_to_step_runs_plain(*k4)),
           run_to_step_work(*runs_b.shape),
           fn=lambda: kernels.run_to_step_runs(*k4),
-          plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True)
+          plain_fn=lambda: kernels.run_to_step_runs_plain(*k4), reps=100, cold=True,
+          library_fn=lambda: run_to_step_library(torch, runs_b, runs_e))
     # K1, K3 and K4 at the wider keys a set widens to (64 to 131072 bytes),
     # at the stream's K, run_cap and cap up to W = 513 and at the default
     # set's from WIDEST_FROM (the first 4096 rows of each run, every 8th
@@ -1057,7 +1084,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     # wide_inputs' inputs, K4 (a copy, whatever the keys) on `prefixed`
     for W_wide in WIDE_W:
         cut = wide_cut(W_wide, run_cap, SET_ARGS["capacity"], R)
-        # K1 and K3 take 0.1-11 ms a launch from W = 257, K4 7-53 ms from 4097
+        # K1 and K3 take 0.1-11 ms a launch from W = 257, K4 0.7-5.7 ms from 4097
         reps = 50 if W_wide < WIDEST_FROM else 20 if W_wide < WIDE_FEW_REPS else 10
         plan_k1 = kernels.plan_probe(SET_ARGS["run_slots"], cut[0], W_wide)
         plan_k3 = kernels.plan_ranks(W_wide)
@@ -1091,7 +1118,8 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
               run_to_step_work(*runs_bw.shape),
               fn=lambda: kernels.run_to_step_runs(*k4w),
               plain_fn=lambda: kernels.run_to_step_runs_plain(*k4w), reps=reps,
-              cold=True, key=f"run_to_step_w{W_wide}")
+              cold=True, key=f"run_to_step_w{W_wide}",
+              library_fn=lambda: run_to_step_library(torch, runs_bw, runs_ew))
         del runs_bw, runs_ew, k4w
     log("kernels " + json.dumps({k: v["mismatches"] for k, v in results.items()}))
     return results
@@ -5072,7 +5100,8 @@ def port_modules() -> dict:
                 rpc=dict(network=network, stream=stream, transport=transport))
 
 
-# `--sweep`: the widths where K1 and K3 change plans (kernels.WARP_FROM_W)
+# `--sweep`: the widths where K1 and K3 change plans (kernels.WARP_FROM_W),
+# at which K4 is timed too
 SWEEP_W = (17, 33, 65, 129, 257, 513, 1025, 2049, 4097, 8193, 16385, 32769)
 SWEEP_REPS = 5
 SWEEP_QUERIES = (16, 32)  # K3's warp plan at other block sizes
@@ -5102,13 +5131,42 @@ def sweep_variants(kernels, K: int, rows: int, W: int) -> list:
     return out
 
 
+def sweep_k4(torch, kernels, keys_mod, base: dict, W: int, rows: int, flush) -> list:
+    """K4 cold at width W on phase 3's `prefixed` runs (the first `rows`
+    rows of each, built on the device of `flush`) and its yardstick
+    torch.stack ("library"), each bit-exact with the plain version.  K4's
+    plan is "planned" (kernels.plan_run_to_step), or "before" for a
+    package from before that plan.  Returns the sweep's rows."""
+    dev = flush.device
+    runs_b = prefixed_lanes(torch, keys_mod, base["runs_b"][:, :rows], W, dev)
+    runs_e = prefixed_lanes(torch, keys_mod, base["runs_e"][:, :rows], W, dev)
+    ver = base["k1"][6]
+    want = kernels.run_to_step_runs_plain(runs_b, runs_e, ver)
+    k4 = "planned" if hasattr(kernels, "plan_run_to_step") else "before"
+    out = []
+    for plan, fn in ((k4, functools.partial(kernels.run_to_step_runs, runs_b, runs_e, ver)),
+                     ("library", functools.partial(run_to_step_library, torch, runs_b,
+                                                   runs_e))):
+        got = fn()
+        same = (torch.equal(got.reshape(want[0].shape), want[0]) if plan == "library"
+                else all(torch.equal(g, w) for g, w in zip(got, want)))
+        require(same, f"sweep: run_to_step ({plan}) at W={W} disagrees with its plain "
+                      f"version")
+        del got
+        row = dict(W=W, input="prefixed", kernel="run_to_step", plan=plan,
+                   cold_ms=launch_ms(torch, fn, SWEEP_REPS, flush))
+        out.append(row)
+        log("sweep " + json.dumps(row))
+    return out
+
+
 def kernel_event_ms(torch, kernels, fn) -> dict:
-    """Runs fn with K1's and K3's wrappers timed launch by launch: a CUDA
-    event pair around each (behind a ~0.1 ms device spin, so the pair
+    """Runs fn with K1's, K3's and K4's wrappers timed launch by launch: a
+    CUDA event pair around each (behind a ~0.1 ms device spin, so the pair
     times the device's work, not the host's).  Returns their device ms and
     launches in fn, by wrapper.  (The profiler's trace of phase 19 (a),
     with its 2049-pass sorts, takes longer to read back than the run.)"""
-    pairs = {"probe_fused": [], "compact_ranks": []}
+    pairs = {"probe_fused": [], "compact_ranks": [], "run_to_step_runs": []}
     real = [(name, getattr(kernels, name)) for name in pairs]
 
     def timed(*a, _inner, _name, **k):
@@ -5133,11 +5191,12 @@ def kernel_event_ms(torch, kernels, fn) -> dict:
 
 
 def sweep(torch, fdb, dev, power, out: Path) -> None:
-    """K1 and K3 cold at every SWEEP_W on both of phase 3's wide inputs
-    (kernel_inputs from SEED), under each of sweep_variants' plans, each
-    bit-exact with its plain version; then phase 18 (b)'s and phase 19
-    (a)'s runs under the profiler, with K1's and K3's device ms.  Writes
-    the measurements to `out` as JSON."""
+    """K1, K3 and K4 cold at every SWEEP_W: K1 and K3 on both of phase 3's
+    wide inputs (kernel_inputs from SEED) under each of sweep_variants'
+    plans, K4 on `prefixed` beside its torch.stack yardstick (sweep_k4),
+    each bit-exact with its plain version; then phase 18 (b)'s and phase 19 (a)'s runs with K1's, K3's
+    and K4's device ms (kernel_event_ms).  Writes the measurements to
+    `out` as JSON."""
     keys_mod, kernels = fdb["keys"], fdb["kernels"]
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
@@ -5169,12 +5228,14 @@ def sweep(torch, fdb, dev, power, out: Path) -> None:
                     rows.append(row)
                     log("sweep " + json.dumps(row))
             del k1w, ks_w, rec_w, want
+        torch.cuda.empty_cache()
+        rows += sweep_k4(torch, kernels, keys_mod, base, W, cut[0], flush)
         log(f"sweep: W={W} done at {time.perf_counter() - t0:.1f} s")
     runs = {}
     for path, run in (("long_keys", lambda: long_key_run(torch, fdb, *LONG_RUN)),
                       ("long_keys_16k", lambda: repro_part(torch, fdb, power))):
         runs[path] = kernel_event_ms(torch, kernels, run)
-        log(f"sweep {path}: K1 and K3 device ms (event pairs) {json.dumps(runs[path])} "
+        log(f"sweep {path}: K1, K3 and K4 device ms (event pairs) {json.dumps(runs[path])} "
             f"at {time.perf_counter() - t0:.1f} s")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(dict(power=power, rows=rows, paths=runs), indent=1))
@@ -5200,7 +5261,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep", metavar="OUT",
                         help="only time K1 and K3 at SWEEP_W under every plan the "
-                             "package offers, and write the numbers to OUT (JSON)")
+                             "package offers and K4 beside torch.stack, and write "
+                             "the numbers to OUT (JSON)")
     args = parser.parse_args()
     import torch
 
@@ -5351,7 +5413,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCE, replaces=where,
              launches=path_launches[k], max_abs_err=results[k]["max_abs_err"],
-             **{key: results[k][key] for key in timed}, library_ms=None,
+             **{key: results[k][key] for key in timed},
              launches_by_path={p: n.get(k, 0) for p, n in by_path.items()},
              **({"wide": wide_entries(results, k)} if k in WIDE_KERNELS else {}))
         for k, where, _symbol in KERNELS

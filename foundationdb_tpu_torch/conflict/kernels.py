@@ -31,8 +31,10 @@ csrc/conflict_kernels.cu.  K1's and K3's plan and launch geometry come
 from `plan_probe` and `plan_ranks`, pure functions of the shapes: the
 staged kernels below WARP_FROM_W lanes, the warp kernels (a warp a (read,
 run) pair, a warp a query, each search skipping the lanes its bounds share
-with its key) from it.  All are integer functions: kernel and plain
-version agree exactly.
+with its key) from it.  K4's comes from `plan_run_to_step`: a thread an
+output element, at every width, a run in row-aligned chunks of a 32-bit
+index.  All are integer functions: kernel and plain version agree
+exactly.
 """
 
 from __future__ import annotations
@@ -343,6 +345,55 @@ def plan_ranks_staged(W: int) -> RanksPlan:
     return RanksPlan(span_rows, fixed + span_rows * row, RANKS_THREADS, 0)
 
 
+# ---------------------------------------------------------------------------
+# K4's launch plan (a pure function of the shapes)
+
+STEP_THREADS = 256              # threads per K4 block (the kernel's kThreads)
+STEP_PER = 8                    # elements a thread (the kernel's kStepPer)
+STEP_MAX_ELEMS = (1 << 31) - 1  # a chunk's step elements: its index is 32-bit
+STEP_MAX_GRID = 65535           # runs a launch (grid.y), chunks a run (grid.z)
+
+
+class StepPlan(NamedTuple):
+    magic: int       # o // W = (o * magic >> 32) >> shift for 0 <= o < 2**31; 0: W = 1
+    shift: int
+    chunk_rows: int  # step rows a chunk (even): a run's 2 rcap rows in `chunks`
+    chunks: int      # chunks a run: grid.z, 1 unless 2 rcap W >= 2**31
+    blocks: int      # blocks a chunk: ceil(chunk_rows W / (STEP_THREADS STEP_PER))
+
+
+def step_divisor(W: int) -> tuple[int, int]:
+    """(magic, shift) with o // W == (o * magic >> 32) >> shift for every
+    0 <= o < 2**31: magic = ceil(2**(31 + l) / W) with l = ceil(log2 W),
+    which is below 2**32 (Granlund and Montgomery 1994, theorem 4.2, with
+    31-bit dividends); (0, 0) for W = 1, where the row is the element."""
+    if W < 1:
+        raise ValueError(f"K4 needs rows of at least one lane, not W={W}")
+    if W == 1:
+        return 0, 0
+    l2 = (W - 1).bit_length()
+    return -(-(1 << (31 + l2)) // W), l2 - 1
+
+
+@functools.lru_cache(maxsize=None)
+def plan_run_to_step(rcap: int, W: int) -> StepPlan:
+    """K4's launch: each run's 2 rcap step rows in the fewest even-sized
+    chunks of at most STEP_MAX_ELEMS elements (the kernel's 32-bit index),
+    balanced, a chunk in tiles of STEP_THREADS * STEP_PER elements, a block
+    a tile; the divisor's multiply-shift."""
+    magic, shift = step_divisor(W)
+    pairs = STEP_MAX_ELEMS // (2 * W)  # row pairs a chunk holds
+    if pairs < 1:
+        raise ValueError(f"K4 needs rows of at most {STEP_MAX_ELEMS // 2} lanes, not W={W}")
+    chunks = max(1, -(-rcap // pairs))
+    if chunks > STEP_MAX_GRID:
+        raise ValueError(f"K4 cuts a run of {rcap} rows at W={W} into {chunks} "
+                         f"chunks, past {STEP_MAX_GRID}")
+    chunk_rows = 2 * -(-rcap // chunks)
+    return StepPlan(magic, shift, chunk_rows, chunks,
+                    -(-chunk_rows * W // (STEP_THREADS * STEP_PER)))
+
+
 def warp_plan_occupancy(name: str, plan: ProbePlan | RanksPlan) -> int:
     """Blocks of K1's ("probe_fused") or K3's ("compact_ranks") warp-plan
     kernel that one SM of the current card holds at once under `plan`
@@ -563,11 +614,13 @@ def run_to_step_runs(runs_b, runs_e, runs_ver):
         _check("runs_e", runs_e, _I32, (K, rcap, W), dev),
         _check("runs_ver", runs_ver, _I32, (K,), dev),
     ]
+    if K > STEP_MAX_GRID:
+        raise ValueError(f"K4 takes at most {STEP_MAX_GRID} runs a launch, not {K}")
     rows = torch.empty((K, 2 * rcap, W), dtype=_I32, device=dev)
     vals = torch.empty((K, 2 * rcap), dtype=_I32, device=dev)
     if K * rcap:
         _launch("fdb_run_to_step", dev, *ptrs, rows.data_ptr(),
-                vals.data_ptr(), K, rcap, W)
+                vals.data_ptr(), K, rcap, W, *plan_run_to_step(rcap, W))
         launches["run_to_step"] += 1
     return rows, vals
 

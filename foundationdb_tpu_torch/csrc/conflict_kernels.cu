@@ -204,15 +204,39 @@
 
 // K4 fdb_run_to_step  replaces _interleave_kernel (pallas_kernel.py:416,
 //    built by _build_interleave :428, wrapper run_to_step_pallas :453), for
-//    all K runs of a compaction in one launch (a compaction used to launch
-//    it once a run: eight launches of ~2 us of copying, each behind a
-//    ~35 us host call).  One thread per (run, row pair) in a grid-stride
-//    loop: rows[k][2i] = begins[k][i], rows[k][2i+1] = ends[k][i], vals the
-//    run's version on a live begin (0 on a sentinel begin and on every
-//    end).  Bound: bytes, a pure copy (2 * K * run_cap * W * 4 B read, as
-//    much again written, plus vals: ~11.5 MB for 8 runs of 16384 rows at
-//    W = 5); neighbouring threads copy neighbouring rows, so both sides
-//    coalesce.
+//    all K runs of a compaction in one launch.  rows[k][2i] = begins[k][i],
+//    rows[k][2i+1] = ends[k][i], vals the run's version on a live begin (0
+//    on a sentinel begin and on every end): the rows are
+//    torch.stack((begins, ends), dim=2), a pure copy.
+//    Bound: HBM bytes, each input read once and each output written once:
+//    2 K run_cap W 4 B in, as much again out, plus vals (11.5 MB for 8 runs
+//    of 16384 rows at W = 5, 3.4 us at 3.35 TB/s; 17.2 GB for 8 runs of
+//    4096 rows at W = 32769, 5.1 ms).  Nothing is computed, so the copy
+//    runs at the rate the memory system sustains, or slower where too few
+//    bytes are in flight or each access wastes most of its sectors.
+//    Design: a thread an output element, not a row.  Element o of run k
+//    (grid.y) is lane o - r W of step row r = o / W (a multiply-shift with
+//    the wrapper's constants, kernels.plan_run_to_step: no divide), which
+//    is element o - ceil(r / 2) W of begins (r even) or ends (r odd).  A
+//    warp's 32 consecutive o store 128 contiguous bytes and load at most
+//    one contiguous span of begins and one of ends (consecutive step rows
+//    alternate between them, consecutive rows of each), so both sides
+//    coalesce at every width, where one thread a row pair (the design this
+//    one replaced) put neighbouring threads 4W bytes apart: each warp
+//    access touched 32 sectors for 4 bytes of each, and at the default
+//    set's shapes 128 blocks walked 16-128 KB rows lane by lane.  Each
+//    thread takes kStepPer = 8 elements a block's width apart, and issues
+//    all their loads before any store, so every SM keeps several KB of
+//    loads in flight; blocks of 256 cover each run (a 2048-element tile a
+//    block: 640 blocks at W = 5, 1 M at W = 32769).  The thread that copies
+//    lane W - 1 of a row writes its vals entry, reading the run's version
+//    on the device.  The index o is 32-bit: a run of 2^31 step elements or
+//    more (2 slots of 16384 rows at W = 65537) is cut into row-aligned
+//    chunks of fewer (grid.z), each from a 64-bit base; 8 runs at W = 32769
+//    hold 2^31 + 65536 step elements, one chunk each.  On an
+//    NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py, cold L2) it takes
+//    1.10-1.33x the bound from W = 65 and beats torch.stack of the same
+//    rows at every width; at W = 5 the launch and tail (~10 us) dominate.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -223,6 +247,10 @@
 namespace {
 
 constexpr int kThreads = 256;  // intra_query, K4, K5
+// K4's elements a thread (kernels.STEP_PER).  From the card sweep (NVIDIA
+// H100 80GB HBM3 at 700 W): 4 and 8 within 1% of each other from W = 17 to
+// 32769, 16 4-8% slower at W = 17 and 33, 2 4-11% slower
+constexpr int kStepPer = 8;
 constexpr int kFixThreads = 512;  // K2's block
 constexpr int kProbeMaxThreads = 1024;
 constexpr int kRanksThreads = 128;  // K3's block: a compile-time divisor
@@ -931,27 +959,45 @@ __global__ void __launch_bounds__(kFixThreads)
   if (first == 0) *n_iters = it;
 }
 
-// K4: one thread per (run, row pair); pair p = k * rcap + i writes rows
-// 2p and 2p + 1 of the [K * 2 rcap, W] output
-__global__ void run_to_step_kernel(const int* __restrict__ runs_b,
-                                   const int* __restrict__ runs_e,
-                                   const int* __restrict__ ver,
-                                   int* __restrict__ rows,
-                                   int* __restrict__ vals, int K, int rcap,
-                                   int W) {
-  const size_t pairs = static_cast<size_t>(K) * rcap;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  for (size_t p = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       p < pairs; p += stride) {
-    const int* b = runs_b + p * W;
-    const int* e = runs_e + p * W;
-    int* out = rows + 2 * p * W;
-    for (int w = 0; w < W; ++w) {
-      out[w] = b[w];
-      out[W + w] = e[w];
+// K4: element o of chunk blockIdx.z of run blockIdx.y's step rows (the
+// chunk: step rows [z chunk_rows, +chunk_rows), chunk_rows even, so a
+// chunk's rows alternate begin, end from a begin), for o = the block's tile
+// start + threadIdx.x + u kThreads (u < kStepPer): row r = o / W as
+// umulhi(o, magic) >> shift (exact for o < 2^31; magic 0: W = 1), lane
+// o - r W, copied from element o - ceil(r / 2) W of the chunk's begins (r
+// even) or ends (r odd).  All kStepPer loads are issued before the stores.
+__global__ void __launch_bounds__(kThreads)
+run_to_step_kernel(const int* __restrict__ runs_b, const int* __restrict__ runs_e,
+                   const int* __restrict__ ver, int* __restrict__ rows,
+                   int* __restrict__ vals, int rcap, int W, unsigned magic,
+                   int shift, int chunk_rows) {
+  const unsigned z_row = blockIdx.z * static_cast<unsigned>(chunk_rows);
+  const unsigned n_rows = min(static_cast<unsigned>(chunk_rows), 2u * rcap - z_row);
+  const unsigned n = n_rows * static_cast<unsigned>(W);
+  const size_t row0 = 2 * static_cast<size_t>(blockIdx.y) * rcap + z_row;  // even
+  const int* b = runs_b + (row0 >> 1) * W;
+  const int* e = runs_e + (row0 >> 1) * W;
+  int* out = rows + row0 * W;
+  int* out_vals = vals + row0;
+  const unsigned first = blockIdx.x * (kStepPer * kThreads) + threadIdx.x;
+  int v[kStepPer];
+  unsigned r[kStepPer];
+#pragma unroll
+  for (int u = 0; u < kStepPer; ++u) {
+    const unsigned o = first + u * kThreads;
+    if (o < n) {
+      r[u] = magic ? __umulhi(o, magic) >> shift : o;
+      v[u] = ((r[u] & 1u) ? e : b)[o - ((r[u] + 1u) >> 1) * W];
     }
-    vals[2 * p] = b[W - 1] != kSentLane ? ver[p / rcap] : 0;
-    vals[2 * p + 1] = 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kStepPer; ++u) {
+    const unsigned o = first + u * kThreads;
+    if (o < n) {
+      out[o] = v[u];
+      if (o - r[u] * W == static_cast<unsigned>(W - 1))
+        out_vals[r[u]] = (r[u] & 1u) == 0 && v[u] != kSentLane ? ver[blockIdx.y] : 0;
+    }
   }
 }
 
@@ -1138,13 +1184,13 @@ int fdb_intra_fixpoint(const void* rb_r, const void* re_r, const void* wb_r,
 
 int fdb_run_to_step(const void* runs_b, const void* runs_e, const void* ver,
                     void* rows, void* vals, int K, int rcap, int W,
-                    void* stream) {
-  const size_t pairs = static_cast<size_t>(K) * rcap;
-  run_to_step_kernel<<<std::min(blocks_for(pairs), 65535u), kThreads, 0,
+                    unsigned magic, int shift, int chunk_rows, int chunks,
+                    int blocks, void* stream) {
+  run_to_step_kernel<<<dim3(blocks, K, chunks), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(runs_b), static_cast<const int*>(runs_e),
       static_cast<const int*>(ver), static_cast<int*>(rows),
-      static_cast<int*>(vals), K, rcap, W);
+      static_cast<int*>(vals), rcap, W, magic, shift, chunk_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -193,6 +193,68 @@ def test_run_to_step_work_is_the_copy():
     assert n_ops == 0
 
 
+def _k4_args(seed=2, K=3, rcap=16):
+    rng = np.random.default_rng(seed)
+    runs = [_run(rng, rcap, n) for n in (5, 0, 8, 11, 3)[:K]]
+    return (np.stack([r[0] for r in runs]), np.stack([r[1] for r in runs]),
+            torch.tensor([3, 0, 5, 9, 1][:K], dtype=torch.int32))
+
+
+@pytest.fixture
+def untimed(monkeypatch):
+    """chip_smoke's timers on the CPU: each runs its function once and
+    reports a fixed time (launch_ms 0.5, device_ms 0.25, call_ms 0.75)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "launch_ms",
+                        lambda torch, fn, reps, flush=None: (fn(), 0.5)[1])
+    monkeypatch.setattr(chip_smoke, "device_ms", lambda torch, fn, symbol, reps: 0.25)
+    monkeypatch.setattr(chip_smoke, "call_ms", lambda torch, fn, reps: 0.75)
+
+
+def test_kernel_check_records_library_ms_for_k4(untimed):
+    """Phase 3's check times K4's torch.stack yardstick as `library_ms`
+    after holding it against the kernel's rows; a kernel without one
+    records None, and a yardstick that computes something else fails."""
+    b, e, ver = _k4_args()
+    args = (keys.to_lanes(b), keys.to_lanes(e), ver)
+    results = {}
+    flush = torch.empty(16, dtype=torch.int32)
+
+    def check(key, library_fn):
+        chip_smoke.kernel_check(
+            torch, kernels, results, flush, "run_to_step",
+            list(kernels.run_to_step_runs(*args)), list(kernels.run_to_step_runs_plain(*args)),
+            chip_smoke.run_to_step_work(*args[0].shape),
+            fn=lambda: kernels.run_to_step_runs(*args),
+            plain_fn=lambda: kernels.run_to_step_runs_plain(*args), reps=3, cold=True,
+            key=key, library_fn=library_fn)
+
+    check("run_to_step", lambda: chip_smoke.run_to_step_library(torch, *args[:2]))
+    check("no_library", None)
+    assert results["run_to_step"]["library_ms"] == 0.5
+    assert results["no_library"]["library_ms"] is None
+    assert set(chip_smoke.WIDE_TIMED) <= set(results["run_to_step"])
+    with pytest.raises(RuntimeError, match="yardstick"):
+        check("wrong", lambda: torch.stack((args[0], args[1]), dim=1))
+
+
+def test_sweep_lists_k4_under_every_plan_and_its_yardstick(untimed):
+    """The sweep times K4 at each width under its plan ("planned") and
+    beside torch.stack, each held against the plain version; a package
+    from before the plan is timed as it is, "before"."""
+    b, e, ver = _k4_args(K=4)
+    base = dict(runs_b=b, runs_e=e, k1=(None,) * 6 + (ver,))
+    flush = torch.empty(16, dtype=torch.int32)
+    rows = chip_smoke.sweep_k4(torch, kernels, keys, base, 17, 12, flush)
+    assert {r["kernel"] for r in rows} == {"run_to_step"}
+    assert all(r["W"] == 17 and r["cold_ms"] == 0.5 for r in rows)
+    assert [r["plan"] for r in rows] == ["planned", "library"]
+    old = SimpleNamespace(run_to_step_runs=kernels.run_to_step_runs_plain,
+                          run_to_step_runs_plain=kernels.run_to_step_runs_plain)
+    before = chip_smoke.sweep_k4(torch, old, keys, base, 17, 12, flush)
+    assert [r["plan"] for r in before] == ["before", "library"]
+
+
 def test_quartile_splits_share_the_pool_evenly():
     """Phase 13's split keys: strictly increasing, a quarter of the key
     pool in each partition."""

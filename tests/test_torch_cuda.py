@@ -293,13 +293,15 @@ def test_k2_intra_fixpoint_matches_plain_and_the_query_loop(cuda, case):
         assert n == 2 and got[0].tolist() == [False, True]
 
 
-@pytest.mark.parametrize("W", [5, 9])
+@pytest.mark.parametrize("rcap", [512, 509])
+@pytest.mark.parametrize("W", [5, 9, 17, 65, 513])
 @pytest.mark.parametrize("K", [1, 3, 8])
-def test_k4_run_to_step_runs_matches_plain(cuda, K, W):
+def test_k4_run_to_step_runs_matches_plain(cuda, K, W, rcap):
     """K4 over all runs in one launch, a dead (version 0) and an empty
-    (all-sentinel) run among them, equals its plain version."""
-    rng = np.random.default_rng(10 * K + W)
-    runs = [_run(rng, 512, W) for _ in range(K)]
+    (all-sentinel) run among them, equals its plain version bit for bit,
+    at run capacities whose 2 rcap W step elements fill no whole tile."""
+    rng = np.random.default_rng(10 * K + W + rcap)
+    runs = [_run(rng, rcap, W) for _ in range(K)]
     runs_b = np.stack([r[0] for r in runs])
     runs_e = np.stack([r[1] for r in runs])
     if K > 1:

@@ -9,7 +9,10 @@ W = 32769 (131072-byte keys: the warp plans with the read ends in global
 memory) at small shapes, with one run, and with 8 runs of 256 rows over
 4096 main rows; the stream's 16-byte keys as a widened set holds them, every
 range [k, key_after(k)), at W = 129, 513 and 4097 under the warp plans and
-at W = 129 under the staged ones; the
+at W = 129 under the staged ones; K4 on a one-run slice 4 bytes off a
+16-byte boundary, and at 8 runs of 4096 rows at W = 32769 (past 2**31
+step elements, where the card has the room) and on one run of 16384 rows
+at W = 65537 (a run past 2**31 step elements, cut into chunks); the
 port's default set fed keys of 20 to 204 bytes on "cuda" against the same
 set on "cpu": identical verdicts and state after every batch, widening
 32 -> 64 -> 256 on both; and a small set widened to 131072 bytes by a
@@ -243,6 +246,94 @@ def test_kernels_past_shared_memory_equal_their_plain_versions(cuda, shape):
     rec_before = rec.clone()
     assert torch.equal(kernels.compact_ranks(ks, rec), kernels.compact_ranks_plain(ks, rec))
     assert torch.equal(rec, rec_before)
+
+
+@pytest.mark.parametrize("W", (5, 17, 513, 4097))
+def test_k4_on_a_one_run_slice_off_16_byte_alignment(cuda, W):
+    """K4's one-run case on run 1 of a stack of runs, a slice whose
+    data_ptr() is 4 bytes off a 16-byte boundary (rcap W odd), equals its
+    plain version bit for bit, with one launch counted."""
+    rng = np.random.default_rng(W + 4)
+    K, rcap = 3, 253  # run 1 starts 253 W * 4 = 4 (mod 16) bytes in
+    runs_b_np, runs_e_np = _runs(rng, K, rcap, W)
+    runs_b, runs_e = keys.to_lanes(runs_b_np, cuda), keys.to_lanes(runs_e_np, cuda)
+    ver = torch.tensor([5, 9, 0], dtype=torch.int32, device=cuda)
+    u_b, u_e = runs_b[1], runs_e[1]
+    assert u_b.data_ptr() % 16 == 4 and u_e.data_ptr() % 16 == 4
+    before = kernels.launches["run_to_step"]
+    rows, vals = kernels.run_to_step(u_b, u_e, ver[1])
+    assert kernels.launches["run_to_step"] == before + 1
+    want = kernels.run_to_step_plain(u_b, u_e, ver[1])
+    assert torch.equal(rows, want[0]) and torch.equal(vals, want[1])
+
+
+def test_k4_past_2_31_step_elements(cuda):
+    """K4 at 8 runs of 4096 rows at W = 32769 (131072-byte keys): 2**31 +
+    65536 step elements, past a 32-bit index over the launch, each run's
+    below it.  Rows built on the card from a seed, sentinel tails, a dead
+    run and an all-sentinel run; each run's rows and values equal the
+    plain version's bit for bit, with one launch counted.  Needs about 20
+    GB of the card (8.6 GB of runs, 8.6 GB of rows, a run's plain rows);
+    skips, with the room it found, where the card has less."""
+    K, rcap, W = 8, 4096, 32769
+    need = 2 * (2 * K * rcap * W * 4) + 3 * (2 * rcap * W * 4)
+    free, _total = torch.cuda.mem_get_info(cuda)
+    if free < need:
+        pytest.skip(f"needs {need} free bytes of the card, found {free}")
+    g = torch.Generator(device=cuda)
+    g.manual_seed(32769)
+    shape = (K, rcap, W)
+    runs_b = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
+                           dtype=torch.int32, device=cuda)
+    runs_e = torch.randint(-(1 << 31), (1 << 31) - 1, shape, generator=g,
+                           dtype=torch.int32, device=cuda)
+    for k in range(K):
+        runs_b[k, 3000 + 100 * k:] = keys.SENT_LANE
+        runs_e[k, 3000 + 100 * k:] = keys.SENT_LANE
+    runs_b[2] = runs_e[2] = keys.SENT_LANE
+    ver = torch.tensor([3, 0, 7, 1, 9, 4, 2, 8], dtype=torch.int32, device=cuda)
+    before = kernels.launches["run_to_step"]
+    rows, vals = kernels.run_to_step_runs(runs_b, runs_e, ver)
+    assert kernels.launches["run_to_step"] == before + 1
+    assert rows.numel() == (1 << 31) + 65536
+    for k in range(K):
+        want = kernels.run_to_step_plain(runs_b[k], runs_e[k], ver[k])
+        assert torch.equal(rows[k], want[0]) and torch.equal(vals[k], want[1]), k
+        del want
+    assert bool(vals[0].any()) and not vals[1].any() and not vals[2].any()
+
+
+def test_k4_on_a_run_past_2_31_step_elements(cuda):
+    """K4 on one run of 16384 rows at W = 65537 (262144-byte keys): the
+    run's 2**31 + 32768 step elements do not fit a 32-bit index, so the
+    launch cuts it into 2 row-aligned chunks (grid.z).  Rows built on the
+    card from a seed with a sentinel tail; rows and values equal the plain
+    version's bit for bit, with one launch counted.  Needs about 35 GB of
+    the card (8.6 GB of runs, 8.6 GB of rows, as much for the plain rows,
+    and the compare); skips, with the room it found, where the card has
+    less."""
+    rcap, W = 16384, 65537
+    assert kernels.plan_run_to_step(rcap, W).chunks == 2
+    need = 4 * (2 * rcap * W * 4)
+    torch.cuda.empty_cache()
+    free, _total = torch.cuda.mem_get_info(cuda)
+    if free < need:
+        pytest.skip(f"needs {need} free bytes of the card, found {free}")
+    g = torch.Generator(device=cuda)
+    g.manual_seed(65537)
+    runs_b = torch.randint(-(1 << 31), (1 << 31) - 1, (1, rcap, W), generator=g,
+                           dtype=torch.int32, device=cuda)
+    runs_e = torch.randint(-(1 << 31), (1 << 31) - 1, (1, rcap, W), generator=g,
+                           dtype=torch.int32, device=cuda)
+    runs_b[0, 12000:] = runs_e[0, 12000:] = keys.SENT_LANE
+    ver = torch.tensor([6], dtype=torch.int32, device=cuda)
+    before = kernels.launches["run_to_step"]
+    rows, vals = kernels.run_to_step_runs(runs_b, runs_e, ver)
+    assert kernels.launches["run_to_step"] == before + 1
+    assert rows[0].numel() == (1 << 31) + 32768
+    want = kernels.run_to_step_plain(runs_b[0], runs_e[0], ver[0])
+    assert torch.equal(rows[0], want[0]) and torch.equal(vals[0], want[1])
+    assert int((vals[0] == 6).sum()) == 12000
 
 
 def test_set_widened_past_shared_memory_on_the_card_as_on_the_cpu(cuda):

@@ -166,7 +166,7 @@ def test_k4_run_to_step_plain_matches_pallas_and_xla(ver):
 
 
 @pytest.mark.parametrize("K", [1, 8])
-@pytest.mark.parametrize("mkb", [16, 32], ids=["W5", "W9"])
+@pytest.mark.parametrize("mkb", [16, 32, 64, 256], ids=["W5", "W9", "W17", "W65"])
 def test_k4_run_to_step_runs_plain_matches_xla_run_by_run(K, mkb):
     """K4 over all runs of a compaction equals the reference's run_to_step
     run by run, a dead run (version 0) and an empty (all-sentinel) run
