@@ -23,9 +23,12 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               thread-per-read design K1 had before its redesign) is
               printed beside K1's.  K2, the whole intra fixpoint in one
               launch, on the first stream batch and on a 1024-txn chain
-              (a trajectory as long as the batch), also against the loop
-              it replaced (the per-query kernel in a host loop: same bits,
-              same iteration count), whose time is printed beside it; K4
+              (a trajectory as long as the batch), under its plan
+              (kernels.plan_intra: one thread-block cluster, printed with
+              its size, shared bytes and time an iteration), also against
+              the loop it replaced (the per-query kernel in a host loop)
+              and its grid plan (same bits, same iteration count), whose
+              times are printed beside it; K4
               over the 8 runs of a compaction at once; then K1, K3 and K4
               again at W = 17, 65, 129, 513, 4097, 8193, 16385 and 32769
               lanes (64- to 131072-byte keys, the widths a set widens to;
@@ -336,7 +339,10 @@ its process was bounced or stopped) and `cli`, phase 21's as
 `phase_timings`, `primitives`, `graft_entry`, `graft_dryrun` and
 `bench_debug`, and phase 10's bench probe as `bench_metrics_series`; K1, K3
 and K4 carry phase 3's wide checks under `wide`, by W and, for K1 and K3,
-by input, each with the CUDA kernel its plan launched), then
+by input, each with the CUDA kernel its plan launched; K2 carries its
+plan at the stream's batch, its time an iteration and the grid plan's ms,
+and `launches_by_plan`, every path's K2 launches by plan, which phase 4
+requires to be the cluster plan's on every stream batch), then
 the card's name and power limit, then as its last line
 {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero; without a CUDA device, or without the package beside this
@@ -344,7 +350,10 @@ script, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --sweep OUT.json
 
-times only K1 and K3 (cold) at W = 17 to 32769 on both of phase 3's wide
+times only K2 (warm) on stream batches of 64 to 32768 txns under its grid
+plan and kernels.plan_intra's in turns (grid, planned, planned, grid) and
+each other cluster size that holds the batch, then K1 and K3 (cold) at W =
+17 to 32769 on both of phase 3's wide
 inputs under every plan the package beside the script offers (its warp and
 staged plans, and the warp plans' choices; a package from before the warp
 plans, its own), each bit-exact with its plain version, then phase 18
@@ -413,6 +422,8 @@ SYMBOLS = {name: symbol for name, _where, symbol in KERNELS}
 # the kernels of K1's and K3's warp plans (from kernels.WARP_FROM_W)
 WIDE_SYMBOLS = {"probe_fused": "probe_fused_warp_kernel",
                 "compact_ranks": "compact_ranks_warp_kernel"}
+# K2's cluster plan's kernel (kernels.plan_intra; its grid plan's is SYMBOLS')
+CLUSTER_SYMBOL = "intra_cluster_kernel"
 MAIN_PATH = ("probe_fused", "intra_fixpoint", "compact_ranks", "run_to_step")
 # phase 3's wider lanes: 64- to 131072-byte keys; from W = 257 (1024-byte
 # keys, kernels.WARP_FROM_W) K1 and K3 take their warp plans
@@ -479,8 +490,17 @@ def call_ms(torch, fn, reps: int, warm: int = 3) -> float:
 
 
 def planned_symbol(name: str, plan) -> str:
-    """The CUDA kernel K1's or K3's wrapper launches under `plan`."""
+    """The CUDA kernel K1's or K3's wrapper launches under `plan` (its warp
+    or staged plan), or K2's (its cluster or grid plan)."""
+    if name == "intra_fixpoint":
+        return CLUSTER_SYMBOL if plan.cluster else SYMBOLS[name]
     return WIDE_SYMBOLS[name] if plan.warp else SYMBOLS[name]
+
+
+def k2_plans(launches: dict) -> dict:
+    """K2's launches in a path's counts (kernels.launch_counts), by plan."""
+    head = "intra_fixpoint."
+    return {k[len(head):]: n for k, n in launches.items() if k.startswith(head) and n}
 
 
 def launch_ms(torch, fn, reps: int, flush=None) -> float:
@@ -841,30 +861,59 @@ def chain_inputs(torch, keys_mod, tdev, dev, pool, succ, B):
             tx.to(torch.int32), ones, ~ones, B)
 
 
+def k2_stream_inputs(torch, tdev, dev, packed) -> tuple:
+    """K2's arguments for a packed stream batch with no history yet, as
+    inc_check hands them over: the ranks of its staged rows, live reads
+    and writes, txn indices clamped into the batch."""
+    rb, re_, r_tx, wb, we, w_tx, _snap, active = tdev.stage_batch(dev, *packed[:8])
+    B = active.shape[0]
+    w_ok = (w_tx >= 0) & ~tdev._is_sentinel(wb)
+    return (*tdev._intra_setup(rb, re_, wb, we), r_tx >= 0, w_ok,
+            torch.clamp(r_tx, 0, B - 1).long(), torch.clamp(w_tx, 0, B - 1).long(),
+            w_tx, active, torch.zeros(B, dtype=torch.bool, device=dev), B)
+
+
 def fixpoint_check(check, results, torch, kernels, fx, key, reps):
-    """K2 on `fx` against its plain version (`check`) and against the loop
-    it replaced (the per-query kernel in a host loop): the same bits and
-    iteration count; logs the loop's time beside the kernel's."""
+    """K2 on `fx` under kernels.plan_intra's plan against its plain version
+    (`check`), the loop it replaced (the per-query kernel in a host loop)
+    and the grid plan (the cooperative kernel over device memory, where the
+    plan is a cluster): the same bits and iteration count; logs the plan, its
+    cluster and shared bytes, the time an iteration, and the loop's and
+    the grid plan's times beside the kernel's."""
+    R, Wn, B = fx[0].shape[0], fx[2].shape[0], fx[-1]
+    plan = kernels.plan_intra(R, Wn, B)
     got = kernels.intra_fixpoint(*fx)
     n_iters = int(got[1])
     loop = lambda: kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)  # noqa: E731
+    grid = lambda: kernels.intra_fixpoint(*fx, plan=kernels.INTRA_GRID_PLAN)  # noqa: E731
     before = kernels.launches["intra_query"]
     k2_loop = loop()
     require(kernels.launches["intra_query"] - before == n_iters,
             f"{key}: the per-query loop launched K2 once an iteration")
     require(torch.equal(k2_loop[0], got[0]) and int(k2_loop[1]) == n_iters,
             f"{key}: the fixpoint kernel disagrees with the per-query loop")
+    by_grid = grid()
+    require(torch.equal(by_grid[0], got[0]) and int(by_grid[1]) == n_iters,
+            f"{key}: the {kernels.plan_name(plan)} plan disagrees with the grid plan")
     check("intra_fixpoint", list(got), list(kernels.intra_fixpoint_plain(*fx)),
           intra_fixpoint_work(fx, n_iters), fn=lambda: kernels.intra_fixpoint(*fx),
           plain_fn=lambda: kernels.intra_fixpoint_plain(*fx), reps=reps, cold=False,
-          key=key)
+          key=key, symbol=planned_symbol("intra_fixpoint", plan))
     loop_ms = launch_ms(torch, loop, 3)
-    ms = results[key]["ms"]
-    results[key].update(iterations=n_iters, k2_loop_ms=loop_ms)
-    log(f"kernel {key}: {n_iters} iterations, {int(got[0].sum())} of {fx[-1]} "
-        f"txns intra-conflicted; same bits and count as the per-query loop; "
-        f"fixpoint kernel {ms:.6f} ms vs the loop {loop_ms:.6f} ms "
-        f"(loop / kernel = {loop_ms / ms:.1f})")
+    grid_ms = launch_ms(torch, grid, reps)
+    r = results[key]
+    r.update(iterations=n_iters, k2_loop_ms=loop_ms, grid_ms=grid_ms,
+             plan=kernels.plan_name(plan), cluster=plan.cluster, smem=plan.smem,
+             us_per_iteration=r["ms"] * 1e3 / n_iters)
+    log(f"kernel {key}: R={R} Wn={Wn} B={B}: {n_iters} iterations, "
+        f"{int(got[0].sum())} of {B} txns intra-conflicted; plan {r['plan']} "
+        f"(cluster {plan.cluster}, {plan.smem} B shared a block); same bits and "
+        f"count as the plain version, the per-query loop and the grid plan; "
+        f"{r['ms']:.6f} ms warm = {r['us_per_iteration']:.3f} us an iteration, "
+        f"bound {r['bound_ms'] * 1e3:.3f} us, {r['ms'] / r['bound_ms']:.1f}x; "
+        f"grid plan {grid_ms:.6f} ms ({grid_ms * 1e3 / n_iters:.3f} us an iteration, "
+        f"grid / plan = {grid_ms / r['ms']:.2f}); the loop {loop_ms:.6f} ms "
+        f"(loop / kernel = {loop_ms / r['ms']:.1f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1024,7 +1073,7 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
         f"{k5_ms:.6f} ms, K5 / K1 = {k5_ms / k1_ms:.2f}")
 
     # K2: the first fixpoint iteration's tables of a real stream batch
-    rb, re_, r_tx, wb, we, w_tx, _snap, active = tdev.stage_batch(dev, *first_batch[:8])
+    rb, re_, _r_tx, wb, we, w_tx, _snap, _active = tdev.stage_batch(dev, *first_batch[:8])
     rb_r, re_r, wb_r, we_r = tdev._intra_setup(rb, re_, wb, we)
     n = 2 * (rb.shape[0] + wb.shape[0])
     w_ok = w_tx >= 0
@@ -1042,15 +1091,12 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           plain_fn=lambda: kernels.intra_query_plain(*k2), reps=100, cold=False)
 
     # K2 redesigned: the whole fixpoint of the first stream batch (no
-    # history yet), then of a chain batch, held against its plain version
-    # and against the loop it replaced (the per-query kernel above in a
-    # host loop); warm, as on the main path, where the ranks were just made
-    B = active.shape[0]
-    w_ok = (w_tx >= 0) & ~tdev._is_sentinel(wb)
-    fx = (rb_r, re_r, wb_r, we_r, r_tx >= 0, w_ok,
-          torch.clamp(r_tx, 0, B - 1).long(), torch.clamp(w_tx, 0, B - 1).long(),
-          w_tx, active, torch.zeros(B, dtype=torch.bool, device=dev), B)
-    fixpoint_check(check, results, torch, kernels, fx, "intra_fixpoint", reps=50)
+    # history yet), then of a chain batch, held against its plain version,
+    # the loop it replaced (the per-query kernel above in a host loop) and
+    # the grid plan; warm, as on the main path, where the ranks were just made
+    fixpoint_check(check, results, torch, kernels,
+                   k2_stream_inputs(torch, tdev, dev, first_batch), "intra_fixpoint",
+                   reps=50)
     fixpoint_check(check, results, torch, kernels,
                    chain_inputs(torch, keys_mod, tdev, dev, pool, succ, CHAIN_TXNS),
                    "intra_fixpoint_chain", reps=10)
@@ -1164,7 +1210,7 @@ def stream_phase(torch, fdb, batches, power):
         verdicts.append(got)
         if i >= GC_FROM_BATCH:
             on_gpu.remove_before(version - GC_LAG)
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     syncs = on_gpu.host_syncs / len(batches)
     iters = on_gpu.fixpoint_iterations()
     t_cpu = time.perf_counter()
@@ -1200,6 +1246,9 @@ def stream_phase(torch, fdb, batches, power):
     log(f"stream: cpu cross-check took {cpu_s:.1f} s")
     log(f"stream: launches {json.dumps(launches)}")
     check_path_launches(launches, len(batches), on_gpu.stats.compactions, "flat stream")
+    plans = k2_plans(launches)
+    require("grid" not in plans and sum(plans.values()) == len(batches),
+            f"flat stream: K2 took the cluster plan on every batch, not {plans}")
     require(syncs <= 2.0, f"flat stream: {syncs:.2f} host syncs a batch, more than 2")
     require(counts[Verdict.TOO_OLD] > 0, "the GC clamp never made a txn TOO_OLD")
     return launches, on_gpu, verdicts, iters
@@ -1423,7 +1472,7 @@ def best_known_phase(torch, fdb, batches, flat_verdicts, flat_iters, power):
         kernels.reset_launches()
         got, walls = drive(torch, fdb, mode, cs, batches, 1)
         torch.cuda.synchronize()
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
         for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
             require(a == b, f"best-known {mode}: batch {i} differs from the flat run")
         require(len(got) == len(batches), f"best-known {mode}: verdicts missing")
@@ -1666,7 +1715,7 @@ def supervised_phase(torch, fdb, batches, flat_verdicts, power):
             kernels.reset_launches()
             got, walls = drive(torch, fdb, mode, cs, batches, 1)
             torch.cuda.synchronize()
-            launches = dict(kernels.launches)
+            launches = kernels.launch_counts()
             where = f"{kind} {mode} (turn {turn})"
             for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
                 require(a == b, f"{where}: batch {i} differs from the flat run")
@@ -1753,7 +1802,7 @@ def drill_phase(torch, fdb, batches, flat_verdicts, power):
     finally:
         buggify.disable()
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     h = sup.health()
     require(h["state"] == "healthy" and h["trips"] == 1 and h["promotions"] == 2,
             f"drill: end state {h}")
@@ -1796,7 +1845,7 @@ def watchdog_phase(torch, fdb, batches, flat_verdicts):
     got, _ = drive(torch, fdb, "sync", sup, batches[:2], 1)
     more, _ = drive(torch, fdb, "deferred", sup, batches[2:4], 3)
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     require(got + more == flat_verdicts[:4], "watchdog: verdicts differ from the flat run")
     worker = sup._watchdog._worker
     require(sup._watchdog.wall and worker is not None and worker.is_alive(),
@@ -1834,7 +1883,7 @@ def bench_phase(fdb, power):
     kernels, bench = fdb["kernels"], fdb["bench"]
     kernels.reset_launches()
     doc = bench.run_headline("cuda")
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     # the phase profile block, as bench.run adds it (its launches on no path)
     doc["kernel"]["phase_profile"] = bench.phase_profile_probe("cuda", "small")
     # the bench's probes, as bench.run adds them; the metrics_series
@@ -1843,7 +1892,7 @@ def bench_phase(fdb, power):
     doc["commit_wire"] = bench.commit_wire_probe()
     kernels.reset_launches()
     series = doc["metrics_series"] = bench.metrics_series_probe("cuda")
-    probe_launches = dict(kernels.launches)
+    probe_launches = kernels.launch_counts()
     print(json.dumps(doc), flush=True)
     k = doc["kernel"]
     require(k["parity_batches"] == bench.TIMED_BATCHES
@@ -1909,6 +1958,16 @@ def stream_ms(walls) -> str:
             f"p99={float(np.percentile(timed, 99)):.3f} (n={len(timed)})")
 
 
+def sum_launches(kernels, counts) -> dict:
+    """Launch counts summed key by key: every wrapper's, and K2's by plan
+    (kernels.launch_counts' "intra_fixpoint.<plan>") where any has one."""
+    out = dict.fromkeys(kernels.launches, 0)
+    for one in counts:
+        for name, n in one.items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def require_launches(launches, need: dict, where: str) -> None:
     for name, n in need.items():
         require(launches[name] == n,
@@ -1936,7 +1995,7 @@ def legacy_phase(torch, fdb, batches, flat_verdicts, power):
         kernels.reset_launches()
         got, walls = drive(torch, fdb, "sync", cs, batches, 1)
         torch.cuda.synchronize()
-        launches = out[f"legacy_{name}"] = dict(kernels.launches)
+        launches = out[f"legacy_{name}"] = kernels.launch_counts()
         for i, (a, b) in enumerate(zip(got, flat_verdicts), start=1):
             require(a == b, f"legacy {name}: batch {i} differs from phase 4")
         folds = cs.stats.compactions
@@ -2001,7 +2060,7 @@ def timing_phase(torch, fdb, batches, flat_verdicts, power):
             if floor is not None:
                 cs.remove_before(floor)
         torch.cuda.synchronize()
-        launches = out[f"timed_{name}"] = dict(kernels.launches)
+        launches = out[f"timed_{name}"] = kernels.launch_counts()
         check_path_launches(launches, len(batches), cs.stats.compactions, f"timed {name}")
         phase = cs.kernel_stats()["phase"]
         log(f"timed {name}: {len(batches)} batches identical to phase 4; totals "
@@ -2166,7 +2225,7 @@ def sharded_phase(torch, fdb, batches, extra, pool, oracle_stream, single, power
         drive_mode = drive_in_flight if mode == "c" else drive_sync
         got, walls, snaps[mode] = drive_mode(torch, fdb, cs, batches[:n], SHARD_CPU_BATCHES)
         torch.cuda.synchronize()
-        launches = out[f"sharded_{mode}"] = dict(kernels.launches)
+        launches = out[f"sharded_{mode}"] = kernels.launch_counts()
         verdicts[mode] = got
         folds = cs.compactions
         if mode == "d":
@@ -2232,7 +2291,7 @@ def sharded_phase(torch, fdb, batches, extra, pool, oracle_stream, single, power
             cs.remove_before(version - 3)
             oracle.remove_before(version - 3)
     torch.cuda.synchronize()
-    out["sharded_oracle"] = dict(kernels.launches)
+    out["sharded_oracle"] = kernels.launch_counts()
     require(cs.regrows >= 1, "sharded oracle stream: main never regrew")
     log(f"sharded: {len(oracle_stream)} batches of phase 8's stream identical to "
         f"{len(ORACLE_SPLITS) + 1} partition oracles merged with min; "
@@ -2416,7 +2475,7 @@ def role_sim_phase(torch, fdb, batches, extra, power):
         kernels.reset_launches()
         role, net, clock, replies = sim_role_run(fdb, cs, requests, pipeline)
         torch.cuda.synchronize()
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
         role.stop()
         where = f"role sim {mode}"
         require([c for c, _t in replies] == want,
@@ -2484,7 +2543,7 @@ def role_tcp_phase(torch, fdb, batches, want, power):
             got.append(driver.run_until(loop.spawn(one(req)), wall_timeout=ROLE_WALL_S))
             walls.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
         require(got == want[:len(batches)], "role tcp: replies differ from (a)'s")
         h = sup.health()
         require(h["state"] == "healthy" and h["serving"] == "device" and h["trips"] == 0
@@ -2598,7 +2657,7 @@ class RecordedSet:
                  on_first=None) -> None:
         self.kernels, self.inner = kernels, inner
         self.index, self.log, self.window = index, log, window
-        self.launches = dict.fromkeys(kernels.launches, 0)
+        self.launches = dict.fromkeys(kernels.launches, 0)  # K2 by plan as it comes
         self.batches = 0
         self.on_first, self.retired = on_first, None  # on_first(index): before batch 1
 
@@ -2625,12 +2684,12 @@ class RecordedSet:
             self.on_first = None
         if self.window is not None:
             self.window.before(len(txns))
-        before = dict(self.kernels.launches)
+        before = self.kernels.launch_counts()
         t0 = time.perf_counter()
         out = self.inner.resolve_batch(version, txns)
         ms = (time.perf_counter() - t0) * 1e3
-        for name, n in self.kernels.launches.items():
-            self.launches[name] += n - before[name]
+        for name, n in self.kernels.launch_counts().items():
+            self.launches[name] = self.launches.get(name, 0) + n - before.get(name, 0)
         if txns:
             self.batches += 1
         self.log.append(("batch", self.index, version, txns, [int(v) for v in out], ms))
@@ -2835,7 +2894,7 @@ def cluster_run(torch, fdb, part: str, clients: int, seconds: float, make_set=No
     walls["run"] = time.perf_counter() - t0
     if device == "cuda":
         torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     end = c.loop.now()
     dump = [storage_dump(ss) for ss in c.storage]
     t0 = time.perf_counter()
@@ -2884,7 +2943,7 @@ def check_cluster_launches(rec: dict, where: str, idle_ok: bool = False) -> None
                 f"{where} resolver {i}: compact_ranks launched {cs.launches['compact_ranks']}")
         require(idle_ok or cs.batches > 0, f"{where} resolver {i}: no batch reached the card")
         for name, n in cs.launches.items():
-            total[name] += n
+            total[name] = total.get(name, 0) + n
     require(any(cs.batches for cs in rec["sets"]), f"{where}: no batch reached the card")
     require(total == rec["launches"], f"{where}: launches outside the resolvers' batches")
 
@@ -3133,7 +3192,7 @@ def durable_run(torch, fdb, part: str, clients: int, seconds: float, kills: tupl
         walls["run"] = time.perf_counter() - t0
         if device == "cuda":
             torch.cuda.synchronize()
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
         rec = dict(metrics=metrics, end=c.loop.now(), recoveries=c.controller.recoveries,
                    epoch=c.controller.epoch, dump=[storage_dump(ss) for ss in c.storage],
                    files=fs_files(c.fs), states=states, kills=kills_at, memory=memory,
@@ -3163,7 +3222,7 @@ def durable_run(torch, fdb, part: str, clients: int, seconds: float, kills: tupl
             status = json.loads(c.run_until(c.loop.spawn(probe_and_status())))
             if device == "cuda":
                 torch.cuda.synchronize()
-            rec.update(restart_launches=dict(kernels.launches), status=status,
+            rec.update(restart_launches=kernels.launch_counts(), status=status,
                        restart_epoch=c.controller.epoch, restart_end=c.loop.now())
         else:
             got = read_back(fdb, c, c.database())
@@ -3318,11 +3377,7 @@ class SetLog:
         return [s for s in self.sets if s.cluster == cluster]
 
     def launches(self, cluster: str) -> dict:
-        out = dict.fromkeys(self.kernels.launches, 0)
-        for s in self.of(cluster):
-            for name, n in s.launches.items():
-                out[name] += n
-        return out
+        return sum_launches(self.kernels, (s.launches for s in self.of(cluster)))
 
     def batch_stats(self, cluster: str) -> dict:
         """The cluster's non-empty resolver batches: how many, their sizes
@@ -3515,7 +3570,7 @@ def backup_run(torch, fdb, part: str, clients: int, seconds: float, kills: tuple
         src.run_until(src.loop.spawn(drain()))
         walls["run"] = time.perf_counter() - t0
         card_sync(torch, device)
-        paths = {"src": dict(kernels.launches)}
+        paths = {"src": kernels.launch_counts()}
         want = read_user(fdb, src, db)
         chunks, log = src.run_until(src.loop.spawn(container.read()))
         folded = backup.apply_backup(chunks, log)
@@ -3534,7 +3589,7 @@ def backup_run(torch, fdb, part: str, clients: int, seconds: float, kills: tuple
         target = dst.run_until(dst.loop.spawn(backup.restore(db2, container)))
         walls["restore"] = time.perf_counter() - t0
         card_sync(torch, device)
-        paths["dst"] = dict(kernels.launches)
+        paths["dst"] = kernels.launch_counts()
         got = read_user(fdb, dst, db2)
         cc = fdb["consistency"].ConsistencyCheckWorkload()
         consistent = dst.run_until(dst.loop.spawn(cc.check(dst, dst.rng.split())))
@@ -3590,7 +3645,7 @@ def restart_run(torch, fdb, sets: SetLog, src, make_set, read: tuple, want: dict
 
     c.run_until(c.loop.spawn(probe()))
     card_sync(torch, "cuda")
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     served = read_user(fdb, c, db)
     container = blob_container(fdb, c)
     reread = c.run_until(c.loop.spawn(container.read()))
@@ -3672,7 +3727,7 @@ def dr_run(torch, fdb, clients: int, seconds: float, kills: tuple, make_set) -> 
 
     dr["probe"] = secondary.run_until(secondary.loop.spawn(probe()))
     torch.cuda.synchronize()
-    window = dict(kernels.launches)
+    window = kernels.launch_counts()
     gc.collect()
     torch.cuda.synchronize()
     dr["memory_both_up"] = card_bytes(torch)
@@ -3697,7 +3752,8 @@ def dr_run(torch, fdb, clients: int, seconds: float, kills: tuple, make_set) -> 
     # both clusters' sets shared the window: each cluster's sets must sum to
     # their own launches, and together to the window's
     both = {name: sets.launches(name) for name in ("primary", "secondary")}
-    require(all(window[k] == both["primary"][k] + both["secondary"][k] for k in window),
+    require(all(window[k] == both["primary"].get(k, 0) + both["secondary"].get(k, 0)
+                for k in window),
             f"dr: launches outside the two clusters' sets ({window} against {both})")
     rec.update(launches=sets.check(fdb, both, "dr"),
                stats={name: sets.batch_stats(name) for name in both})
@@ -3812,8 +3868,8 @@ def backup_phase(torch, fdb, power):
         cpu = pending.result()
     for key in keys:
         require(gpu[key] == cpu[key], f"backup c: the cuda and cpu runs' {key} differ")
-    paths["backup_c_cuda"] = {k: gpu["launches"]["src"][k] + gpu["launches"]["dst"][k]
-                              for k in gpu["launches"]["src"]}
+    paths["backup_c_cuda"] = sum_launches(fdb["kernels"], (gpu["launches"]["src"],
+                                                          gpu["launches"]["dst"]))
     summary["c"] = dict(committed=gpu["metrics"]["committed"], end_virtual_s=gpu["end"],
                         recoveries=gpu["recoveries"], batches=len(gpu["verdicts"]),
                         files=[len(f) for f in gpu["files"]],
@@ -3915,7 +3971,7 @@ def spec_run(torch, fdb, part: str, path: str, pair: bool, device="cuda") -> dic
                                              device=device)
             walls["run"] = time.perf_counter() - t0
             card_sync(torch, device)
-            launches = dict(kernels.launches)
+            launches = kernels.launch_counts()
     finally:
         gc.enable()
         tdev.DeviceConflictSet = real
@@ -4028,7 +4084,7 @@ def readback_drill(torch, fdb, power, device="cuda") -> dict:
         buggify.disable()
         card_sync(torch, device)
         sup.close()
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     require(census["device.readback_corrupt"]["fires"] == 1
             and h["last_failure"] == "dispatch:readback_corrupt"
             and served == ["device", "cpu", "device", "device", "device"]
@@ -4122,7 +4178,7 @@ def long_key_run(torch, fdb, clients: int, seconds: float, device="cuda") -> dic
         got = read_back(fdb, c, db)
         walls["read_back"] = time.perf_counter() - t0
         card_sync(torch, device)
-        launches, by_width = dict(kernels.launches), dict(widths)
+        launches, by_width = kernels.launch_counts(), dict(widths)
         end = c.loop.now()
         c.stop()
         c = db = None
@@ -4416,7 +4472,7 @@ def repro_part(torch, fdb, power, device="cuda") -> dict:
         got = repro_run(torch, fdb, make, REPRO_FILL)
         wall = time.perf_counter() - t0
         card_sync(torch, device)
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
     finally:
         for fn, inner in real:
             setattr(kernels, fn, inner)
@@ -4581,7 +4637,7 @@ def saturate_run(torch, fdb, part: str, device="cuda") -> dict:
         curve = fdb["saturate"].run_hot_curve(True, **SAT_CURVE, device=device)
         wall = time.perf_counter() - t0
         card_sync(torch, device)
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
     finally:
         gc.enable()
     return dict(curve=curve, launches=launches, walls=dict(run=wall))
@@ -4604,8 +4660,8 @@ def soak_run(torch, fdb, part: str, device="cuda") -> dict:
                 census=report["coverage"]["per_seed"], merged=report["coverage"]["merged"],
                 metrics={r["seed"]: without_paths(r.get("metrics") or {}) for r in per_seed},
                 errors={r["seed"]: r.get("error") for r in per_seed if r.get("error")},
-                launches={k: sum(r.get("launches", {}).get(k, 0) for r in per_seed)
-                          for k in fdb["kernels"].launches},
+                launches=sum_launches(fdb["kernels"],
+                                      (r.get("launches", {}) for r in per_seed)),
                 seed_walls={r["seed"]: round(r["wall_s"], 1) for r in per_seed},
                 walls=dict(run=wall))
 
@@ -4767,7 +4823,7 @@ def bounce_part(torch, fdb, out: str, power, device="cuda") -> tuple:
     frame = frame.getvalue()
     require(top_rc == 0 and frame.startswith("fdbtpu top") and "proxy: version" in frame,
             f"supervised (b): fdbtop --once printed {frame!r}")
-    launches = {k: sum(r["last"].get(k, 0) for r in runs) for k in fdb["kernels"].launches}
+    launches = sum_launches(fdb["kernels"], (r["last"] for r in runs))
     mv = report["mixed_version"]
     log(f"supervised (a) bounce: 3 coordservers + 1 fdbserver (--device {device}) under "
         f"fdbmonitor, load from 2 client threads: {len(report['checks'])} checks ok; "
@@ -4859,7 +4915,7 @@ def cli_run(torch, fdb, part: str, device="cuda") -> dict:
         out = {name: fn(fdb["cli"].Cli, dict(device=device)) for name, fn in CLI_SESSIONS}
         wall = time.perf_counter() - t0
         card_sync(torch, device)
-        launches = dict(kernels.launches)
+        launches = kernels.launch_counts()
     finally:
         gc.enable()
     return dict(outputs=out, launches=launches, walls=dict(run=wall))
@@ -4944,7 +5000,7 @@ def phase_timings_part(torch, fdb, power) -> tuple:
     kernels.reset_launches()
     report = pt.collect(device=CARD, reps=PHASE_REPS)
     torch.cuda.synchronize()
-    launches = dict(kernels.launches)
+    launches = kernels.launch_counts()
     problems = fdb["status"].check_phase_profile(report)
     require(not problems and report["backend"] == CARD and not report["small"],
             f"root (a): the phase profile does not conform: {problems}")
@@ -4997,7 +5053,7 @@ def root_scripts_phase(torch, fdb, power) -> dict:
     kernels.reset_launches()
     rows = pk.primitive_table(CARD, pk.TABLE_SHAPES)
     torch.cuda.synchronize()
-    paths["primitives"] = dict(kernels.launches)
+    paths["primitives"] = kernels.launch_counts()
     require([label for label, _ms in rows] == [r[0] for r in pk.PRIMITIVES],
             f"root (b): rows {rows}")
     # K2 runs once a call of the WHOLE row: one untimed call and 3 timed
@@ -5018,7 +5074,7 @@ def root_scripts_phase(torch, fdb, power) -> dict:
     fn, args = ge.entry(CARD)
     out = fn(*args)
     torch.cuda.synchronize()
-    paths["graft_entry"] = dict(kernels.launches)
+    paths["graft_entry"] = kernels.launch_counts()
     cfn, cargs = ge.entry("cpu")
     for i, (a, b) in enumerate(zip(out, cfn(*cargs), strict=True)):
         require(torch.equal(a.cpu(), b), f"root (d): entry() output {i} differs on cuda")
@@ -5027,7 +5083,7 @@ def root_scripts_phase(torch, fdb, power) -> dict:
     kernels.reset_launches()
     ge.dryrun_multichip(SHARDS, CARD)
     torch.cuda.synchronize()
-    paths["graft_dryrun"] = dict(kernels.launches)
+    paths["graft_dryrun"] = kernels.launch_counts()
     require(all(paths["graft_dryrun"][k] > 0 for k in MAIN_PATH),
             f"root (d): the dry run launched {paths['graft_dryrun']}")
     log(f"root (d) graft entry: {time.perf_counter() - t:.1f} s; entry() on cuda equals "
@@ -5041,7 +5097,7 @@ def root_scripts_phase(torch, fdb, power) -> dict:
     batches = bd.run(CARD, txns=bench.TXNS_PER_BATCH, cap=bench.CAP,
                      prefill=bench.PREFILL_BATCHES)
     torch.cuda.synchronize()
-    paths["bench_debug"] = dict(kernels.launches)
+    paths["bench_debug"] = kernels.launch_counts()
     n = bench.PREFILL_BATCHES + bd.TIMED
     # the default set folds its 8 runs at the first timed batch: K4 once,
     # K3 once a run
@@ -5160,6 +5216,55 @@ def sweep_k4(torch, kernels, keys_mod, base: dict, W: int, rows: int, flush) -> 
     return out
 
 
+# `--sweep`'s K2 batches: txns of the stream's mix (2 point reads and 1
+# point write a txn over its key pool: R = 2 B, Wn = B), from a few hundred
+# (the clusters' batches) to the proxy's cap
+SWEEP_K2_TXNS = (64, 512, 2048, 8192, 32768)
+SWEEP_K2_REPS = 20
+
+
+def sweep_k2(torch, fdb, dev, pool, succ) -> list:
+    """K2 warm on a stream batch of each SWEEP_K2_TXNS size (no history,
+    as phase 3's first batch): the grid plan and kernels.plan_intra's
+    plan in turns (grid, planned, planned, grid), then each other cluster
+    size that holds the batch once; each bit-exact with the plain
+    version, with the same iteration count.  A package from before the
+    cluster plan times its own kernel ("before").  Returns the rows."""
+    kernels, tdev = fdb["kernels"], fdb["device"]
+    rows = []
+    for B in SWEEP_K2_TXNS:
+        (_v, txns), = stream_batches(fdb["TxInfo"], np.random.default_rng(SEED + B), pool,
+                                     succ, 1, txns=B)
+        packed = tdev.pack_batch(txns, 0, lambda v: v, SET_ARGS["max_key_bytes"])
+        fx = k2_stream_inputs(torch, tdev, dev, packed)
+        R, Wn = fx[0].shape[0], fx[2].shape[0]
+        want = kernels.intra_fixpoint_plain(*fx)
+        if hasattr(kernels, "plan_intra"):
+            planned = kernels.plan_intra(R, Wn, B)
+            turns = [("grid", kernels.INTRA_GRID_PLAN), ("planned", planned),
+                     ("planned", planned), ("grid", kernels.INTRA_GRID_PLAN)]
+            turns += [(f"cluster{c}", kernels.plan_intra_cluster(R, Wn, B, c))
+                      for c in kernels.INTRA_CLUSTERS if c != planned.cluster
+                      and kernels.intra_cluster_bytes(R, Wn, B, c) <= kernels.SMEM_MAX]
+        else:
+            turns = [("before", None)]
+        for name, plan in turns:
+            kw = {} if plan is None else {"plan": plan}
+            got = kernels.intra_fixpoint(*fx, **kw)
+            require(torch.equal(got[0], want[0]) and int(got[1]) == int(want[1]),
+                    f"sweep: intra_fixpoint ({name}) at B={B} disagrees with its plain "
+                    f"version")
+            row = dict(B=B, R=R, Wn=Wn, kernel="intra_fixpoint", plan=name,
+                       iterations=int(want[1]),
+                       warm_ms=launch_ms(torch, lambda: kernels.intra_fixpoint(*fx, **kw),
+                                         SWEEP_K2_REPS))
+            if plan is not None:
+                row.update(cluster=plan.cluster, smem=plan.smem)
+            rows.append(row)
+            log("sweep " + json.dumps(row))
+    return rows
+
+
 def kernel_event_ms(torch, kernels, fn) -> dict:
     """Runs fn with K1's, K3's and K4's wrappers timed launch by launch: a
     CUDA event pair around each (behind a ~0.1 ms device spin, so the pair
@@ -5191,7 +5296,8 @@ def kernel_event_ms(torch, kernels, fn) -> dict:
 
 
 def sweep(torch, fdb, dev, power, out: Path) -> None:
-    """K1, K3 and K4 cold at every SWEEP_W: K1 and K3 on both of phase 3's
+    """K2 warm under its plans at each SWEEP_K2_TXNS (sweep_k2); K1, K3 and
+    K4 cold at every SWEEP_W: K1 and K3 on both of phase 3's
     wide inputs (kernel_inputs from SEED) under each of sweep_variants'
     plans, K4 on `prefixed` beside its torch.stack yardstick (sweep_k4),
     each bit-exact with its plain version; then phase 18 (b)'s and phase 19 (a)'s runs with K1's, K3's
@@ -5203,8 +5309,9 @@ def sweep(torch, fdb, dev, power, out: Path) -> None:
     pool, succ = key_pool(rng)
     base = kernel_inputs(torch, keys_mod, dev, rng, pool, succ)
     log(f"sweep: inputs at {time.perf_counter() - t0:.1f} s")
+    rows = sweep_k2(torch, fdb, dev, pool, succ)
+    log(f"sweep: K2 done at {time.perf_counter() - t0:.1f} s")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    rows = []
     for W in SWEEP_W:
         cut = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"],
                        TXNS * READS_PER_TXN)
@@ -5260,9 +5367,9 @@ def wide_entries(results: dict, k: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep", metavar="OUT",
-                        help="only time K1 and K3 at SWEEP_W under every plan the "
-                             "package offers and K4 beside torch.stack, and write "
-                             "the numbers to OUT (JSON)")
+                        help="only time K2 at SWEEP_K2_TXNS and K1 and K3 at SWEEP_W "
+                             "under every plan the package offers and K4 beside "
+                             "torch.stack, and write the numbers to OUT (JSON)")
     args = parser.parse_args()
     import torch
 
@@ -5301,7 +5408,9 @@ def main() -> int:
                 planned_symbol("compact_ranks", p3): p3.smem}
 
     smem = {w: smem_at(w) for w in (W, *WIDE_W)}
-    symbols = (*SYMBOLS.values(), *WIDE_SYMBOLS.values())
+    k2_plan = kernels.plan_intra(TXNS * READS_PER_TXN, TXNS, TXNS)  # the stream's batch
+    smem[W][planned_symbol("intra_fixpoint", k2_plan)] = k2_plan.smem
+    symbols = (*SYMBOLS.values(), *WIDE_SYMBOLS.values(), CLUSTER_SYMBOL)
     entry = None
     for line in _build.ptxas_report().splitlines():
         if "Compiling entry function" in line:
@@ -5312,6 +5421,11 @@ def main() -> int:
                 f"{b} B at W={w}" for w, b in at.items()) + "]"
                 if at and "Used" in line else "")
             log("  " + line.strip() + extra)
+    if k2_plan.cluster:
+        log(f"occupancy: {CLUSTER_SYMBOL} at the stream's batch: "
+            f"{kernels.intra_cluster_occupancy(dev.index or 0, k2_plan)} clusters of "
+            f"{k2_plan.cluster} blocks of {kernels.INTRA_THREADS} threads at once "
+            f"({k2_plan.smem} B shared a block)")
     for w in WIDE_W:
         p1 = kernels.plan_probe(SET_ARGS["run_slots"], wide_cut(
             w, SET_ARGS["run_capacity"], SET_ARGS["capacity"], 0)[0], w)
@@ -5409,12 +5523,18 @@ def main() -> int:
     by_path.update(supervised, bench=bench_launches, bench_metrics_series=series_launches)
     by_path.update(new_paths)
     path_launches = dict(launches, **referee_launches)
+    log("K2 launches by plan, by path: " + json.dumps(
+        {p: k2_plans(n) for p, n in by_path.items()}))
     timed = WIDE_TIMED
     print(json.dumps({"kernels": [
         dict(name=k, route="cuda", source=SOURCE, replaces=where,
              launches=path_launches[k], max_abs_err=results[k]["max_abs_err"],
              **{key: results[k][key] for key in timed},
              launches_by_path={p: n.get(k, 0) for p, n in by_path.items()},
+             **({"launches_by_plan": {p: k2_plans(n) for p, n in by_path.items()},
+                 **{key: results[k][key] for key in ("plan", "cluster", "smem",
+                                                     "us_per_iteration", "grid_ms")}}
+                if k == "intra_fixpoint" else {}),
              **({"wide": wide_entries(results, k)} if k in WIDE_KERNELS else {}))
         for k, where, _symbol in KERNELS
     ]}))

@@ -485,8 +485,9 @@ def metrics_series_probe(device=None, n_commits: int = 200) -> dict:
     per interval, the conflict backend's wall-ms deltas, the MVCC version
     floor over simulated time).  Both resolvers host the port's default
     set on `device` (CUDA unless the caller asks for the CPU);
-    `kernel_launches` counts the kernels the run launched (none on the
-    CPU, whose plain versions count nothing).  Raises when no sample
+    `kernel_launches` counts the kernels the run launched, K2's also by
+    plan (kernels.launch_counts; none on the CPU, whose plain versions
+    count nothing).  Raises when no sample
     came."""
     from .cluster import SimCluster
     from .conflict import kernels
@@ -494,7 +495,7 @@ def metrics_series_probe(device=None, n_commits: int = 200) -> dict:
 
     knobs = CoreKnobs()
     knobs.METRICS_INTERVAL = 0.25
-    launches0 = dict(kernels.launches)
+    launches0 = kernels.launch_counts()
     c = SimCluster(seed=5, n_resolvers=2, n_tlogs=1, knobs=knobs, device=device)
     try:
         db = c.database()
@@ -525,7 +526,8 @@ def metrics_series_probe(device=None, n_commits: int = 200) -> dict:
         "interval_s": 0.25,
         "workload_commits": n_commits,
         "ResolverMetrics": series,
-        "kernel_launches": {k: n - launches0[k] for k, n in kernels.launches.items()},
+        "kernel_launches": {k: n - launches0.get(k, 0)
+                            for k, n in kernels.launch_counts().items()},
     }
 
 

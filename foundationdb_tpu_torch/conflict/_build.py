@@ -38,7 +38,7 @@ _SIGNATURES = {
     "fdb_intra_query": [_P] * 5 + [_I] * 3 + [_P],
     "fdb_compact_ranks": [_P] * 3 + [_I] * 7 + [_P],
     "fdb_run_to_step": [_P] * 5 + [_I] * 3 + [ctypes.c_uint] + [_I] * 4 + [_P],
-    "fdb_intra_fixpoint": [_P] * 14 + [_I] * 5 + [_P],
+    "fdb_intra_fixpoint": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 
@@ -97,4 +97,6 @@ def load() -> ctypes.CDLL:
     lib.fdb_cuda_error_string.restype = ctypes.c_char_p
     lib.fdb_warp_plan_occupancy.argtypes = [_I] * 3
     lib.fdb_warp_plan_occupancy.restype = ctypes.c_int
+    lib.fdb_intra_cluster_occupancy.argtypes = [_I] * 2
+    lib.fdb_intra_cluster_occupancy.restype = ctypes.c_int
     return lib

@@ -18,9 +18,13 @@ that its main path went through the kernels.
      run_to_step          its one-run case
   K5 run_conflicts     <- _probe_kernel        (pallas_kernel.py:165)
 
-K2 runs the whole intra-batch fixpoint in one cooperative launch and
-reads nothing on the host; `intra_query` keeps the per-iteration query
-kernel that the fixpoint replaced, which no system path calls: with
+K2 runs the whole intra-batch fixpoint in one launch and reads nothing
+on the host: by `plan_intra`, a pure function of the shapes, in one
+thread-block cluster whose blocks hold its state in shared memory (the
+least of 1 to 16 blocks that holds it), or, for batches no cluster holds,
+in one cooperative launch over device memory (the grid plan);
+`intra_query` keeps the per-iteration query kernel that the fixpoint
+replaced, which no system path calls: with
 `intra_fixpoint_plain(..., query=intra_query)` it is the fixpoint's
 referee on the card.  K5 is K1 without the history input.  No system path
 calls it either: like the reference's `run_conflicts`, it is K1's unfused
@@ -63,11 +67,21 @@ launches: dict[str, int] = {
     "probe": 0,
     "intra_fixpoint": 0,
 }
+# K2's launches split by plan (plan_name: "grid", "cluster1" .. "cluster16");
+# they sum to launches["intra_fixpoint"]
+intra_launches: dict[str, int] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    intra_launches.clear()
+
+
+def launch_counts() -> dict[str, int]:
+    """`launches` and, under "intra_fixpoint.<plan>", K2's by plan: what a
+    set, a process or a path reports of the kernels it launched."""
+    return dict(launches, **{f"intra_fixpoint.{k}": n for k, n in intra_launches.items()})
 
 
 # the open counted calls: (the set's dict, the process-wide count at entry)
@@ -76,27 +90,28 @@ _counting: list[tuple[dict[str, int], dict[str, int]]] = []
 
 def counted(method: Callable) -> Callable:
     """Decorates a conflict set's method: the launches made inside it are
-    added, by wrapper, to the set's own `stats.launches` as well as to the
-    process-wide `launches`.  A call nested in another of the same set's
-    counts once; one of another set's counts for that set alone."""
+    added, by wrapper (and K2's by plan: launch_counts), to the set's own
+    `stats.launches` as well as to the process-wide `launches`.  A call
+    nested in another of the same set's counts once; one of another set's
+    counts for that set alone."""
 
     @functools.wraps(method)
     def call(self, *args, **kwargs):
         into = self.stats.launches
         if any(d is into for d, _ in _counting):
             return method(self, *args, **kwargs)
-        before = dict(launches)
+        before = launch_counts()
         _counting.append((into, before))
         try:
             return method(self, *args, **kwargs)
         finally:
             _counting.pop()
-            for name, n in launches.items():
-                made = n - before[name]
+            for name, n in launch_counts().items():
+                made = n - before.get(name, 0)
                 if made:
                     into[name] = into.get(name, 0) + made
                     for _, outer in _counting:  # not the enclosing sets'
-                        outer[name] += made
+                        outer[name] = outer.get(name, 0) + made
 
     return call
 
@@ -394,6 +409,93 @@ def plan_run_to_step(rcap: int, W: int) -> StepPlan:
                     -(-chunk_rows * W // (STEP_THREADS * STEP_PER)))
 
 
+# ---------------------------------------------------------------------------
+# K2's launch plans (pure functions of the shapes)
+
+INTRA_THREADS = 1024           # threads per cluster-plan block (the kernel's kClusterThreads)
+INTRA_CLUSTERS = (1, 2, 4, 8, 16)  # blocks of a cluster; the H100 takes 16 (non-portable above 8)
+
+
+class IntraPlan(NamedTuple):
+    cluster: int  # blocks of the one thread-block cluster; 0: the grid plan
+    smem: int     # dynamic shared bytes per block (0 in the grid plan)
+
+
+# the cooperative kernel over scratch in device memory, for the shapes
+# whose state no cluster's shared memory holds
+INTRA_GRID_PLAN = IntraPlan(0, 0)
+
+
+def intra_leaves(n: int, cluster: int) -> int:
+    """Leaves of K2's two min trees over n ranks: in the cluster plan
+    (`cluster` > 0) ceil(n / cluster) a block, at least one, so the blocks
+    share the ranks evenly; in the grid plan (0) a power of two >= n."""
+    if cluster:
+        return cluster * max(-(-n // cluster), 1)
+    return 1 << max(n - 1, 0).bit_length()
+
+
+def intra_room(items: int, cluster: int) -> int:
+    """A block's room for `items` reads (or writes) over `cluster` blocks
+    (the kernel's intra_room): its share and, beside other blocks, an
+    eighth more, so that begins spread a little unevenly still land in
+    the block that holds their rank."""
+    share = -(-items // cluster)
+    return share + share // 8 if cluster > 1 else share
+
+
+def intra_cluster_bytes(R: int, Wn: int, B: int, cluster: int) -> int:
+    """Shared bytes one block of K2's cluster plan takes (the kernel's
+    intra_cluster_bytes, the same sum): three int32 trees (tree 1 and one
+    tree 2 an iteration parity) over its S = leaves / cluster ranks, each
+    in a room of 2 S ints or of a third of what staging parks there (a
+    4-int record and a place for each read and write of its slice) where
+    that is more; room (intra_room) for reads and writes, a 4-int record
+    each; a header of 8 ints (the claim counts, the range flag) and the
+    staging's counts and bases by block (4 x 16 ints); every txn's state
+    byte and its hit bytes of two iterations; each part rounded up to 16
+    bytes."""
+    r4 = lambda ints: -(-ints // 4) * 4  # noqa: E731
+    r16 = lambda b: -(-b // 16) * 16  # noqa: E731
+    share = lambda x: -(-x // cluster)  # noqa: E731
+    S = intra_leaves(2 * (R + Wn), cluster) // cluster
+    tree = r4(max(2 * S, -(-5 * (share(R) + share(Wn)) // 3)))
+    return (4 * (3 * tree + 4 * intra_room(R, cluster) + 4 * intra_room(Wn, cluster)
+                 + 8 + 4 * INTRA_CLUSTERS[-1])
+            + 3 * r16(B))
+
+
+@functools.lru_cache(maxsize=None)
+def plan_intra_cluster(R: int, Wn: int, B: int, cluster: int) -> IntraPlan:
+    """K2's cluster plan at `cluster` blocks; raises where a block's share
+    does not fit SMEM_MAX."""
+    if cluster not in INTRA_CLUSTERS:
+        raise ValueError(f"K2's cluster plan takes {INTRA_CLUSTERS} blocks, not {cluster}")
+    smem = intra_cluster_bytes(R, Wn, B, cluster)
+    if smem > SMEM_MAX:
+        raise ValueError(f"K2's cluster of {cluster} blocks does not hold R={R}, "
+                         f"Wn={Wn}, B={B}: {smem} B a block")
+    return IntraPlan(cluster, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_intra(R: int, Wn: int, B: int) -> IntraPlan:
+    """K2's launch: the least cluster whose blocks' shared memory holds the
+    fixpoint (the trees are int32: Hopper has no 16-bit atomic min, and the
+    offers are atomic); where none of 16 blocks does (the stream's mix of
+    2 reads and 1 write a txn from 15,097 txns, the proxy's cap of 32,768
+    among them), the grid plan."""
+    for cluster in INTRA_CLUSTERS:
+        if intra_cluster_bytes(R, Wn, B, cluster) <= SMEM_MAX:
+            return plan_intra_cluster(R, Wn, B, cluster)
+    return INTRA_GRID_PLAN
+
+
+def plan_name(plan: IntraPlan) -> str:
+    """"grid", or "cluster<C>": the key of K2's launches by plan."""
+    return f"cluster{plan.cluster}" if plan.cluster else "grid"
+
+
 def warp_plan_occupancy(name: str, plan: ProbePlan | RanksPlan) -> int:
     """Blocks of K1's ("probe_fused") or K3's ("compact_ranks") warp-plan
     kernel that one SM of the current card holds at once under `plan`
@@ -404,6 +506,23 @@ def warp_plan_occupancy(name: str, plan: ProbePlan | RanksPlan) -> int:
     if got < 0:
         msg = _build.load().fdb_cuda_error_string(-got).decode()
         raise RuntimeError(f"occupancy of {name}'s warp plan: cuda error {-got} ({msg})")
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def intra_cluster_occupancy(device_index: int, plan: IntraPlan) -> int:
+    """Clusters of K2's cluster plan that the card holds at once
+    (cudaOccupancyMaxActiveClusters); raises where it is 0 or the runtime
+    refuses.  Needs the card; asked once a device and plan."""
+    with torch.cuda.device(device_index):
+        got = _build.load().fdb_intra_cluster_occupancy(plan.cluster, plan.smem)
+    if got < 0:
+        msg = _build.load().fdb_cuda_error_string(-got).decode()
+        raise RuntimeError(f"occupancy of K2's {plan_name(plan)} plan: cuda error "
+                           f"{-got} ({msg})")
+    if got == 0:
+        raise RuntimeError(f"the card holds no cluster of K2's {plan_name(plan)} plan "
+                           f"({plan.smem} B a block)")
     return got
 
 
@@ -558,18 +677,21 @@ def compact_ranks(ks, rec_ks, *, plan: RanksPlan | None = None):
 
 
 def intra_fixpoint(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx, w_idx, w_tx,
-                   active, hist, n_txn: int):
-    """K2: the whole intra-batch fixpoint in one cooperative launch, the
-    contract of intra_fixpoint_plain.  rb_r, re_r: int32[R]; wb_r, we_r,
-    w_tx: int32[Wn]; r_ok: bool[R]; w_ok: bool[Wn]; r_idx: int64[R];
-    w_idx: int64[Wn]; active, hist: bool[n_txn].  Returns (intra
+                   active, hist, n_txn: int, *, plan: IntraPlan | None = None):
+    """K2: the whole intra-batch fixpoint in one launch, the contract of
+    intra_fixpoint_plain.  rb_r, re_r: int32[R]; wb_r, we_r, w_tx:
+    int32[Wn]; r_ok: bool[R]; w_ok: bool[Wn]; r_idx: int64[R]; w_idx:
+    int64[Wn]; active, hist: bool[n_txn].  `plan`: plan_intra's unless
+    given (the tests and a sweep force each plan): one thread-block cluster
+    holding the fixpoint in its shared memory, or the grid plan, one
+    cooperative launch over scratch in device memory.  Returns (intra
     bool[n_txn], n_iters int32[1]), both on the device: nothing is read on
     the host.  Its domain is what _intra_setup and inc_check give: ranks in
     [0, n) with n = 2 * (R + Wn), r_idx and w_idx in [0, n_txn).  It is not
-    checked here (that would read on the host); the kernel clamps each
+    checked here (that would read on the host); the kernels clamp each
     index into its buffer, so an input outside the domain gives a wrong
-    answer, never a stray write.  Raises if the card refuses the
-    cooperative launch."""
+    answer, never a stray write.  Raises if the card refuses the launch or
+    holds no cluster of the plan."""
     if _is_cpu(rb_r):
         return intra_fixpoint_plain(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx,
                                     w_idx, w_tx, active, hist, n_txn)
@@ -588,16 +710,23 @@ def intra_fixpoint(rb_r, re_r, wb_r, we_r, r_ok, w_ok, r_idx, w_idx, w_tx,
         _check("active", active, _BOOL, (B,), dev),
         _check("hist", hist, _BOOL, (B,), dev),
     ]
+    plan = plan or plan_intra(R, Wn, B)
     n = 2 * (R + Wn)
-    leaves = 1 << max(n - 1, 0).bit_length()  # a power of two >= max(n, 1)
+    leaves = intra_leaves(n, plan.cluster)
     intra = torch.empty(B, dtype=_BOOL, device=dev)
     n_iters = torch.empty(1, dtype=_I32, device=dev)
-    # two min trees over the ranks, the intra bits and the hit flags as
-    # int32, and the two parity slots of the changed flag
-    scratch = torch.empty(4 * leaves + 2 * B + 2, dtype=_I32, device=dev)
-    _launch("fdb_intra_fixpoint", dev, *ptrs, intra.data_ptr(),
-            n_iters.data_ptr(), scratch.data_ptr(), R, Wn, B, n, leaves)
+    if plan.cluster:
+        intra_cluster_occupancy(dev.index, plan)
+        scratch = None
+    else:
+        # two min trees over the ranks, the intra bits and the hit flags
+        # as int32, and the two parity slots of the changed flag
+        scratch = torch.empty(4 * leaves + 2 * B + 2, dtype=_I32, device=dev)
+    _launch("fdb_intra_fixpoint", dev, *ptrs, intra.data_ptr(), n_iters.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), R, Wn, B, n, leaves, *plan)
     launches["intra_fixpoint"] += 1
+    key = plan_name(plan)
+    intra_launches[key] = intra_launches.get(key, 0) + 1
     return intra, n_iters
 
 

@@ -100,48 +100,77 @@
 // K2 fdb_intra_fixpoint  replaces _intra_kernel (pallas_kernel.py:353, built
 //    by _build_intra :376, wrapper intra_query :395) together with the
 //    lax.while_loop around it (foundationdb_tpu/conflict/device.py:394):
-//    the whole intra-batch fixpoint of phase_intra in ONE cooperative
-//    launch.  Per iteration, with intra the bits so far: a write of a txn
-//    t that is active, not history-conflicted and not intra-conflicted
-//    offers w_cand = w_tx; read r's minimum is the least offer of a write
-//    that begins strictly inside its rank range (rb_r, re_r) (case 1) or
-//    covers its begin rank, wb_r <= rb_r < we_r (case 2); txn t becomes
+//    the whole intra-batch fixpoint of phase_intra in ONE launch.  Per
+//    iteration, with intra the bits so far: a write of a txn t that is
+//    active, not history-conflicted and not intra-conflicted offers w_cand
+//    = w_tx; read r's minimum is the least offer of a write that begins
+//    strictly inside its rank range (rb_r, re_r) (case 1) or covers its
+//    begin rank, wb_r <= rb_r < we_r (case 2); txn t becomes
 //    intra-conflicted iff one of its live reads' minimum is below t.  The
-//    loop stops on the first iteration that changes no bit, or at
-//    n_txn + 2 iterations, as the reference's does; the kernel writes the
-//    bits and the count.
+//    loop stops on the first iteration that changes no bit, or at n_txn + 2
+//    iterations, as the reference's does; the kernel writes the bits and
+//    the count.
 //    Bound: bytes — every input read once (at the stream's shapes R =
 //    16384 reads and Wn = 8192 writes of 17-21 bytes, 8192 txns: ~0.45 MB,
 //    a fraction of a microsecond); the operations are a few per element an
-//    iteration.  What sets its time in practice is the three grid-wide
-//    barriers an iteration (plus one before the first) and the atomics.
+//    iteration.  What sets its time in practice is latency: the barriers
+//    between an iteration's phases and the round trips of its accesses.
 //    Design: a min is the same whatever structure computes it, so the
-//    plain version's 17-level sparse table and 17-level down-sweep (each
-//    level a barrier here) become two min segment trees over the ranks,
-//    2 * 2^ceil(log2 n) ints each (512 KB at n = 49152, L2-resident).
-//    Phase A, per committed write: atomicMin its offer into tree 1 at leaf
-//    wb_r and up the ancestors, stopping at the first node that already
-//    held a value <= the offer (whoever wrote that value carries it up
-//    the same path); where wb_r < we_r, atomicMin into the canonical nodes
-//    of [wb_r, we_r) in tree 2.  Phase B, per live read: tree 1's range
-//    min over [rb_r + 1, re_r) and tree 2's min along leaf rb_r's path to
-//    the root; a minimum below the read's txn sets that txn's hit flag (a
-//    plain store of 1: the flags need no minimum, only whether one is
-//    below t).  Phase C, per txn: the new bit is the hit flag; a change
-//    sets this iteration's changed slot; the hit flags and both trees are
-//    reset for the next iteration.  After the third barrier every block
-//    reads the same slot and the same count and takes the same decision
-//    (a block that left the loop alone would deadlock the grid).  The
-//    slots alternate by iteration parity; the next one is cleared in
-//    phase B, after every block has read it for the iteration before.
-//    State that other blocks write inside the launch is read with
-//    __ldcg (L2, never a stale L1 line).  Grid: the least of the blocks
-//    the largest phase needs and what is resident at once
+//    plain version's 17-level sparse table and 17-level down-sweep become
+//    two min segment trees over the ranks (tree 1: the writers' begins,
+//    point offers and range queries; tree 2: the writers' spans, range
+//    offers and point queries).  Two plans, chosen by shape
+//    (kernels.plan_intra, a pure function of R, Wn and B):
+//    The cluster plan (intra_cluster_kernel, the main path's): the whole
+//    fixpoint held in the shared memory of ONE thread-block cluster of C
+//    blocks of 1024 threads (cudaLaunchKernelEx with a cluster dimension; C
+//    the least of 1, 2, 4, 8, 16 whose blocks hold the state, 8 at the
+//    stream's shapes: 222 KB a block; 16 needs the non-portable cluster
+//    size; the wrapper checks cudaOccupancyMaxActiveClusters once a plan).
+//    Block c holds ranks [c S, (c + 1) S), S = ceil(n / C), as its own
+//    trees (bottom-up segment trees of S leaves; nothing above the C roots
+//    is stored: a range spanning blocks takes the roots between its end
+//    blocks one by one); a read or write is staged in the block that holds
+//    its begin rank, so its tree accesses are shared-memory ones (with
+//    room for an eighth more than a block's share; past that, in the next
+//    block with room, its accesses then distributed shared memory), and
+//    every block holds every txn's state and hit bytes.  The barriers are
+//    the cluster's (a hardware barrier, no cooperative launch; a one-block
+//    cluster's is __syncthreads), two an iteration: tree 2 and the hit
+//    bytes are double-buffered by iteration parity, so one is cleared
+//    while the other is used, and a hit is sent to every block, so every
+//    block decides the stop rule alone and alike.  Phase A offers (tree 1
+//    walked up with early exit, and kept only where some read's rank range
+//    is not empty; tree 2's nodes over the span, a point write's its leaf,
+//    its height kept in node 0 so that a point query and the clearing stop
+//    there); phase B queries.  Values are int32: Hopper has no 16-bit
+//    atomic min, and the offers are atomic.  The staging reads the inputs
+//    in one round and sends each item in one 16-byte store; device memory
+//    is read there and written only for the bits and the count.
+//    The grid plan (intra_fixpoint_kernel, the design before the cluster
+//    plan), for the shapes whose state no 16-block cluster holds (from
+//    15,097 txns of the stream's mix; the proxy's cap of 32,768): the
+//    trees, 2 * 2^ceil(log2 n) ints
+//    each, in device memory (L2-resident), one cooperative launch of the
+//    resident blocks, three grid barriers an iteration.  Phase A, per
+//    committed write: atomicMin its offer into tree 1 at leaf wb_r and up
+//    the ancestors, stopping at the first node that already held a value
+//    <= the offer; where wb_r < we_r, atomicMin into the canonical nodes of
+//    [wb_r, we_r) in tree 2.  Phase B, per live read: tree 1's range min
+//    over [rb_r + 1, re_r) and tree 2's min along leaf rb_r's path to the
+//    root; a minimum below the read's txn sets that txn's hit flag.  Phase
+//    C, per txn: the new bit is the hit flag; a change sets this
+//    iteration's changed slot; the hit flags and both trees are reset.
+//    After the third barrier every block reads the same slot and count and
+//    takes the same decision (a block that left the loop alone would
+//    deadlock the grid).  The slots alternate by iteration parity; the next
+//    one is cleared in phase B, after every block has read it for the
+//    iteration before.  State that other blocks write inside the launch is
+//    read with __ldcg (L2, never a stale L1 line).  Grid: the least of the
+//    blocks the largest phase needs and what is resident at once
 //    (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SMs), launched
-//    with cudaLaunchCooperativeKernel, which refuses a grid that cannot
-//    be resident (the wrapper then raises); the kernel is right for any
-//    grid of at least one block.  grid.sync() needs no -rdc=true since
-//    CUDA 11.
+//    with cudaLaunchCooperativeKernel, which refuses a grid that cannot be
+//    resident (the wrapper then raises).
 //
 // fdb_intra_query: the per-iteration query that K2 ran before, kept as
 //    the fixpoint's referee (intra_fixpoint_plain with query=intra_query:
@@ -251,7 +280,9 @@ constexpr int kThreads = 256;  // intra_query, K4, K5
 // H100 80GB HBM3 at 700 W): 4 and 8 within 1% of each other from W = 17 to
 // 32769, 16 4-8% slower at W = 17 and 33, 2 4-11% slower
 constexpr int kStepPer = 8;
-constexpr int kFixThreads = 512;  // K2's block
+constexpr int kFixThreads = 512;  // K2's block, the grid plan
+constexpr int kClusterThreads = 1024;  // K2's block, the cluster plan: 32 warps
+constexpr int kMaxCluster = 16;  // blocks of a cluster on the H100 (non-portable above 8)
 constexpr int kProbeMaxThreads = 1024;
 constexpr int kRanksThreads = 128;  // K3's block: a compile-time divisor
 constexpr int kRanksWarps = 8;  // K3's warp-plan block
@@ -959,6 +990,451 @@ __global__ void __launch_bounds__(kFixThreads)
   if (first == 0) *n_iters = it;
 }
 
+// K2's cluster plan: the layout of one block's shared memory, in the order
+// below, each part 16-byte aligned (kernels.intra_cluster_bytes is the same
+// sum): tree 1 and two trees 2 (one an iteration parity), 2 S ints each
+// (node 1 the root of the block's slice of S ranks, its leaves at S .. 2 S
+// - 1, node 0 tree 2's height), each in a room of intra_tree_ints (staging
+// parks its records there first); room for `intra_room` reads and writes,
+// an int4 record each; a header of 8 ints (the two claim counts of reads
+// and writes, the range flag), the staging's counts and bases by block (4
+// kMaxCluster ints), every txn's state byte (B: active and not
+// history-conflicted) and every txn's hit byte of two iterations (2 B,
+// one an iteration parity).
+__host__ __device__ __forceinline__ size_t round4(size_t ints) {
+  return (ints + 3) & ~static_cast<size_t>(3);
+}
+
+__host__ __device__ __forceinline__ size_t round16(size_t bytes) {
+  return (bytes + 15) & ~static_cast<size_t>(15);
+}
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// a block's room for `items` spread over C blocks: its share, and an
+// eighth more where there are other blocks, so that begins spread
+// unevenly (a few percent above the share at the stream's shapes) still
+// land in the block that holds them
+__host__ __device__ __forceinline__ int intra_room(int items, int C) {
+  const int share = cdiv(items, C);
+  return C > 1 ? share + share / 8 : share;
+}
+
+// ints of each tree's room: the tree's 2 S, or a third of what staging
+// parks in the three (a record and a place, 5 ints, for each read and
+// write of the block's slice) where that is more
+__host__ __device__ __forceinline__ size_t intra_tree_ints(int S, int R, int Wn, int C) {
+  const size_t parked = 5 * (static_cast<size_t>(cdiv(R, C)) + cdiv(Wn, C));
+  const size_t tree = 2 * static_cast<size_t>(S);
+  return round4(tree > (parked + 2) / 3 ? tree : (parked + 2) / 3);
+}
+
+__host__ __device__ __forceinline__ size_t intra_cluster_bytes(int S, int R, int Wn,
+                                                               int B, int C) {
+  return 4 * (3 * intra_tree_ints(S, R, Wn, C) + 4 * static_cast<size_t>(intra_room(R, C)) +
+              4 * static_cast<size_t>(intra_room(Wn, C)) + 8 + 4 * kMaxCluster) +
+         3 * round16(B);
+}
+
+// f(p), with p in block c's shared memory: a shared-memory pointer for
+// the calling block (so its accesses compile to shared-memory ones), else
+// the distributed-shared-memory address of p in block c
+template <typename Cluster, typename T, typename F>
+__device__ __forceinline__ auto at_block(Cluster& cluster, T* p, unsigned me, int c,
+                                         F&& f) {
+  if (static_cast<unsigned>(c) == me) return f(p);
+  return f(cluster.map_shared_rank(p, c));
+}
+
+// Each block's tree is a bottom-up segment tree of S leaves (S any size:
+// min is commutative): leaf j is node S + j, node x's parent x / 2, node 1
+// the root; node 0 is no node.  slice_min: the min over leaves [a, b);
+// slice_offer: v offered to the nodes that cover leaves [a, b) (a point
+// query then takes the min along its leaf's path); it returns the most
+// halvings from a leaf to a node it offered to (0: leaves only).
+__device__ __forceinline__ int slice_min(const int* t, int S, int a, int b) {
+  int m = kI32Max;
+  for (int lo = S + a, hi = S + b; lo < hi; lo >>= 1, hi >>= 1) {
+    if (lo & 1) m = min(m, t[lo++]);
+    if (hi & 1) m = min(m, t[--hi]);
+  }
+  return m;
+}
+
+__device__ __forceinline__ int slice_offer(int* t, int S, int a, int b, int v) {
+  int high = 0;
+  for (int lo = S + a, hi = S + b, k = 0; lo < hi; lo >>= 1, hi >>= 1, ++k) {
+    if (lo & 1) {
+      atomicMin(t + lo++, v);
+      high = k;
+    }
+    if (hi & 1) {
+      atomicMin(t + --hi, v);
+      high = k;
+    }
+  }
+  return high;
+}
+
+// Tree 2's node 0 holds the most halvings k from a leaf to any node
+// offered to since the tree was reset (kTop: the root, from a span over
+// the whole slice).  Such a node lies in [S >> k, 2 S), which the reset
+// clears; it covers only leaves k or k + 1 halvings below it (S need not
+// be a power of two: the leaves take two depths), so a point query walks
+// k + 1 halvings up (none at k = 0: every offer was to a leaf).
+constexpr int kTop = 31;
+
+__device__ __forceinline__ void raise_top(int* t, int k) {
+  if (k > 0 && t[0] < k) atomicMax(t, k);
+}
+
+// The cluster's trees over ranks [0, C S): block c holds ranks [c S, (c +
+// 1) S) as its own tree; nothing above the C roots is stored: a range that
+// spans blocks takes the roots of the blocks between its end blocks (at
+// most C - 2) one by one.  cluster_min: tree 1's min over ranks [a, b);
+// cluster_offer: v offered in tree 2 to every rank of [a, b).
+template <typename Cluster>
+__device__ __forceinline__ int cluster_min(Cluster& cluster, const int* t, unsigned me,
+                                           int S, int a, int b) {
+  const int ca = a / S, cb = (b - 1) / S;
+  auto part = [&](int c, int lo, int hi) {
+    return at_block(cluster, t, me, c, [&](const int* q) { return slice_min(q, S, lo, hi); });
+  };
+  if (ca == cb) return part(ca, a - ca * S, b - ca * S);
+  int m = min(part(ca, a - ca * S, S), part(cb, 0, b - cb * S));
+  for (int c = ca + 1; c < cb; ++c)
+    m = min(m, at_block(cluster, t, me, c, [](const int* q) { return q[1]; }));
+  return m;
+}
+
+template <typename Cluster>
+__device__ __forceinline__ void cluster_offer(Cluster& cluster, int* t, unsigned me,
+                                              int S, int a, int b, int v) {
+  const int ca = a / S, cb = (b - 1) / S;
+  auto part = [&](int c, int lo, int hi) {
+    at_block(cluster, t, me, c, [&](int* q) { raise_top(q, slice_offer(q, S, lo, hi, v)); });
+  };
+  if (ca == cb) {
+    part(ca, a - ca * S, b - ca * S);
+    return;
+  }
+  part(ca, a - ca * S, S);
+  part(cb, 0, b - cb * S);
+  for (int c = ca + 1; c < cb; ++c) {
+    at_block(cluster, t, me, c, [&](int* q) {
+      atomicMin(q + 1, v);
+      raise_top(q, kTop);
+    });
+  }
+}
+
+// INT32_MAX into ints [from, to) of the 16-byte aligned `base`, 16 bytes a
+// store where it can
+__device__ __forceinline__ void fill_max(int* base, int from, int to) {
+  const int head = min(to, (from + 3) & ~3), tail = max(head, to & ~3);
+  for (int k = from + threadIdx.x; k < head; k += blockDim.x) base[k] = kI32Max;
+  int4* vec = reinterpret_cast<int4*>(base);
+  const int4 all = make_int4(kI32Max, kI32Max, kI32Max, kI32Max);
+  for (int k = (head >> 2) + threadIdx.x; k < (tail >> 2); k += blockDim.x) vec[k] = all;
+  for (int k = tail + threadIdx.x; k < to; k += blockDim.x) base[k] = kI32Max;
+}
+
+// A slot for one item whose block has no room left: in the buffer of the
+// next block after `full` with room (the cluster has room for every item);
+// returns that block, or -1 after every other block
+template <typename Cluster>
+__device__ __forceinline__ int claim_slot(Cluster& cluster, int* count, unsigned me,
+                                          int full, int C, int room, int* slot) {
+  for (int k = 1; k < C; ++k) {
+    const int c = full + k < C ? full + k : full + k - C;
+    *slot = at_block(cluster, count, me, c, [](int* q) { return atomicAdd(q, 1); });
+    if (*slot < room) return c;
+  }
+  return -1;
+}
+
+// the cluster's barrier; a one-block cluster's is the block's
+template <typename Cluster>
+__device__ __forceinline__ void cluster_barrier(Cluster& cluster, int C) {
+  if (C == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();
+  }
+}
+
+// The two halves of a cluster barrier, so that a block can work between
+// its arrival and its wait (every thread calls both, C > 1 only)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Staging's first pass over a warp's 32 items (lane's `key`: its block,
+// or -1 for none): each block's items in the warp take consecutive places
+// after one shared atomicAdd on this block's count for that block;
+// returns (block << 27) | place, or -1
+__device__ __forceinline__ int place_in_block(int* by_block, int key) {
+  const int lane = threadIdx.x & 31;
+  const unsigned group = __match_any_sync(kFull, key);
+  const int leader = __ffs(group) - 1;
+  int first = 0;
+  if (key >= 0 && lane == leader) first = atomicAdd(by_block + key, __popc(group));
+  first = __shfl_sync(kFull, first, leader);
+  if (key < 0) return -1;
+  return (key << 27) | (first + __popc(group & ((1u << lane) - 1)));
+}
+
+constexpr int kLow27 = (1 << 27) - 1;  // a packed field's low part
+constexpr int kStageRound = 2;         // items of each kind a thread stages at once
+
+// K2, the cluster plan: the whole fixpoint in one thread-block cluster of
+// C = gridDim.x blocks (the launch's cluster dimension), its state in the
+// blocks' shared memory (layout: intra_cluster_bytes).  Block c holds
+// ranks [c S, (c + 1) S) (S = ceil(n / C): the blocks share the ranks
+// evenly) as its own trees; every block holds every txn's state and hit
+// bytes, and writes out the bits of txns [c Bc, (c + 1) Bc).  Staging: a
+// live read (write) goes to the buffer of the block holding its begin
+// rank, so that its tree accesses are local wherever the begins are
+// spread.  Each block reads its slice of the inputs in one round (every
+// load of a thread in flight at once), parks each item's record in its
+// tree room and counts its items by block (a shared atomic a warp and
+// block), reserves each count with one atomicAdd on that block's claim
+// count, and sends each record there in one 16-byte store; an item past
+// that block's room (many begins on few ranks) claims a slot in the next
+// block with room, one atomicAdd at a time.  A dead read or write is not
+// staged.  A record: a read's begin packed as (block << 27) | its leaf's
+// node in that block's tree, its end rank, its txn and its begin rank; a
+// write's packed begin, end rank, txn and offer.  Tree 1 is kept only
+// where some read's rank range (rb, re) is not empty (the range flag; a
+// point read's is empty).  Iteration i, its tree 2 and hit bytes those of
+// parity i & 1: (A) each write of a txn active, not history-conflicted
+// and not hit in iteration i - 1 offers w_tx to tree 1 at its begin's leaf
+// and up the ancestors, stopping at the first node that already held a
+// value <= the offer (whoever wrote that value carries it up the same
+// path), and to tree 2's nodes covering its span (a span of one rank: its
+// leaf), raising that block's tree 2 height (node 0) to the highest of
+// them; meanwhile each block clears its other tree 2 (read in iteration
+// i - 1) up to its height and its hit bytes of this parity; barrier; (B)
+// each read takes the min of tree 2 along its begin leaf's path up to that
+// height, plus one above a leaf, and of tree 1 over (rb, re), and when that
+// is below its txn marks the txn hit in every block; barrier.  The intra
+// bits after iteration i are its hits, and every block holds them all, so
+// every block finds alone, and alike, whether any bit changed (the stop
+// rule: none changed, or B + 2 iterations).  Tree 1, where kept, is reset
+// behind a third barrier.
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    intra_cluster_kernel(const int* __restrict__ rb_r,
+                         const int* __restrict__ re_r,
+                         const int* __restrict__ wb_r,
+                         const int* __restrict__ we_r,
+                         const bool* __restrict__ r_ok,
+                         const bool* __restrict__ w_ok,
+                         const long long* __restrict__ r_idx,
+                         const long long* __restrict__ w_idx,
+                         const int* __restrict__ w_tx,
+                         const bool* __restrict__ active,
+                         const bool* __restrict__ hist,
+                         bool* __restrict__ out, int* __restrict__ n_iters,
+                         int R, int Wn, int B, int n, int S) {
+  namespace cg = cooperative_groups;
+  auto cluster = cg::this_cluster();
+  const unsigned me = cluster.block_rank();
+  const int C = static_cast<int>(gridDim.x);
+  const int Rc = cdiv(R, C), Wc = cdiv(Wn, C), Bc = cdiv(B, C);
+  const int r_room = intra_room(R, C), w_room = intra_room(Wn, C);
+  const int tree_ints = static_cast<int>(intra_tree_ints(S, R, Wn, C));
+  const int B16 = static_cast<int>(round16(B));
+  extern __shared__ __align__(16) int fix_smem[];
+  int* t1 = fix_smem;
+  int* t2_even = t1 + tree_ints;  // tree 2 of the even iterations
+  int* t2_odd = t1 + 2 * tree_ints;
+  int4* rd = reinterpret_cast<int4*>(t1 + 3 * tree_ints);
+  int4* wr = rd + r_room;
+  int* claimed = reinterpret_cast<int*>(wr + w_room);  // [0]: reads, [1]: writes here
+  int* ranges = claimed + 2;              // some read's rank range is not empty
+  int* by_block = claimed + 8;            // [2 C]: this block's items by block
+  int* base = by_block + 2 * kMaxCluster; // [2 C]: their first slot there
+  unsigned char* state = reinterpret_cast<unsigned char*>(base + 2 * kMaxCluster);
+  unsigned char* hits_even = state + B16;  // hit bytes of the even iterations
+  unsigned char* hits_odd = state + 2 * B16;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int last_rank = max(n - 1, 0), last_txn = max(B - 1, 0);
+  const int r0 = me * Rc, w0 = me * Wc, t0 = me * Bc;
+  const int r_n0 = max(min(Rc, R - r0), 0), w_n0 = max(min(Wc, Wn - w0), 0);
+  const int b_n = max(min(Bc, B - t0), 0);
+  // staging parks, in the trees' room, a record and a place for each read
+  // and write of the block's slice: block (4 bits) << 27 | place among
+  // this block's items for that block, or -1 for a dead one
+  int4* parked = reinterpret_cast<int4*>(t1);
+  int* place = t1 + 4 * (Rc + Wc);
+  const bool aligned =  // 4 txns' bytes a load (bool is one byte, 0 or 1)
+      ((reinterpret_cast<size_t>(active) | reinterpret_cast<size_t>(hist)) & 3) == 0;
+  const int words = aligned ? B / 4 : 0;
+  const int k_end = max(max(r_n0, w_n0), words);
+
+  // staging: the only reads of device memory before the output
+  if (tid < 8) claimed[tid] = 0;  // the claim counts, the range flag
+  if (tid < 2 * C) by_block[tid] = 0;
+  for (int w = tid; w < 2 * B16 / 16; w += kClusterThreads)
+    reinterpret_cast<int4*>(hits_even)[w] = make_int4(0, 0, 0, 0);
+  for (int t = 4 * words + tid; t < B16; t += kClusterThreads)
+    state[t] = t < B && active[t] && !hist[t];
+  __syncthreads();
+  if (C > 1) cluster_arrive();  // this block's claim counts are at 0
+  bool range_seen = false;
+  for (int k0 = tid & ~31; k0 < k_end; k0 += kStageRound * kClusterThreads) {
+    bool rok[kStageRound], wok[kStageRound];
+    int rb[kStageRound], re[kStageRound], wb[kStageRound], we[kStageRound];
+    int v[kStageRound];
+    unsigned a4[kStageRound], h4[kStageRound];
+    long long rt[kStageRound], wt[kStageRound];
+#pragma unroll
+    for (int u = 0; u < kStageRound; ++u) {  // the loads, all in flight at once
+      const int k = k0 + u * kClusterThreads + lane;
+      const bool r_in = k < r_n0, w_in = k < w_n0, s_in = k < words;
+      rok[u] = r_in && r_ok[r0 + k];
+      rb[u] = r_in ? rb_r[r0 + k] : 0;
+      re[u] = r_in ? re_r[r0 + k] : 0;
+      rt[u] = r_in ? r_idx[r0 + k] : 0;
+      wok[u] = w_in && w_ok[w0 + k];
+      wb[u] = w_in ? wb_r[w0 + k] : 0;
+      we[u] = w_in ? we_r[w0 + k] : 0;
+      wt[u] = w_in ? w_idx[w0 + k] : 0;
+      v[u] = w_in ? w_tx[w0 + k] : 0;
+      a4[u] = s_in ? reinterpret_cast<const unsigned*>(active)[k] : 0;
+      h4[u] = s_in ? reinterpret_cast<const unsigned*>(hist)[k] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kStageRound; ++u) {
+      const int k = k0 + u * kClusterThreads + lane;
+      if (k < words) reinterpret_cast<unsigned*>(state)[k] = a4[u] & ~h4[u] & 0x01010101u;
+      const int r_b = clamp_to(rb[u], 0, last_rank), r_e = clamp_to(re[u], 0, n);
+      const int r_key = rok[u] && B > 0 ? r_b / S : -1;
+      range_seen |= r_key >= 0 && r_b + 1 < r_e;
+      const int r_at = place_in_block(by_block, r_key);
+      if (r_key >= 0) {
+        parked[k] = make_int4((r_key << 27) | (S + r_b - r_key * S), r_e,
+                              clamp_idx(rt[u], last_txn), r_b);
+      }
+      if (k < r_n0) place[k] = r_at;
+      const int w_b = clamp_to(wb[u], 0, last_rank);
+      const int w_key = wok[u] && B > 0 ? w_b / S : -1;
+      const int w_at = place_in_block(by_block + C, w_key);
+      if (w_key >= 0) {
+        parked[Rc + k] = make_int4((w_key << 27) | (S + w_b - w_key * S),
+                                   clamp_to(we[u], 0, n), clamp_idx(wt[u], last_txn), v[u]);
+      }
+      if (k < w_n0) place[Rc + k] = w_at;
+    }
+  }
+  __syncthreads();
+  if (C > 1) cluster_wait();  // every block is running, its claim counts at 0
+  if (__any_sync(kFull, range_seen) && lane == 0) {
+    for (int c = 0; c < C; ++c) at_block(cluster, ranges, me, c, [](int* q) { *q = 1; });
+  }
+  if (tid < 2 * C) {
+    const int n_here = by_block[tid];
+    base[tid] = n_here ? at_block(cluster, claimed + tid / C, me, tid % C,
+                                  [&](int* q) { return atomicAdd(q, n_here); })
+                       : 0;
+  }
+  __syncthreads();
+  for (int k = tid; k < Rc + Wc; k += kClusterThreads) {
+    const bool is_read = k < Rc;
+    if (k >= (is_read ? r_n0 : Rc + w_n0)) continue;  // past the block's slice
+    const int at = place[k];
+    if (at < 0) continue;
+    const int own = at >> 27, room = is_read ? r_room : w_room;
+    int c = own, slot = base[is_read ? own : C + own] + (at & kLow27);
+    if (slot >= room) c = claim_slot(cluster, claimed + !is_read, me, own, C, room, &slot);
+    const int4 record = parked[k];
+    if (c >= 0) {  // always: the cluster has room for every item
+      at_block(cluster, is_read ? rd : wr, me, c, [&](int4* q) { q[slot] = record; });
+    }
+  }
+  __syncthreads();  // the parked records are sent: the trees' room is free
+  fill_max(t2_even, 1, 2 * S);
+  if (tid == 0) t2_even[0] = 0;
+  cluster_barrier(cluster, C);
+  const int r_n = min(claimed[0], r_room), w_n = min(claimed[1], w_room);
+  const bool tree1 = *ranges != 0;
+  if (tree1) {
+    fill_max(t1, 0, 2 * S);
+    cluster_barrier(cluster, C);
+  }
+
+  int it = 0, last_top = kTop;  // the other tree 2 is cleared whole the first time
+  for (;;) {
+    int* t2 = it & 1 ? t2_odd : t2_even;
+    int* t2_last = it & 1 ? t2_even : t2_odd;
+    unsigned char* hit = it & 1 ? hits_odd : hits_even;
+    const unsigned char* hit_last = it & 1 ? hits_even : hits_odd;
+    // A: every committed write offers its txn index to both trees
+    for (int j = tid; j < w_n; j += kClusterThreads) {
+      const int4 w = wr[j];  // packed begin, end rank, txn, offer
+      if (!state[w.z] || hit_last[w.z]) continue;
+      const int c = w.x >> 27, leaf = w.x & kLow27, wb = c * S + leaf - S;
+      if (tree1) {
+        at_block(cluster, t1, me, c, [&](int* up) {
+          for (int x = leaf; x >= 1; x >>= 1) {
+            if (atomicMin(up + x, w.w) <= w.w) break;
+          }
+        });
+      }
+      if (w.y == wb + 1) {
+        at_block(cluster, t2, me, c, [&](int* q) { atomicMin(q + leaf, w.w); });
+      } else if (wb < w.y) {
+        cluster_offer(cluster, t2, me, S, wb, w.y, w.w);
+      }
+    }
+    fill_max(t2_last, max(S >> last_top, 1), 2 * S);
+    if (tid == 0) t2_last[0] = 0;
+    for (int w = tid; w < B16 / 16; w += kClusterThreads)
+      reinterpret_cast<int4*>(hit)[w] = make_int4(0, 0, 0, 0);
+    cluster_barrier(cluster, C);
+
+    // B: each live read's minimum, against its own txn
+    for (int i = tid; i < r_n; i += kClusterThreads) {
+      const int4 r = rd[i];  // packed begin, end rank, txn, begin rank
+      const int c = r.x >> 27, leaf = r.x & kLow27;
+      int m = at_block(cluster, t2, me, c, [&](const int* path) {
+        const int high = min(path[0], kTop), stop = high ? high + 1 : 0;
+        int low = path[leaf];
+        for (int x = leaf >> 1, k = 1; k <= stop && x >= 1; x >>= 1, ++k)
+          low = min(low, path[x]);
+        return low;
+      });
+      if (r.w + 1 < r.y) m = min(m, cluster_min(cluster, t1, me, S, r.w + 1, r.y));
+      if (m < r.z) {
+        for (int c2 = 0; c2 < C; ++c2)
+          at_block(cluster, hit, me, c2, [&](unsigned char* h) { h[r.z] = 1; });
+      }
+    }
+    cluster_barrier(cluster, C);
+
+    // the stop rule, alike in every block: did any txn's bit change?
+    unsigned moved = 0;
+    for (int w = tid; w < B16 / 4; w += kClusterThreads)
+      moved |= reinterpret_cast<const unsigned*>(hit)[w] ^
+               reinterpret_cast<const unsigned*>(hit_last)[w];
+    last_top = min(t2[0], kTop);
+    ++it;
+    if (!__syncthreads_or(moved != 0) || it >= B + 2) break;
+    if (tree1) {
+      fill_max(t1, 0, 2 * S);
+      cluster_barrier(cluster, C);
+    }
+  }
+  const unsigned char* bits = it & 1 ? hits_even : hits_odd;  // iteration it - 1's
+  for (int l = tid; l < b_n; l += kClusterThreads) out[t0 + l] = bits[t0 + l] != 0;
+  if (me == 0 && tid == 0) *n_iters = it;
+  cluster_barrier(cluster, C);  // no block leaves while another may address its shared memory
+}
+
 // K4: element o of chunk blockIdx.z of run blockIdx.y's step rows (the
 // chunk: step rows [z chunk_rows, +chunk_rows), chunk_rows even, so a
 // chunk's rows alternate begin, end from a begin), for o = the block's tile
@@ -1013,6 +1489,33 @@ cudaError_t allow_smem(Kernel* kernel, int bytes) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) cudaGetLastError();
+  return err;
+}
+
+// Lets intra_cluster_kernel take `smem_bytes` of dynamic shared memory
+// and, above 8 blocks, a non-portable cluster size; fills `cfg` for one
+// cluster of `cluster` blocks.
+cudaError_t intra_cluster_config(int cluster, int smem_bytes, cudaStream_t stream,
+                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (cluster < 1 || cluster > kMaxCluster || (cluster & (cluster - 1)))
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(intra_cluster_kernel, smem_bytes);
+  if (err == cudaSuccess && cluster > 8) {
+    err = cudaFuncSetAttribute(intra_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) cudaGetLastError();
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster);
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = static_cast<size_t>(smem_bytes);
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
   return err;
 }
 
@@ -1126,12 +1629,59 @@ int fdb_compact_ranks(const void* ks, const void* rec, void* out, int cap,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Clusters of K2's cluster plan (`cluster` blocks, `smem_bytes` a block)
+// that the current card holds at once (cudaOccupancyMaxActiveClusters);
+// minus the error code when the runtime refuses.
+int fdb_intra_cluster_occupancy(int cluster, int smem_bytes) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = intra_cluster_config(cluster, smem_bytes, nullptr, &cfg, &attr);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, intra_cluster_kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return clusters;
+}
+
+// K2: `cluster` 0 is the grid plan (one cooperative launch over `scratch`),
+// else the cluster plan: one cluster of `cluster` blocks with `smem_bytes`
+// of shared memory each (at least intra_cluster_bytes) and the trees'
+// `leaves` (a multiple of `cluster`, at least n) split evenly among them.
 int fdb_intra_fixpoint(const void* rb_r, const void* re_r, const void* wb_r,
                        const void* we_r, const void* r_ok, const void* w_ok,
                        const void* r_idx, const void* w_idx, const void* w_tx,
                        const void* active, const void* hist, void* out,
                        void* n_iters, void* scratch, int R, int Wn, int B,
-                       int n, int leaves, void* stream) {
+                       int n, int leaves, int cluster, int smem_bytes,
+                       void* stream) {
+  if (cluster) {
+    const int S = leaves / cluster;
+    if (S < 1 || S * cluster != leaves || leaves < n ||
+        static_cast<size_t>(smem_bytes) < intra_cluster_bytes(S, R, Wn, B, cluster))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cudaError_t err = intra_cluster_config(cluster, smem_bytes,
+                                           static_cast<cudaStream_t>(stream), &cfg, &attr);
+    if (err == cudaSuccess) {
+      err = cudaLaunchKernelEx(
+          &cfg, intra_cluster_kernel, static_cast<const int*>(rb_r),
+          static_cast<const int*>(re_r), static_cast<const int*>(wb_r),
+          static_cast<const int*>(we_r), static_cast<const bool*>(r_ok),
+          static_cast<const bool*>(w_ok), static_cast<const long long*>(r_idx),
+          static_cast<const long long*>(w_idx), static_cast<const int*>(w_tx),
+          static_cast<const bool*>(active), static_cast<const bool*>(hist),
+          static_cast<bool*>(out), static_cast<int*>(n_iters), R, Wn, B, n, S);
+    }
+    if (err != cudaSuccess) {
+      cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   int sms = 0;

@@ -232,7 +232,7 @@ def run_one_seed(spec_path: str, seed: int, artifacts: str,
     finally:
         gc.enable()
     result["wall_s"] = time.time() - t0
-    result["launches"] = dict(kernels.launches)
+    result["launches"] = kernels.launch_counts()
     with open(os.path.join(artifacts, "result.json"), "w") as f:
         json.dump(result, f, indent=2, default=str)
     sink.close()

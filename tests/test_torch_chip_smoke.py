@@ -400,6 +400,22 @@ class InProcess:
         return SimpleNamespace(result=lambda: fn(*args))
 
 
+def count_launches(monkeypatch):
+    """Counting wrappers standing in for the kernels' launch counts on the
+    CPU (whose plain versions count none): one a call of K1-K4's wrapper,
+    and K2's under the plan it would take on the card (launch_counts)."""
+    for fn, name in (("probe_fused", "probe_fused"), ("intra_fixpoint", "intra_fixpoint"),
+                     ("compact_ranks", "compact_ranks"), ("run_to_step_runs", "run_to_step")):
+        def counted(*a, _real=getattr(kernels, fn), _name=name, **k):
+            kernels.launches[_name] += 1
+            if _name == "intra_fixpoint":
+                plan = kernels.plan_name(kernels.plan_intra(a[0].shape[0], a[2].shape[0],
+                                                            a[11]))
+                kernels.intra_launches[plan] = kernels.intra_launches.get(plan, 0) + 1
+            return _real(*a, **k)
+        monkeypatch.setattr(kernels, fn, counted)
+
+
 @pytest.fixture
 def small_cluster(monkeypatch):
     """Phase 15 at a small size on the CPU: the key pool, its quartiles,
@@ -416,12 +432,7 @@ def small_cluster(monkeypatch):
     monkeypatch.setattr(cluster, "DeviceConflictSet", CpuSet)
     monkeypatch.setattr(cluster, "resolve_device", lambda _d: torch.device("cpu"))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    for fn, name in (("probe_fused", "probe_fused"), ("intra_fixpoint", "intra_fixpoint"),
-                     ("compact_ranks", "compact_ranks"), ("run_to_step_runs", "run_to_step")):
-        def counted(*a, _real=getattr(kernels, fn), _name=name, **k):
-            kernels.launches[_name] += 1
-            return _real(*a, **k)
-        monkeypatch.setattr(kernels, fn, counted)
+    count_launches(monkeypatch)
     n = 512
     splits = [b"rw/%06d" % (q * n // 4) for q in (1, 2, 3)]
     monkeypatch.setattr(chip_smoke, "RW_KEYS", n)
@@ -1009,12 +1020,7 @@ def small_root(monkeypatch):
     monkeypatch.setattr(chip_smoke, "twin_pool", InProcess)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
-    for fn, name in (("probe_fused", "probe_fused"), ("intra_fixpoint", "intra_fixpoint"),
-                     ("compact_ranks", "compact_ranks"), ("run_to_step_runs", "run_to_step")):
-        def counted(*a, _real=getattr(kernels, fn), _name=name, **k):
-            kernels.launches[_name] += 1
-            return _real(*a, **k)
-        monkeypatch.setattr(kernels, fn, counted)
+    count_launches(monkeypatch)
     monkeypatch.setattr(bench, "TXNS_PER_BATCH", 48)
     monkeypatch.setattr(bench, "CAP", 1 << 12)
     monkeypatch.setattr(bench, "REC_CAP", 1 << 10)

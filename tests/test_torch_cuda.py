@@ -217,6 +217,22 @@ def _fixpoint_keys(xs):
     return keys.encode_keys([int(x).to_bytes(4, "big") for x in xs], 16)
 
 
+# (B txns, R reads, Wn writes, the widest range in ranks) of each K2 case
+# but the chain; the stream-shaped ones at 2 point reads and 1 point write
+# a txn: the stream's batch, the largest batch each cluster size holds and
+# the next one up (kernels.plan_intra), and the proxy's cap of 32768 txns
+FIXPOINT_SHAPES = {"random": (256, 512, 256, 1 << 7),
+                   "no_writes": (256, 512, 256, 1 << 7),
+                   "ragged": (300, 1000, 333, 1 << 7),
+                   "tiny": (2, 1, 1, 1),
+                   "stream": (8192, 16384, 8192, 1),
+                   "side_stream": (256, 512, 256, 1 << 7),
+                   "hot": (256, 512, 256, 1),
+                   **{f"stream_{B}": (B, 2 * B, B, 1) for B in (
+                       1190, 1191, 2275, 2276, 4421, 4422, 8365, 8366, 15096,
+                       15097, 32768)}}
+
+
 def _fixpoint_case(rng, dev, case):
     """K2's arguments, as phase_intra hands them over: the ranks of seeded
     key rows (_intra_setup), r_idx and w_idx int64."""
@@ -229,23 +245,21 @@ def _fixpoint_case(rng, dev, case):
         r_tx = w_tx = t.astype(np.int32)
         active, hist = np.ones(B, bool), np.zeros(B, bool)
     else:
-        B, R, Wn, width = {"random": (256, 512, 256, 1 << 7),
-                           "no_writes": (256, 512, 256, 1 << 7),
-                           "ragged": (300, 1000, 333, 1 << 7),
-                           "tiny": (2, 1, 1, 1),
-                           "stream": (8192, 16384, 8192, 1),
-                           "side_stream": (256, 512, 256, 1 << 7)}[case]
-        span = 1 << (20 if case == "stream" else 12)
+        B, R, Wn, width = FIXPOINT_SHAPES[case]
+        streamed = case.startswith("stream")
+        span = 1 << (20 if streamed else 12)
         rb, wb = rng.integers(0, span, R), rng.integers(0, span, Wn)
         re_ = rb + rng.integers(1, width + 1, R)
         we = wb + rng.integers(1, width + 1, Wn)
-        r_tx = rng.integers(-1 if case != "stream" else 0, B, R).astype(np.int32)
-        w_tx = rng.integers(-1 if case != "stream" else 0, B, Wn).astype(np.int32)
+        r_tx = rng.integers(0 if streamed else -1, B, R).astype(np.int32)
+        w_tx = rng.integers(0 if streamed else -1, B, Wn).astype(np.int32)
         if case == "no_writes":
             w_tx[:] = -1
         if case == "tiny":
             rb[:], re_[:], wb[:], we[:], r_tx[:], w_tx[:] = 5, 9, 3, 7, 1, 0
-        active = rng.random(B) < (1.0 if case in ("stream", "tiny") else 0.9)
+        if case == "hot":  # every read and write on one key: one block's ranks
+            rb[:], re_[:], wb[:], we[:] = 7, 8, 7, 8
+        active = rng.random(B) < (1.0 if streamed or case == "tiny" else 0.9)
         hist = (rng.random(B) < (0.0 if case == "tiny" else 0.1)) & active
     rows = [keys.to_lanes(_fixpoint_keys(a), dev) for a in (rb, re_, wb, we)]
     t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
@@ -256,33 +270,76 @@ def _fixpoint_case(rng, dev, case):
 
 
 FIXPOINT_CASES = ["random", "chain", "no_writes", "ragged", "tiny", "stream",
-                  "side_stream"]
+                  "side_stream", "hot"]
+FIXPOINT_EDGE_CASES = [c for c in FIXPOINT_SHAPES if c.startswith("stream_")]
 
 
-@pytest.mark.parametrize("case", FIXPOINT_CASES)
-def test_k2_intra_fixpoint_matches_plain_and_the_query_loop(cuda, case):
-    """K2, the whole fixpoint in one cooperative launch, equals its plain
-    version and the host loop around the per-query kernel it replaced:
-    the same bits and the same iteration count, one launch; on a side
-    stream as on the default one."""
-    rng = np.random.default_rng(40 + FIXPOINT_CASES.index(case))
-    fx = _fixpoint_case(rng, cuda, case)
-    before = dict(kernels.launches)
+def _admitted_plans(case):
+    """The plan names a case's shape admits: the planner's choice, the
+    grid plan and every cluster whose blocks hold it (a pure function of
+    the shape, so every worker collects the same cases)."""
+    B, R, Wn = (1024, 1024, 1024) if case == "chain" else FIXPOINT_SHAPES[case][:3]
+    fits = [f"cluster{c}" for c in kernels.INTRA_CLUSTERS
+            if kernels.intra_cluster_bytes(R, Wn, B, c) <= kernels.SMEM_MAX]
+    return ["planned", "grid", *fits]
+
+
+def _plan(fx, name):
+    *_, B = fx
+    R, Wn = fx[0].shape[0], fx[2].shape[0]
+    if name == "planned":
+        return None
+    if name == "grid":
+        return kernels.INTRA_GRID_PLAN
+    return kernels.plan_intra_cluster(R, Wn, B, int(name[len("cluster"):]))
+
+
+_fixpoint_wants = {}
+
+
+def _fixpoint_want(case, dev):
+    """(fx, plain, per-query loop, grid plan) of a K2 case, made once a
+    case: every plan of the case is held against the same three."""
+    if case not in _fixpoint_wants:
+        cases = FIXPOINT_CASES + FIXPOINT_EDGE_CASES
+        fx = _fixpoint_case(np.random.default_rng(40 + cases.index(case)), dev, case)
+        before = kernels.launches["intra_query"]
+        loop = kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)
+        assert kernels.launches["intra_query"] == before + int(loop[1])
+        _fixpoint_wants.clear()  # one case's inputs on the card at a time
+        _fixpoint_wants[case] = (fx, kernels.intra_fixpoint_plain(*fx), loop,
+                                 kernels.intra_fixpoint(*fx, plan=kernels.INTRA_GRID_PLAN))
+    return _fixpoint_wants[case]
+
+
+@pytest.mark.parametrize("case,plan", [(c, p) for c in FIXPOINT_CASES + FIXPOINT_EDGE_CASES
+                                       for p in _admitted_plans(c)])
+def test_k2_intra_fixpoint_matches_plain_and_the_query_loop(cuda, case, plan):
+    """K2, the whole fixpoint in one launch, under every plan the case's
+    shape admits (the planner's, the grid plan, each cluster that holds
+    it), equals its plain version, the host loop around the per-query
+    kernel it replaced and the grid plan: the same bits and the same
+    iteration count, one launch, counted under its plan; on a side stream
+    as on the default one."""
+    fx, want, loop, grid = _fixpoint_want(case, cuda)
+    forced = _plan(fx, plan)
+    chosen = forced or kernels.plan_intra(fx[0].shape[0], fx[2].shape[0], fx[-1])
+    before = kernels.launch_counts()
     if case == "side_stream":
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             torch.cuda._sleep(20_000_000)  # the launch waits behind it
-            got = kernels.intra_fixpoint(*fx)
+            got = kernels.intra_fixpoint(*fx, plan=forced)
         torch.cuda.current_stream().wait_stream(side)
     else:
-        got = kernels.intra_fixpoint(*fx)
-    assert kernels.launches["intra_fixpoint"] == before["intra_fixpoint"] + 1
-    want = kernels.intra_fixpoint_plain(*fx)
-    loop = kernels.intra_fixpoint_plain(*fx, query=kernels.intra_query)
+        got = kernels.intra_fixpoint(*fx, plan=forced)
+    after = kernels.launch_counts()
+    assert after["intra_fixpoint"] == before["intra_fixpoint"] + 1
+    key = "intra_fixpoint." + kernels.plan_name(chosen)
+    assert after[key] == before.get(key, 0) + 1
     n = int(want[1])
-    assert kernels.launches["intra_query"] == before["intra_query"] + n
-    for bits, count in (want, loop):
+    for bits, count in (want, loop, grid):
         assert _same(got[0], bits) and int(got[1]) == int(count)
     assert got[1].device.type == "cuda" and got[1].dtype == torch.int32
     if case == "chain":
@@ -291,6 +348,28 @@ def test_k2_intra_fixpoint_matches_plain_and_the_query_loop(cuda, case):
         assert n == 1 and not got[0].any()
     if case == "tiny":  # txn 1 reads what txn 0 writes
         assert n == 2 and got[0].tolist() == [False, True]
+    if case == "hot":  # past its block's room the staging spills to the next blocks
+        assert got[0].any() and not got[0].all()
+    if case.startswith("stream_"):  # the planner's choice at the boundaries
+        B = fx[-1]
+        smallest = next((c for c in kernels.INTRA_CLUSTERS
+                         if kernels.intra_cluster_bytes(2 * B, B, B, c) <= kernels.SMEM_MAX), 0)
+        assert kernels.plan_intra(2 * B, B, B).cluster == smallest
+
+
+def test_k2_cluster_plan_fits_the_card(cuda):
+    """Every cluster size the planner can choose, at the most shared memory
+    it asks for (the largest batch of the stream's mix each holds), is one
+    the card schedules (cudaOccupancyMaxActiveClusters >= 1), and a plan
+    whose blocks take more than SMEM_MAX is refused by the card."""
+    for B in (1190, 2275, 4421, 8365, 15096):
+        plan = kernels.plan_intra(2 * B, B, B)
+        assert plan.cluster and kernels.intra_cluster_occupancy(cuda.index or 0, plan) >= 1
+    fx = _fixpoint_case(np.random.default_rng(1), cuda, "random")
+    with pytest.raises(RuntimeError):
+        kernels.intra_fixpoint(*fx, plan=kernels.IntraPlan(1, kernels.SMEM_MAX + 1024))
+    with pytest.raises(RuntimeError):  # less than the kernel's layout takes
+        kernels.intra_fixpoint(*fx, plan=kernels.IntraPlan(1, 1024))
 
 
 @pytest.mark.parametrize("rcap", [512, 509])
