@@ -19,9 +19,11 @@ Drives the port (foundationdb_tpu_torch) and nothing of the JAX package:
               take the card (a search's bytes: each compare from the lanes
               both bounds of its interval share with the key, trace_search);
               K5 also against K1 with no history bit set,
-              and K5 | history against K1; K5's cold time (the
-              thread-per-read design K1 had before its redesign) is
-              printed beside K1's.  K2, the whole intra fixpoint in one
+              and K5 | history against K1; K5's plan
+              (kernels.plan_probe_tree: staged levels, reads a tile,
+              cluster size) is printed with its cold time, bound and
+              x bound, beside K1's time; the per-query referee's warm
+              time beside the event pair's floor.  K2, the whole intra fixpoint in one
               launch, on the first stream batch and on a 1024-txn chain
               (a trajectory as long as the batch), under its plan
               (kernels.plan_intra: one thread-block cluster, printed with
@@ -348,18 +350,23 @@ the card's name and power limit, then as its last line
 exits non-zero; without a CUDA device, or without the package beside this
 script, it exits non-zero before printing any result.
 
-    python3 chip_smoke.py --sweep OUT.json
+    python3 chip_smoke.py --sweep OUT.json [--only k2,k5,referee,wide,paths]
 
 times only K2 (warm) on stream batches of 64 to 32768 txns under its grid
 plan and kernels.plan_intra's in turns (grid, planned, planned, grid) and
-each other cluster size that holds the batch, then K1 and K3 (cold) at W =
+each other cluster size that holds the batch, then K5 (cold) at the
+stream's shapes and on `prefixed` at W = 17 and 65 under every plan of
+kernels.probe_tree_plans (held against its plain version and K1; an
+older package's own kernel as "before"), and the per-query referee
+(warm) at R = 16384 and 49152, then K1 and K3 (cold) at W =
 17 to 32769 on both of phase 3's wide
 inputs under every plan the package beside the script offers (its warp and
 staged plans, and the warp plans' choices; a package from before the warp
 plans, its own), each bit-exact with its plain version, then phase 18
 (b)'s and phase 19 (a)'s runs with K1's and K3's device ms (an event pair
-around each launch), and writes the numbers to OUT.json.  Copied beside an older checkout of
-the package, it times that checkout's kernels on the same inputs.
+around each launch), and writes the numbers to OUT.json; `--only` runs
+the parts named, in that order.  Copied beside an older checkout of the
+package, it times that checkout's kernels on the same inputs.
 """
 
 from __future__ import annotations
@@ -414,7 +421,7 @@ KERNELS = (  # (counter name, TPU kernel it replaces, CUDA symbol)
     ("run_to_step", "foundationdb_tpu/conflict/pallas_kernel.py:416",
      "run_to_step_kernel"),
     ("probe", "foundationdb_tpu/conflict/pallas_kernel.py:165",
-     "probe_kernel"),
+     "probe_tree_kernel"),
     ("intra_fixpoint", "foundationdb_tpu/conflict/pallas_kernel.py:353",
      "intra_fixpoint_kernel"),
 )
@@ -973,6 +980,25 @@ def kernel_inputs(torch, keys_mod, dev, rng, pool, succ) -> dict:
                 main_keys=main_keys)
 
 
+def referee_inputs(torch, fdb, dev, packed) -> tuple:
+    """The per-query referee's arguments on the first fixpoint iteration of
+    a packed stream batch (no history yet): the writers' begins' min-sparse
+    table, the spans' range-update point-query array and the reads' rank
+    bounds."""
+    tdev, rmq = fdb["device"], fdb["rmq"]
+    rb, re_, _r_tx, wb, we, w_tx, _snap, _active = tdev.stage_batch(dev, *packed[:8])
+    rb_r, re_r, wb_r, we_r = tdev._intra_setup(rb, re_, wb, we)
+    n = 2 * (rb.shape[0] + wb.shape[0])
+    w_ok = w_tx >= 0
+    w_cand = torch.where(w_ok, w_tx, rmq.I32_MAX)
+    begs = torch.full((n,), rmq.I32_MAX, dtype=torch.int32, device=dev)
+    begs.scatter_reduce_(0, wb_r.long(), w_cand, "amin")
+    beg_tab = rmq.build_sparse_table(begs, torch.minimum, rmq.I32_MAX)
+    stab = rmq.range_update_point_query(n, wb_r, we_r, w_cand, w_ok & (wb_r < we_r),
+                                        "min", rmq.I32_MAX)
+    return beg_tab, stab, rb_r, re_r
+
+
 def kernel_check(torch, kernels, results: dict, flush, name, got, want, work, fn,
                  plain_fn, reps, cold, key=None, symbol=None, library_fn=None):
     """Phase 3's check of one kernel: `got` (the kernel's outputs) must
@@ -1039,9 +1065,9 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
     results = {}
     kernels.reset_launches()
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    log(f"kernels: an event pair with no launch between reads "
-        f"{launch_ms(torch, lambda: None, 100):.6f} ms (the floor under each "
-        f"per-launch time below)")
+    floor_ms = launch_ms(torch, lambda: None, 100)
+    log(f"kernels: an event pair with no launch between reads {floor_ms:.6f} ms (the "
+        f"floor under each per-launch time below)")
     check = functools.partial(kernel_check, torch, kernels, results, flush)
 
     # K1: 8 runs of ~8K point intervals (one dead, one empty), 16384
@@ -1067,28 +1093,29 @@ def kernel_phase(torch, fdb, dev, rng, pool, succ, first_batch):
           probe_fused_work(torch, *k5),
           fn=lambda: kernels.run_conflicts(*k5),
           plain_fn=lambda: kernels.run_conflicts_plain(*k5), reps=50, cold=True)
-    k1_ms, k5_ms = results["probe_fused"]["cold_ms"], results["probe"]["cold_ms"]
-    log(f"kernel probe_fused vs probe, cold, same inputs (K5 without history "
-        f"bits): K1 {k1_ms:.6f} ms, K5 (the thread-per-read design) "
-        f"{k5_ms:.6f} ms, K5 / K1 = {k5_ms / k1_ms:.2f}")
+    plan_k5 = kernels.plan_probe_tree(*runs_b.shape)
+    results["probe"]["plan"] = plan_k5._asdict()
+    k1_ms, k5 = results["probe_fused"]["cold_ms"], results["probe"]
+    log(f"kernel probe: plan {plan_k5._asdict()} "
+        f"({kernels.probe_tree_bytes(plan_k5.levels, runs_b.shape[2])} B of staged tree "
+        f"a block), cold {k5['cold_ms']:.6f} ms, bound {k5['bound_ms'] * 1e3:.3f} us, "
+        f"ms/bound {k5['cold_ms'] / k5['bound_ms']:.2f}; K1 (probe_fused, same inputs "
+        f"with history bits) {k1_ms:.6f} ms, K5 / K1 = {k5['cold_ms'] / k1_ms:.2f}")
 
-    # K2: the first fixpoint iteration's tables of a real stream batch
-    rb, re_, _r_tx, wb, we, w_tx, _snap, _active = tdev.stage_batch(dev, *first_batch[:8])
-    rb_r, re_r, wb_r, we_r = tdev._intra_setup(rb, re_, wb, we)
-    n = 2 * (rb.shape[0] + wb.shape[0])
-    w_ok = w_tx >= 0
-    w_cand = torch.where(w_ok, w_tx, rmq.I32_MAX)
-    begs = torch.full((n,), rmq.I32_MAX, dtype=torch.int32, device=dev)
-    begs.scatter_reduce_(0, wb_r.long(), w_cand, "amin")
-    beg_tab = rmq.build_sparse_table(begs, torch.minimum, rmq.I32_MAX)
-    stab = rmq.range_update_point_query(n, wb_r, we_r, w_cand, w_ok & (wb_r < we_r),
-                                        "min", rmq.I32_MAX)
-    k2 = (beg_tab, stab, rb_r, re_r)
-    # warm: the fixpoint builds both tables just before each query
+    # K2's per-query referee: the first fixpoint iteration's tables of a
+    # real stream batch; warm: the fixpoint builds both tables just before
+    # each query
+    k2 = referee_inputs(torch, fdb, dev, first_batch)
     check("intra_query", [kernels.intra_query(*k2)], [kernels.intra_query_plain(*k2)],
           intra_query_work(torch, rmq, *k2),
           fn=lambda: kernels.intra_query(*k2),
           plain_fn=lambda: kernels.intra_query_plain(*k2), reps=100, cold=False)
+    ref = results["intra_query"]
+    ref["floor_ms"] = floor_ms
+    log(f"kernel intra_query: {-(-k2[2].shape[0] // kernels.QUERY_THREADS)} blocks of "
+        f"{kernels.QUERY_THREADS} threads, warm {ref['warm_ms']:.6f} ms beside the event "
+        f"pair's floor {floor_ms:.6f} ms (+{ref['warm_ms'] - floor_ms:.6f}), bound "
+        f"{ref['bound_ms'] * 1e3:.3f} us")
 
     # K2 redesigned: the whole fixpoint of the first stream batch (no
     # history yet), then of a chain batch, held against its plain version,
@@ -5265,6 +5292,86 @@ def sweep_k2(torch, fdb, dev, pool, succ) -> list:
     return rows
 
 
+# `--sweep`'s K5: phase 3's inputs at the stream's shapes, then `prefixed`
+# at these widths (the stream's K, run_cap and R)
+SWEEP_K5_W = (17, 65)
+SWEEP_K5_REPS = 20
+# `--sweep`'s referee: a stream batch's reads (R = 16384), and three times
+# as many against the same tables (R = 49152)
+SWEEP_REFEREE_REPEATS = (1, 3)
+SWEEP_REFEREE_REPS = 100
+# `--sweep --only`'s parts, in the order they run
+SWEEP_PARTS = ("k2", "k5", "referee", "wide", "paths")
+
+
+def k5_sweep_plans(kernels, K: int, run_cap: int, W: int) -> list:
+    """(name, keywords) for each K5 plan the package beside this script
+    offers (kernels.probe_tree_plans: "planned" first, then
+    "L<levels>_r<reads>_c<cluster>"); a package from before those plans
+    times its own kernel, "before"."""
+    if not hasattr(kernels, "probe_tree_plans"):
+        return [("before", {})]
+    return [("planned" if j == 0 else "L{}_r{}_c{}".format(*p), {"plan": p})
+            for j, p in enumerate(kernels.probe_tree_plans(K, run_cap, W))]
+
+
+def sweep_k5(torch, kernels, keys_mod, base: dict, flush) -> list:
+    """K5 cold on phase 3's inputs at the stream's shapes ("stream") and on
+    `prefixed` at SWEEP_K5_W, under each of k5_sweep_plans, each bit-exact
+    with its plain version and, ORed with the history bits, with K1.
+    Returns the rows."""
+    dev = flush.device
+    R = TXNS * READS_PER_TXN
+    rows = []
+    for W in (None, *SWEEP_K5_W):
+        if W is None:
+            k1, kind = base["k1"], "stream"
+        else:
+            cut = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"], R)
+            k1, _ks, _rec = wide_inputs(torch, keys_mod, kernels, "prefixed", W, dev, base, cut)
+            kind = "prefixed"
+            del _ks, _rec
+        k5 = k1[:7]
+        want, fused = kernels.run_conflicts_plain(*k5), kernels.probe_fused(*k1)
+        for name, kw in k5_sweep_plans(kernels, *k5[4].shape):
+            got = kernels.run_conflicts(*k5, **kw)
+            require(torch.equal(got, want) and torch.equal(got | k1[7], fused),
+                    f"sweep: probe ({name}) at W={k5[0].shape[1]} on {kind} disagrees with "
+                    f"its plain version or with K1")
+            row = dict(W=k5[0].shape[1], input=kind, kernel="probe", plan=name,
+                       cold_ms=launch_ms(torch, lambda: kernels.run_conflicts(*k5, **kw),
+                                         SWEEP_K5_REPS, flush),
+                       **(kw["plan"]._asdict() if kw else {}))
+            rows.append(row)
+            log("sweep " + json.dumps(row))
+        del k1, k5, want, fused
+    return rows
+
+
+def sweep_referee(torch, fdb, dev, pool, succ) -> list:
+    """The per-query referee of the package beside this script, warm, on
+    the tables of a stream batch's first fixpoint iteration
+    (referee_inputs), its reads repeated by each of SWEEP_REFEREE_REPEATS,
+    each bit-exact with its plain version.  Returns the rows."""
+    kernels, tdev = fdb["kernels"], fdb["device"]
+    (_v, txns), = stream_batches(fdb["TxInfo"], np.random.default_rng(SEED + 7), pool,
+                                 succ, 1)
+    packed = tdev.pack_batch(txns, 0, lambda v: v, SET_ARGS["max_key_bytes"])
+    beg_tab, stab, rb_r, re_r = referee_inputs(torch, fdb, dev, packed)
+    rows = []
+    for times in SWEEP_REFEREE_REPEATS:
+        k2 = (beg_tab, stab, rb_r.repeat(times), re_r.repeat(times))
+        R = k2[2].shape[0]
+        require(torch.equal(kernels.intra_query(*k2), kernels.intra_query_plain(*k2)),
+                f"sweep: intra_query at R={R} disagrees with its plain version")
+        row = dict(R=R, kernel="intra_query",
+                   warm_ms=launch_ms(torch, lambda: kernels.intra_query(*k2),
+                                     SWEEP_REFEREE_REPS))
+        rows.append(row)
+        log("sweep " + json.dumps(row))
+    return rows
+
+
 def kernel_event_ms(torch, kernels, fn) -> dict:
     """Runs fn with K1's, K3's and K4's wrappers timed launch by launch: a
     CUDA event pair around each (behind a ~0.1 ms device spin, so the pair
@@ -5295,24 +5402,32 @@ def kernel_event_ms(torch, kernels, fn) -> dict:
             for name, got in pairs.items()}
 
 
-def sweep(torch, fdb, dev, power, out: Path) -> None:
-    """K2 warm under its plans at each SWEEP_K2_TXNS (sweep_k2); K1, K3 and
-    K4 cold at every SWEEP_W: K1 and K3 on both of phase 3's
-    wide inputs (kernel_inputs from SEED) under each of sweep_variants'
-    plans, K4 on `prefixed` beside its torch.stack yardstick (sweep_k4),
-    each bit-exact with its plain version; then phase 18 (b)'s and phase 19 (a)'s runs with K1's, K3's
-    and K4's device ms (kernel_event_ms).  Writes the measurements to
-    `out` as JSON."""
+def sweep(torch, fdb, dev, power, out: Path, parts=SWEEP_PARTS) -> None:
+    """The parts of SWEEP_PARTS named in `parts`, in that order: "k2", K2
+    warm under its plans at each SWEEP_K2_TXNS (sweep_k2); "k5", K5 cold
+    under each plan (sweep_k5); "referee", the per-query referee warm
+    (sweep_referee); "wide", K1, K3 and K4 cold at every SWEEP_W:
+    K1 and K3 on both of phase 3's wide inputs (kernel_inputs from SEED)
+    under each of sweep_variants' plans, K4 on `prefixed` beside its
+    torch.stack yardstick (sweep_k4), each bit-exact with its plain version;
+    "paths", phase 18 (b)'s and phase 19 (a)'s runs with K1's, K3's and
+    K4's device ms (kernel_event_ms).  Writes the measurements to `out` as
+    JSON."""
     keys_mod, kernels = fdb["keys"], fdb["kernels"]
     t0 = time.perf_counter()
     rng = np.random.default_rng(SEED)
     pool, succ = key_pool(rng)
     base = kernel_inputs(torch, keys_mod, dev, rng, pool, succ)
     log(f"sweep: inputs at {time.perf_counter() - t0:.1f} s")
-    rows = sweep_k2(torch, fdb, dev, pool, succ)
-    log(f"sweep: K2 done at {time.perf_counter() - t0:.1f} s")
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
-    for W in SWEEP_W:
+    rows = []
+    for part, run in (("k2", lambda: sweep_k2(torch, fdb, dev, pool, succ)),
+                      ("k5", lambda: sweep_k5(torch, kernels, keys_mod, base, flush)),
+                      ("referee", lambda: sweep_referee(torch, fdb, dev, pool, succ))):
+        if part in parts:
+            rows += run()
+            log(f"sweep: {part} done at {time.perf_counter() - t0:.1f} s")
+    for W in SWEEP_W if "wide" in parts else ():
         cut = wide_cut(W, SET_ARGS["run_capacity"], SET_ARGS["capacity"],
                        TXNS * READS_PER_TXN)
         for kind in WIDE_INPUTS:
@@ -5340,7 +5455,8 @@ def sweep(torch, fdb, dev, power, out: Path) -> None:
         log(f"sweep: W={W} done at {time.perf_counter() - t0:.1f} s")
     runs = {}
     for path, run in (("long_keys", lambda: long_key_run(torch, fdb, *LONG_RUN)),
-                      ("long_keys_16k", lambda: repro_part(torch, fdb, power))):
+                      ("long_keys_16k", lambda: repro_part(torch, fdb, power))
+                      ) if "paths" in parts else ():
         runs[path] = kernel_event_ms(torch, kernels, run)
         log(f"sweep {path}: K1, K3 and K4 device ms (event pairs) {json.dumps(runs[path])} "
             f"at {time.perf_counter() - t0:.1f} s")
@@ -5367,9 +5483,13 @@ def wide_entries(results: dict, k: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--sweep", metavar="OUT",
-                        help="only time K2 at SWEEP_K2_TXNS and K1 and K3 at SWEEP_W "
-                             "under every plan the package offers and K4 beside "
-                             "torch.stack, and write the numbers to OUT (JSON)")
+                        help="only time K2 at SWEEP_K2_TXNS, K5 and the per-query "
+                             "referee, K1 and K3 at SWEEP_W under every plan the "
+                             "package offers and K4 beside torch.stack, and write the "
+                             "numbers to OUT (JSON)")
+    parser.add_argument("--only", default=",".join(SWEEP_PARTS),
+                        help="with --sweep, the parts to run, comma-separated, of "
+                             + ", ".join(SWEEP_PARTS) + " (default: all)")
     args = parser.parse_args()
     import torch
 
@@ -5395,7 +5515,9 @@ def main() -> int:
     _build.build()
     log(f"build: {time.perf_counter() - t:.1f} s")
     if args.sweep:
-        sweep(torch, fdb, dev, power, Path(args.sweep))
+        parts = tuple(args.only.split(","))
+        require(set(parts) <= set(SWEEP_PARTS), f"--only takes parts of {SWEEP_PARTS}")
+        sweep(torch, fdb, dev, power, Path(args.sweep), parts)
         log(f"sweep: {time.perf_counter() - t_start:.1f} s on {power}")
         return 0
     W = keys.num_words(SET_ARGS["max_key_bytes"])
@@ -5410,6 +5532,8 @@ def main() -> int:
     smem = {w: smem_at(w) for w in (W, *WIDE_W)}
     k2_plan = kernels.plan_intra(TXNS * READS_PER_TXN, TXNS, TXNS)  # the stream's batch
     smem[W][planned_symbol("intra_fixpoint", k2_plan)] = k2_plan.smem
+    k5_plan = kernels.plan_probe_tree(SET_ARGS["run_slots"], SET_ARGS["run_capacity"], W)
+    smem[W][SYMBOLS["probe"]] = kernels.probe_tree_bytes(k5_plan.levels, W)
     symbols = (*SYMBOLS.values(), *WIDE_SYMBOLS.values(), CLUSTER_SYMBOL)
     entry = None
     for line in _build.ptxas_report().splitlines():
@@ -5426,6 +5550,11 @@ def main() -> int:
             f"{kernels.intra_cluster_occupancy(dev.index or 0, k2_plan)} clusters of "
             f"{k2_plan.cluster} blocks of {kernels.INTRA_THREADS} threads at once "
             f"({k2_plan.smem} B shared a block)")
+    log(f"occupancy: {SYMBOLS['probe']} at the stream's shapes: "
+        f"{kernels.probe_tree_occupancy(dev.index or 0, k5_plan, W)} clusters of "
+        f"{k5_plan.cluster} blocks of {k5_plan.reads} threads at once "
+        f"({kernels.probe_tree_bytes(k5_plan.levels, W)} B shared a block, plan "
+        f"{k5_plan._asdict()})")
     for w in WIDE_W:
         p1 = kernels.plan_probe(SET_ARGS["run_slots"], wide_cut(
             w, SET_ARGS["run_capacity"], SET_ARGS["capacity"], 0)[0], w)
@@ -5535,6 +5664,8 @@ def main() -> int:
                  **{key: results[k][key] for key in ("plan", "cluster", "smem",
                                                      "us_per_iteration", "grid_ms")}}
                 if k == "intra_fixpoint" else {}),
+             **({key: results[k][key] for key in ("plan", "floor_ms") if key in results[k]}
+                if k in ("probe", "intra_query") else {}),
              **({"wide": wide_entries(results, k)} if k in WIDE_KERNELS else {}))
         for k, where, _symbol in KERNELS
     ]}))

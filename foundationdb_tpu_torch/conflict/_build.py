@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every entry point ends with the stream)
     "fdb_probe_fused": [_P] * 9 + [_I] * 10 + [_P],
-    "fdb_probe": [_P] * 8 + [_I] * 4 + [_P],
+    "fdb_probe": [_P] * 8 + [_I] * 7 + [_P],
     "fdb_intra_query": [_P] * 5 + [_I] * 3 + [_P],
     "fdb_compact_ranks": [_P] * 3 + [_I] * 7 + [_P],
     "fdb_run_to_step": [_P] * 5 + [_I] * 3 + [ctypes.c_uint] + [_I] * 4 + [_P],
@@ -99,4 +99,6 @@ def load() -> ctypes.CDLL:
     lib.fdb_warp_plan_occupancy.restype = ctypes.c_int
     lib.fdb_intra_cluster_occupancy.argtypes = [_I] * 2
     lib.fdb_intra_cluster_occupancy.restype = ctypes.c_int
+    lib.fdb_probe_tree_occupancy.argtypes = [_I] * 4
+    lib.fdb_probe_tree_occupancy.restype = ctypes.c_int
     return lib

@@ -28,10 +28,12 @@ replaced, which no system path calls: with
 `intra_fixpoint_plain(..., query=intra_query)` it is the fixpoint's
 referee on the card.  K5 is K1 without the history input.  No system path
 calls it either: like the reference's `run_conflicts`, it is K1's unfused
-referee, and its kernel keeps the thread-per-read design that K1's
-parallel-over-runs kernel replaced.  The source note of each kernel (bound
-on the card, what the design does about it) is at the top of
-csrc/conflict_kernels.cu.  K1's and K3's plan and launch geometry come
+referee, with a body of its own that shares no search or staging code
+with K1's: by `plan_probe_tree`, a thread-block cluster a tile of reads,
+block c of it searching runs c, c + C, ... for the tile (a thread a
+(read, run) pair), the top levels of each run's search tree staged in
+shared memory.  The source note of each kernel (bound on the card, what
+the design does about it) is at the top of csrc/conflict_kernels.cu.  K1's and K3's plan and launch geometry come
 from `plan_probe` and `plan_ranks`, pure functions of the shapes: the
 staged kernels below WARP_FROM_W lanes, the warp kernels (a warp a (read,
 run) pair, a warp a query, each search skipping the lanes its bounds share
@@ -491,6 +493,106 @@ def plan_intra(R: int, Wn: int, B: int) -> IntraPlan:
     return INTRA_GRID_PLAN
 
 
+# ---------------------------------------------------------------------------
+# K5's launch plan (a pure function of the shapes)
+
+PROBE_TREE_READS = 256          # reads a K5 tile: threads of a block
+PROBE_TREE_MAX_READS = 1024     # the kernel's kTreeMaxReads (and its verdict bytes)
+PROBE_TREE_MAX_LEVELS = 16      # the kernel's kTreeMaxLevels
+# The staged tree: at most PROBE_TREE_LEVELS levels, within PROBE_TREE_BYTES
+# a block, set from the card (`chip_smoke.py --sweep`, PERF.md section 6):
+# every block stages its run's top rows, so the bytes staged grow with 2**L
+# while the compares saved grow with L, and at wide keys a staged level saves
+# less than it costs.  W = 5 stages 7 levels (127 rows), 17 5, 65 4, 257 2,
+# and from W = 1024 none (every compare of a search then reads global
+# memory).
+PROBE_TREE_LEVELS = 7
+PROBE_TREE_BYTES = 4 * 1024
+PROBE_TREE_MAX_CLUSTER = 16     # blocks of a cluster (non-portable above 8)
+PROBE_TREE_MAX_TILES = 65535    # tiles a launch (grid.y)
+
+
+class ProbeTreePlan(NamedTuple):
+    levels: int   # levels of each run's search tree staged in shared memory (0: none)
+    reads: int    # reads a tile: threads of a block
+    cluster: int  # blocks of a cluster: a tile's runs dealt out among them
+
+
+def tree_depth(run_cap: int) -> int:
+    """The most compares a binary search of run_cap rows makes:
+    ceil(log2(run_cap + 1)), the depth of its search tree."""
+    return run_cap.bit_length()
+
+
+def probe_tree_bytes(levels: int, W: int) -> int:
+    """Shared bytes of K5's staged tree: 2**levels - 1 nodes, each its run
+    row's index and its W lanes."""
+    return ((1 << levels) - 1) * (W + 1) * 4
+
+
+def probe_tree_cluster(K: int) -> int:
+    """K5's blocks a cluster: one a run up to PROBE_TREE_MAX_CLUSTER runs;
+    past it the fewest runs a block, dealt out evenly (K = 17: 9 blocks of
+    2 runs or 1)."""
+    per_block = max(-(-K // PROBE_TREE_MAX_CLUSTER), 1)
+    return max(-(-K // per_block), 1)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_probe_tree(K: int, run_cap: int, W: int) -> ProbeTreePlan:
+    """K5's launch: the most levels of a run's search tree, at most
+    PROBE_TREE_LEVELS and its depth, whose nodes fit PROBE_TREE_BYTES (0
+    where not even the root does: every compare then reads global memory);
+    tiles of PROBE_TREE_READS reads; a block a run up to 16 runs
+    (probe_tree_cluster)."""
+    levels = 0
+    while (levels < min(tree_depth(run_cap), PROBE_TREE_LEVELS)
+           and probe_tree_bytes(levels + 1, W) <= PROBE_TREE_BYTES):
+        levels += 1
+    return ProbeTreePlan(levels, PROBE_TREE_READS, probe_tree_cluster(K))
+
+
+def check_probe_tree_plan(plan: ProbeTreePlan, R: int, W: int) -> None:
+    """Raises ValueError where the kernel does not take `plan` for R reads
+    at width W (the C entry refuses the same)."""
+    levels, reads, cluster = plan
+    if not 0 <= levels <= PROBE_TREE_MAX_LEVELS:
+        raise ValueError(f"K5 stages 0 to {PROBE_TREE_MAX_LEVELS} levels, not {levels}")
+    if not (32 <= reads <= PROBE_TREE_MAX_READS and reads % 32 == 0):
+        raise ValueError(f"K5's tile is a multiple of 32 reads up to "
+                         f"{PROBE_TREE_MAX_READS}, not {reads}")
+    if not 1 <= cluster <= PROBE_TREE_MAX_CLUSTER:
+        raise ValueError(f"K5's cluster is 1 to {PROBE_TREE_MAX_CLUSTER} blocks, not {cluster}")
+    if probe_tree_bytes(levels, W) + PROBE_TREE_MAX_READS > SMEM_MAX:
+        raise ValueError(f"K5's {levels} levels at W={W} take "
+                         f"{probe_tree_bytes(levels, W)} B, past a block's {SMEM_MAX} "
+                         f"beside its {PROBE_TREE_MAX_READS} B of verdicts")
+    if -(-R // reads) > PROBE_TREE_MAX_TILES:
+        raise ValueError(f"K5 takes at most {PROBE_TREE_MAX_TILES} tiles of {reads} "
+                         f"reads a launch, not R={R}")
+
+
+PROBE_TREE_SWEEP_LEVELS = 10    # the most levels probe_tree_plans tries
+
+
+def probe_tree_plans(K: int, run_cap: int, W: int) -> list[ProbeTreePlan]:
+    """Every plan the tests and the sweep force at a shape: the planned one
+    first, then each level from 0 to PROBE_TREE_SWEEP_LEVELS the tree has
+    and a block holds, tiles of 128 and 512 reads, and clusters of half the
+    blocks (two runs a block) and of one block (every run in turn)."""
+    p = plan_probe_tree(K, run_cap, W)
+    out = [p]
+    for levels in range(min(tree_depth(run_cap), PROBE_TREE_SWEEP_LEVELS) + 1):
+        if probe_tree_bytes(levels, W) + PROBE_TREE_MAX_READS <= SMEM_MAX:
+            out.append(p._replace(levels=levels))
+    out += [p._replace(reads=128), p._replace(reads=512),
+            p._replace(cluster=max(p.cluster // 2, 1)), p._replace(cluster=1)]
+    return list(dict.fromkeys(out))
+
+
+QUERY_THREADS = 256  # the per-query referee's block (the kernel's kThreads), a thread a read
+
+
 def plan_name(plan: IntraPlan) -> str:
     """"grid", or "cluster<C>": the key of K2's launches by plan."""
     return f"cluster{plan.cluster}" if plan.cluster else "grid"
@@ -506,6 +608,22 @@ def warp_plan_occupancy(name: str, plan: ProbePlan | RanksPlan) -> int:
     if got < 0:
         msg = _build.load().fdb_cuda_error_string(-got).decode()
         raise RuntimeError(f"occupancy of {name}'s warp plan: cuda error {-got} ({msg})")
+    return got
+
+
+@functools.lru_cache(maxsize=None)
+def probe_tree_occupancy(device_index: int, plan: ProbeTreePlan, W: int) -> int:
+    """Clusters of K5's `plan` at width W that the card holds at once
+    (cudaOccupancyMaxActiveClusters); raises where it is 0 or the runtime
+    refuses.  Needs the card; asked once a device, plan and width."""
+    with torch.cuda.device(device_index):
+        got = _build.load().fdb_probe_tree_occupancy(*plan, W)
+    if got < 0:
+        msg = _build.load().fdb_cuda_error_string(-got).decode()
+        raise RuntimeError(f"occupancy of K5's plan {tuple(plan)} at W={W}: cuda error "
+                           f"{-got} ({msg})")
+    if got == 0:
+        raise RuntimeError(f"the card holds no cluster of K5's plan {tuple(plan)} at W={W}")
     return got
 
 
@@ -607,10 +725,13 @@ def probe_fused(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, hist_r, *,
     return out
 
 
-def run_conflicts(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver):
+def run_conflicts(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver, *,
+                  plan: ProbeTreePlan | None = None):
     """K5: the run probe alone (K1 without the history input), the
     contract of run_conflicts_xla (pallas_kernel.py:253).  Shapes as K1's.
-    Returns bool[R]."""
+    `plan`: plan_probe_tree's unless given (the tests and a sweep force
+    each plan).  Raises where the kernel does not take the plan, the card
+    holds no cluster of it or refuses the launch.  Returns bool[R]."""
     if _is_cpu(rb):
         return run_conflicts_plain(rb, re_, snap_r, r_ok, runs_b, runs_e,
                                    runs_ver)
@@ -626,9 +747,12 @@ def run_conflicts(rb, re_, snap_r, r_ok, runs_b, runs_e, runs_ver):
         _check("runs_e", runs_e, _I32, (K, run_cap, W), dev),
         _check("runs_ver", runs_ver, _I32, (K,), dev),
     ]
+    plan = plan or plan_probe_tree(K, run_cap, W)
+    check_probe_tree_plan(plan, R, W)
     out = torch.empty(R, dtype=_BOOL, device=dev)
     if R:
-        _launch("fdb_probe", dev, *ptrs, out.data_ptr(), R, K, run_cap, W)
+        probe_tree_occupancy(dev.index, plan, W)
+        _launch("fdb_probe", dev, *ptrs, out.data_ptr(), R, K, run_cap, W, *plan)
         launches["probe"] += 1
     return out
 

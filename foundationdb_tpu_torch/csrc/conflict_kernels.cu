@@ -14,7 +14,8 @@
 // their plan and launch geometry (threads, shared bytes, summary stride)
 // from the wrapper's pure planners, kernels.plan_probe and
 // kernels.plan_ranks: the staged kernels below T = kernels.WARP_FROM_W
-// lanes, the warp kernels from it.
+// lanes, the warp kernels from it; K5 from kernels.plan_probe_tree (staged
+// levels, reads a tile, cluster size).
 //
 // K1 fdb_probe_fused  replaces _probe_fused_kernel (pallas_kernel.py:189,
 //    built by _build_probe_fused :292, wrapper run_conflicts_fused :322).
@@ -87,15 +88,50 @@
 //    run_conflicts :271): K1 without the history input, i.e. bool[R] =
 //    r_ok & (some run newer than the read's snapshot intersects it).  No
 //    system path calls it; it is the unfused referee of K1 (the reference's
-//    tests hold run_conflicts | hist against run_conflicts_fused).  It keeps
-//    the thread-per-read design K1 had before its redesign: one thread per
-//    read (256 per block) walks the runs newer than its snapshot in order,
-//    a full binary search over each run's begins, until its first
-//    conflict.  It shares only row_less and count_below with K1 (no
-//    tiling, summary or window), so K5 | hist == K1 checks K1 against an
-//    independent body, and K5's time is the same-card "before" of K1.
+//    tests hold run_conflicts | hist against run_conflicts_fused).
+//    Independence: the point of K5 | hist == K1 is that two different
+//    bodies agree, so K5 shares no search or staging code with K1 (not
+//    K1's summary, window, read staging, warp search or ballot groups); it
+//    shares only row_less, row_less4 and the cp.async instruction wrappers
+//    (copy_async4, copy_async_wait), which decide nothing.
 //    Bound: as K1's (bytes in principle, dependent-load latency in
 //    practice), less the R bytes of the history bits it does not read.
+//    The design before: a thread a read, 256 a block (64 blocks on 132 SMs
+//    at R = 16384), walking its runs in order with a full binary search of
+//    each (15 dependent global compares at run_cap = 16384, then ends[rank
+//    - 1]: up to ~120 dependent loads a thread).  The design
+//    (probe_tree_kernel): parallel over (read, run) pairs, as the TPU grid
+//    is, its minor run axis made a thread-block cluster: a tile of reads
+//    is one cluster of C blocks, block c searches runs c, c + C, ... for
+//    every read of the tile, a thread a read, so a thread's chain is one
+//    run's search (C = K up to 16 runs, the non-portable size above 8; more
+//    runs are dealt out evenly, kernels.plan_probe_tree).  A block first
+//    stages the top L levels of its run's implicit search tree (the rows a
+//    binary search of the run compares first, breadth first: 2^L - 1 rows,
+//    tree_row) in shared memory with cp.async copies all in flight at
+//    once, unless no read of its tile probes that run; each search descends
+//    those levels there, finishes the remaining ceil(log2(run_cap + 1)) - L
+//    steps in global memory and loads ends[rank - 1] (at the stream's
+//    shapes L = 7, 3 KB a block: up to 9 dependent global loads a pair,
+//    where the design before made up to 16 a run).  Each node's run row is
+//    computed once a block into shared memory, so a warp's copies take
+//    consecutive lanes of 32 / W rows (a row's sectors once, where a thread
+//    a row would issue W scattered copies); each compare in global memory
+//    reads lane 0 of the run's row first against the read's lane 0 held in
+//    a register, and 4 lanes a load only on a tie.  A warp's load of 32
+//    scattered rows costs the L1 a pass per row, so a step that loads 4
+//    lanes of both rows (row_less4) costs 8 passes where this one costs 1:
+//    at this many searches the L1's gathers, not the loads' latency alone,
+//    set the time.  The search is a plain lower bound, so sentinel rows tie
+//    and a sentinel read end ranks at the live rows.  The verdicts are ORed
+//    in the leader block's shared memory through distributed shared memory
+//    (a store where a read conflicts) behind one cluster barrier, and the
+//    leader writes `out` once: no atomics, no memset, one launch.  A pair
+//    whose run is not newer than its snapshot, or whose r_ok is false,
+//    loads nothing of the run.  L is the most levels, at most 7, whose
+//    nodes fit kernels.PROBE_TREE_BYTES (4 KB), 0 from W = 1024 (then every
+//    step is in global memory): every block stages its run's top rows, so
+//    the bytes staged grow with 2^L while the compares saved grow with L.
 //
 // K2 fdb_intra_fixpoint  replaces _intra_kernel (pallas_kernel.py:353, built
 //    by _build_intra :376, wrapper intra_query :395) together with the
@@ -174,13 +210,18 @@
 //
 // fdb_intra_query: the per-iteration query that K2 ran before, kept as
 //    the fixpoint's referee (intra_fixpoint_plain with query=intra_query:
-//    the same loop on the host) and as its same-card "before".  One thread
-//    per read: k = 31 - clz(len), two clamped lookups into the
-//    min-sparse-table (empty rank range -> INT32_MAX) and one into the
-//    stab array.  Bound: bytes — one random 4-byte gather per read (two
-//    more when its rank range is not empty) and three coalesced 4-byte
-//    streams; the loop has just built the table ([17, 49152] ints, 3.3
-//    MB), so it is in L2.
+//    the host loop) and as its same-card "before".  A thread a read, 256 a
+//    block: k = 31 - clz(len), two clamped lookups into the min-sparse-table (empty rank
+//    range -> INT32_MAX) and one into the stab array.  Bound: bytes — one
+//    random 4-byte gather per read (two more when its rank range is not
+//    empty) and three coalesced 4-byte streams; the loop has just built
+//    the table ([17, 49152] ints, 3.3 MB), so it is in L2.  The bound
+//    (0.116 us at R = 16384) is below one launch: what the event pair
+//    around it holds past its floor is the launch and two dependent L2
+//    round trips.  A redesign to fill the card (blocks of 32-128 threads,
+//    or 2-4 reads a thread, every gather issued before any min) ran
+//    slower on the card than this kernel, at its own grid too, so this
+//    one stays (PERF.md section 6).
 //
 // K3 fdb_compact_ranks  replaces _rank_count_kernel (pallas_kernel.py:474,
 //    built by _build_rank_count :490, wrapper compact_ranks :509).
@@ -275,7 +316,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // intra_query, K4, K5
+constexpr int kThreads = 256;  // intra_query, K4
+constexpr int kTreeMaxReads = 1024;  // K5's block: reads of a tile, at most
+constexpr int kTreeMaxLevels = 16;   // K5's staged levels, at most
+constexpr int kSmemMax = 227 * 1024;    // dynamic shared memory a block may take
 // K4's elements a thread (kernels.STEP_PER).  From the card sweep (NVIDIA
 // H100 80GB HBM3 at 700 W): 4 and 8 within 1% of each other from W = 17 to
 // 32769, 16 4-8% slower at W = 17 and 33, 2 4-11% slower
@@ -342,6 +386,16 @@ __device__ __forceinline__ void copy_async16(int* dst, const int* src) {
 
 __device__ __forceinline__ void copy_async_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The two halves of a cluster barrier, so that a block can work between
+// its arrival and its wait (every thread calls both, C > 1 only)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Stages the n ints at src into shared memory, 16 bytes a copy where it
@@ -455,34 +509,136 @@ __global__ void __launch_bounds__(kProbeMaxThreads)
   }
 }
 
-// K5: one thread per read, every run newer than its snapshot in order
-__global__ void probe_kernel(const int* __restrict__ rb,
-                             const int* __restrict__ re,
-                             const int* __restrict__ snap,
-                             const bool* __restrict__ r_ok,
-                             const int* __restrict__ runs_b,
-                             const int* __restrict__ runs_e,
-                             const int* __restrict__ runs_ver,
-                             bool* __restrict__ out, int R, int K, int run_cap,
-                             int W) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= R) return;
-  bool conflict = false;
-  if (r_ok[i]) {
-    const int* qb = rb + static_cast<size_t>(i) * W;
-    const int* qe = re + static_cast<size_t>(i) * W;
-    const int s = snap[i];
-    const size_t run_rows = static_cast<size_t>(run_cap) * W;
-    for (int k = 0; k < K && !conflict; ++k) {
-      if (runs_ver[k] <= s) continue;
-      const int rank = count_below(runs_b + k * run_rows, run_cap, W, qe);
-      if (rank > 0) {
-        conflict = row_less(qb, runs_e + k * run_rows +
-                                    static_cast<size_t>(rank - 1) * W, W);
-      }
+// K5's staged tree: node e (1-based, breadth first: node e's children
+// are 2 e and 2 e + 1) is the row that a binary search of [0, n) for #rows
+// < q compares at depth floor(log2 e) when its earlier compares went as
+// e's bits below the leading one say, highest first (1: the row was below
+// q); -1 where the search cannot reach that depth on that path (its
+// interval is empty: n is not 2^d - 1).
+__device__ __forceinline__ int tree_row(int e, int n) {
+  int lo = 0, hi = n;
+  for (int d = 30 - __clz(e); d >= 0; --d) {
+    if (lo >= hi) return -1;
+    const int mid = lo + ((hi - lo) >> 1);
+    if ((e >> d) & 1) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
   }
-  out[i] = conflict;
+  return lo < hi ? lo + ((hi - lo) >> 1) : -1;
+}
+
+// K5: grid (C, tiles) in clusters of C blocks (C = gridDim.x), a tile of
+// blockDim.x reads a cluster, a thread a read.  Block c takes runs c, c +
+// C, ...: for each, unless no read of the tile probes it, it first stages
+// the top `levels` levels of the run's search tree (node e at the run row
+// tree_row(e, run_cap), computed once a block) with cp.async copies, all
+// in flight at once, a warp copying consecutive lanes of 32 / W rows a
+// pass; then each read with r_ok set and a snapshot below the run's
+// version descends the staged levels in shared memory, finishes its
+// search in global memory and compares its begin with ends[rank - 1],
+// each compare reading lane 0 of the run's row first (the read's lanes 0
+// are held in registers).  The verdicts meet in the leader block's shared
+// memory (a store of 1 through distributed shared memory where a read
+// conflicts, after the leader has cleared them) and the leader writes
+// `out` once.  Only the leader's shared memory is addressed by other
+// blocks, and it leaves last.
+__global__ void __launch_bounds__(kTreeMaxReads)
+    probe_tree_kernel(const int* __restrict__ rb, const int* __restrict__ re,
+                      const int* __restrict__ snap, const bool* __restrict__ r_ok,
+                      const int* __restrict__ runs_b, const int* __restrict__ runs_e,
+                      const int* __restrict__ runs_ver, bool* __restrict__ out,
+                      int R, int K, int run_cap, int W, int levels) {
+  // [2^levels - 1] the run row of each node, then [2^levels - 1][W] the
+  // staged rows, node e at place e - 1
+  extern __shared__ __align__(16) int tree_smem[];
+  __shared__ unsigned char hit[kTreeMaxReads];  // the leader's: the tile's verdicts
+  namespace cg = cooperative_groups;
+  auto cluster = cg::this_cluster();
+  const int C = static_cast<int>(gridDim.x);
+  const int me = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int i = blockIdx.y * blockDim.x + tid;
+  const bool valid = i < R;
+  const int nodes = (1 << levels) - 1;
+  int* pos = tree_smem;
+  int* tree = tree_smem + nodes;
+  if (C > 1) {
+    if (me == 0) hit[tid] = 0;
+    cluster_arrive();  // the leader's verdicts are cleared
+  }
+  for (int e = 1 + tid; e <= nodes; e += blockDim.x) pos[e - 1] = tree_row(e, run_cap);
+  // a staging pass: a warp copies g rows, lane l lane l % W of row l / W
+  // (W <= 32), or lanes l, l + 32, ... of one row
+  const int lane = tid & 31;
+  const int g = W <= 32 ? 32 / W : 1;
+  const int sub = W <= 32 ? lane / W : 0;
+  const int lane_w = lane - sub * (W <= 32 ? W : 0);
+  const int step_w = W <= 32 ? W : 32;
+  const int pass = (static_cast<int>(blockDim.x) >> 5) * g;
+  const bool live = valid && r_ok[i];
+  const int s = live ? snap[i] : 0;
+  const size_t row_i = static_cast<size_t>(valid ? i : 0) * W;
+  const int* q = re + row_i;
+  const int q0 = live ? q[0] : 0;
+  const int b0 = live ? rb[row_i] : 0;
+  const size_t run_rows = static_cast<size_t>(run_cap) * W;
+  bool conflict = false;
+  for (int k = me; k < K; k += C) {
+    const bool need = live && !conflict && runs_ver[k] > s;
+    const int* begins = runs_b + k * run_rows;
+    if (levels) {
+      // block-uniform; also the barrier between the node rows' writes (or
+      // the last run's searches of the tree) and this run's staging
+      if (!__syncthreads_or(need)) continue;
+      if (sub < g) {
+        for (int r = (tid >> 5) * g + sub; r < nodes; r += pass) {
+          const int row = pos[r];
+          if (row < 0) continue;
+          const int* src = begins + static_cast<size_t>(row) * W;
+          int* dst = tree + static_cast<size_t>(r) * W;
+          for (int w = lane_w; w < W; w += step_w) copy_async4(dst + w, src + w);
+        }
+      }
+      copy_async_wait();
+      __syncthreads();
+    }
+    if (!need) continue;
+    int lo = 0, hi = run_cap;
+    for (int d = 0, e = 1; d < levels && lo < hi; ++d) {
+      const int* x = tree + static_cast<size_t>(e - 1) * W;
+      const bool below = x[0] != q0 ? x[0] < q0 : row_less(x + 1, q + 1, W - 1);
+      const int mid = lo + ((hi - lo) >> 1);
+      lo = below ? mid + 1 : lo;
+      hi = below ? hi : mid;
+      e = 2 * e + below;
+    }
+    while (lo < hi) {
+      const int mid = lo + ((hi - lo) >> 1);
+      const int* x = begins + static_cast<size_t>(mid) * W;
+      const int x0 = x[0];
+      if (x0 != q0 ? x0 < q0 : row_less4(x + 1, q + 1, W - 1)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
+      }
+    }
+    if (lo > 0) {
+      const int* e_last = runs_e + k * run_rows + static_cast<size_t>(lo - 1) * W;
+      const int y0 = e_last[0];
+      conflict = b0 != y0 ? b0 < y0 : row_less4(rb + row_i + 1, e_last + 1, W - 1);
+    }
+  }
+  if (C == 1) {
+    if (valid) out[i] = conflict;
+    return;
+  }
+  __syncwarp();
+  cluster_wait();  // every block runs, and the leader's verdicts are cleared
+  if (conflict) *cluster.map_shared_rank(hit + tid, 0) = 1;
+  cluster.sync();  // every verdict has arrived
+  if (me == 0 && valid) out[i] = hit[tid] != 0;
 }
 
 __global__ void intra_query_kernel(const int* __restrict__ tab,
@@ -1163,16 +1319,6 @@ __device__ __forceinline__ void cluster_barrier(Cluster& cluster, int C) {
   }
 }
 
-// The two halves of a cluster barrier, so that a block can work between
-// its arrival and its wait (every thread calls both, C > 1 only)
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
 // Staging's first pass over a warp's 32 items (lane's `key`: its block,
 // or -1 for none): each block's items in the warp take consecutive places
 // after one shared atomicAdd on this block's count for that block;
@@ -1519,6 +1665,46 @@ cudaError_t intra_cluster_config(int cluster, int smem_bytes, cudaStream_t strea
   return err;
 }
 
+// Lets probe_tree_kernel take its staged tree ((2^levels - 1) (W + 1) ints
+// of dynamic shared memory: each node's run row and its lanes) and, above 8 blocks, a non-portable cluster size;
+// fills `cfg` for tiles of `reads` reads over R reads in clusters of
+// `cluster` blocks.  Refuses a plan the kernel does not take.
+cudaError_t probe_tree_config(int levels, int reads, int cluster, int W, int R,
+                              cudaStream_t stream, cudaLaunchConfig_t* cfg,
+                              cudaLaunchAttribute* attr) {
+  if (levels < 0 || levels > kTreeMaxLevels || reads < 32 || reads > kTreeMaxReads ||
+      reads % 32 || cluster < 1 || cluster > kMaxCluster || W < 1)
+    return cudaErrorInvalidValue;
+  // the kernel's static shared memory (the leader's verdicts) counts too
+  const size_t bytes = static_cast<size_t>((1 << levels) - 1) * (W + 1) * 4;
+  const size_t tiles = (static_cast<size_t>(R) + reads - 1) / reads;
+  if (bytes + kTreeMaxReads > static_cast<size_t>(kSmemMax) || tiles > 65535)
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  if (bytes + kTreeMaxReads > static_cast<size_t>(kSmemWithoutOptIn)) {
+    err = cudaFuncSetAttribute(probe_tree_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) cudaGetLastError();
+  }
+  if (err == cudaSuccess && cluster > 8) {
+    err = cudaFuncSetAttribute(probe_tree_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) cudaGetLastError();
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(cluster, static_cast<unsigned>(std::max<size_t>(tiles, 1)));
+  cfg->blockDim = dim3(reads);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1583,18 +1769,45 @@ int fdb_probe_fused(const void* rb, const void* re, const void* snap,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5 under the plan (levels, reads, cluster) of kernels.plan_probe_tree
 int fdb_probe(const void* rb, const void* re, const void* snap,
               const void* r_ok, const void* runs_b, const void* runs_e,
               const void* runs_ver, void* out, int R, int K, int run_cap, int W,
-              void* stream) {
-  probe_kernel<<<blocks_for(R), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(rb), static_cast<const int*>(re),
-      static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
-      static_cast<const int*>(runs_b), static_cast<const int*>(runs_e),
-      static_cast<const int*>(runs_ver), static_cast<bool*>(out), R, K, run_cap,
-      W);
+              int levels, int reads, int cluster, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = probe_tree_config(levels, reads, cluster, W, R,
+                                      static_cast<cudaStream_t>(stream), &cfg, &attr);
+  if (err == cudaSuccess) {
+    err = cudaLaunchKernelEx(
+        &cfg, probe_tree_kernel, static_cast<const int*>(rb), static_cast<const int*>(re),
+        static_cast<const int*>(snap), static_cast<const bool*>(r_ok),
+        static_cast<const int*>(runs_b), static_cast<const int*>(runs_e),
+        static_cast<const int*>(runs_ver), static_cast<bool*>(out), R, K, run_cap, W,
+        levels);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Clusters of K5's plan (levels, reads, cluster) at width W that the
+// current card holds at once (cudaOccupancyMaxActiveClusters); minus the
+// error code when the runtime refuses.
+int fdb_probe_tree_occupancy(int levels, int reads, int cluster, int W) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = probe_tree_config(levels, reads, cluster, W, 1, nullptr, &cfg, &attr);
+  int clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&clusters, probe_tree_kernel, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return -static_cast<int>(err);
+  }
+  return clusters;
 }
 
 int fdb_intra_query(const void* tab, const void* stab, const void* rb_r,

@@ -255,6 +255,72 @@ def test_sweep_lists_k4_under_every_plan_and_its_yardstick(untimed):
     assert [r["plan"] for r in before] == ["before", "library"]
 
 
+def _k5_base(seed=4, R=120):
+    """Phase 3's base inputs (kernel_inputs' keys) at a small size: K1's
+    arguments, the narrow rows they were made of, and main."""
+    rng = np.random.default_rng(seed)
+    runs = [_run(rng, 64, n) for n in (40, 30, 0, 25)]
+    runs_b, runs_e = np.stack([r[0] for r in runs]), np.stack([r[1] for r in runs])
+    q = _rows(rng, 2 * R)[rng.permutation(2 * R)]
+    rb, re_ = np.minimum(q[:R], q[R:]), np.maximum(q[:R], q[R:])
+    r_ok = torch.from_numpy(rng.random(R) < 0.85)
+    k1 = (keys.to_lanes(rb), keys.to_lanes(re_),
+          torch.from_numpy(rng.integers(0, 12, R).astype(np.int32)), r_ok,
+          keys.to_lanes(runs_b), keys.to_lanes(runs_e),
+          torch.tensor([0, 4, 7, 9], dtype=torch.int32),
+          torch.from_numpy(rng.random(R) < 0.1) & r_ok)
+    return dict(k1=k1, runs_b=runs_b, runs_e=runs_e, rb=rb, re=re_, main=_rows(rng, 256))
+
+
+def test_sweep_lists_k5_under_every_plan(untimed):
+    """The sweep times K5 at the stream's inputs and on `prefixed` at
+    SWEEP_K5_W under every plan of probe_tree_plans ("planned" first), each
+    held against the plain version and K1; a package from before the plans
+    is timed as it is, "before"; a kernel that disagrees fails."""
+    base = _k5_base()
+    flush = torch.empty(16, dtype=torch.int32)
+    rows = chip_smoke.sweep_k5(torch, kernels, keys, base, flush)
+    widths = (W, *chip_smoke.SWEEP_K5_W)
+    for w in widths:
+        mine = [r for r in rows if r["W"] == w]
+        names = ["planned"] + ["L{}_r{}_c{}".format(*p)
+                               for p in kernels.probe_tree_plans(4, 64, w)[1:]]
+        assert [r["plan"] for r in mine] == names
+        assert {r["input"] for r in mine} == {"stream" if w == W else "prefixed"}
+        assert all(r["kernel"] == "probe" and r["cold_ms"] == 0.5 for r in mine)
+        assert (mine[0]["levels"], mine[0]["reads"], mine[0]["cluster"]) == tuple(
+            kernels.plan_probe_tree(4, 64, w))
+    old = SimpleNamespace(run_conflicts=kernels.run_conflicts_plain,
+                          run_conflicts_plain=kernels.run_conflicts_plain,
+                          probe_fused=kernels.probe_fused,
+                          run_to_step_plain=kernels.run_to_step_plain)
+    before = chip_smoke.sweep_k5(torch, old, keys, base, flush)
+    assert [(r["W"], r["plan"]) for r in before] == [(w, "before") for w in widths]
+    wrong = SimpleNamespace(**vars(old))
+    wrong.run_conflicts = lambda *a, **k: ~kernels.run_conflicts_plain(*a)
+    with pytest.raises(RuntimeError, match="sweep: probe"):
+        chip_smoke.sweep_k5(torch, wrong, keys, base, flush)
+
+
+def test_sweep_times_the_referee_at_both_sizes(untimed):
+    """The sweep times the per-query referee at R = 16384 and 49152 against
+    the same tables, each held against the plain version; a referee that
+    disagrees fails."""
+    from foundationdb_tpu_torch.conflict.api import TxInfo
+
+    fdb = dict(kernels=kernels, device=tdev, TxInfo=TxInfo, rmq=rmq)
+    pool, succ = chip_smoke.key_pool(np.random.default_rng(0), 1024)
+    rows = chip_smoke.sweep_referee(torch, fdb, torch.device("cpu"), pool, succ)
+    R = chip_smoke.TXNS * chip_smoke.READS_PER_TXN
+    assert [(r["R"], r["kernel"], r["warm_ms"]) for r in rows] == [
+        (t * R, "intra_query", 0.5) for t in chip_smoke.SWEEP_REFEREE_REPEATS]
+    fdb["kernels"] = SimpleNamespace(
+        intra_query=lambda *a: kernels.intra_query_plain(*a) + 1,
+        intra_query_plain=kernels.intra_query_plain)
+    with pytest.raises(RuntimeError, match="sweep: intra_query"):
+        chip_smoke.sweep_referee(torch, fdb, torch.device("cpu"), pool, succ)
+
+
 def test_quartile_splits_share_the_pool_evenly():
     """Phase 13's split keys: strictly increasing, a quarter of the key
     pool in each partition."""

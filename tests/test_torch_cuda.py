@@ -136,30 +136,63 @@ def test_k1_probe_fused_matches_plain(cuda, W, K, run_cap, R, case):
         assert (want.cpu() & ~hist).any()  # the runs made conflicts
 
 
-def test_k5_run_conflicts_matches_plain_and_k1(cuda):
-    rng = np.random.default_rng(6)
-    args = _probe_case(rng, cuda, 5, 4, 256, 300, "random")[:7]
-    r_ok = args[3]
-    before = kernels.launches["probe"]
-    got = kernels.run_conflicts(*args)
-    assert kernels.launches["probe"] == before + 1
-    assert _same(got, kernels.run_conflicts_plain(*args))
-    assert _same(got, kernels.probe_fused(*args, torch.zeros_like(r_ok)))
+# K5's inputs: K1's, wide keys (W = 17, 65, 513), and K = 9 and 17 runs (a
+# non-portable cluster of 9 blocks; 9 blocks of two runs or one)
+K5_CASES = K1_CASES + [
+    (17, 8, 16384, 300, "random"),
+    (65, 8, 256, 385, "touching"),
+    (513, 8, 64, 100, "random"),
+    (5, 9, 1000, 300, "sentinel_run"),
+    (17, 9, 256, 300, "dead_run"),
+    (5, 17, 64, 385, "touching"),
+    (65, 17, 100, 77, "random"),
+]
 
 
-def test_k2_intra_query_matches_plain(cuda):
+@pytest.mark.parametrize("W,K,run_cap,R,case", K5_CASES)
+def test_k5_run_conflicts_matches_plain_and_k1(cuda, W, K, run_cap, R, case):
+    """K5 under every plan the shape admits (kernels.probe_tree_plans)
+    equals its plain version, and ORed with the history bits, K1; one
+    launch a call."""
+    rng = np.random.default_rng(100 + K5_CASES.index((W, K, run_cap, R, case)))
+    args = _probe_case(rng, cuda, W, K, run_cap, R, case)
+    k5, hist = args[:7], args[7]
+    want = kernels.run_conflicts_plain(*k5)
+    fused = kernels.probe_fused(*args)
+    for plan in kernels.probe_tree_plans(K, run_cap, W):
+        before = kernels.launches["probe"]
+        got = kernels.run_conflicts(*k5, plan=plan)
+        assert kernels.launches["probe"] == before + 1
+        assert _same(got, want), plan
+        assert _same(got | hist, fused), plan
+
+
+@pytest.mark.parametrize("R", [1, 700, 16384, 49152])
+@pytest.mark.parametrize("ranges", ["random", "empty", "full"])
+def test_k2_intra_query_matches_plain(cuda, R, ranges):
+    """The per-query referee equals its plain version, one launch a call:
+    rank ranges of random length, all empty ((rb, rb + 1): stab alone) and
+    all full ((0, n))."""
     rng = np.random.default_rng(2)
-    n, R = 1000, 700
+    n = 1000
     begs = torch.from_numpy(
         np.where(rng.random(n) < 0.4, rng.integers(0, 99, n), rmq.I32_MAX)
         .astype(np.int32)).to(cuda)
     tab = rmq.build_sparse_table(begs, torch.minimum, rmq.I32_MAX).contiguous()
     stab = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int32)).to(cuda)
     rb_r = torch.from_numpy(rng.integers(0, n, R).astype(np.int32)).to(cuda)
-    re_r = torch.clamp(rb_r + torch.from_numpy(
-        rng.integers(0, 300, R).astype(np.int32)).to(cuda), max=n - 1)
-    assert _same(kernels.intra_query(tab, stab, rb_r, re_r),
-                 kernels.intra_query_plain(tab, stab, rb_r, re_r))
+    if ranges == "random":
+        re_r = torch.clamp(rb_r + torch.from_numpy(
+            rng.integers(0, 300, R).astype(np.int32)).to(cuda), max=n - 1)
+    elif ranges == "empty":
+        re_r = rb_r + 1
+    else:
+        rb_r = torch.zeros_like(rb_r)
+        re_r = torch.full_like(rb_r, n)
+    before = kernels.launches["intra_query"]
+    got = kernels.intra_query(tab, stab, rb_r, re_r)
+    assert kernels.launches["intra_query"] == before + 1
+    assert _same(got, kernels.intra_query_plain(tab, stab, rb_r, re_r))
 
 
 def _k3_case(rng, dev, case):
