@@ -28,6 +28,7 @@ Ranges are half-open [begin, end) over byte-string keys.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 from typing import Sequence
@@ -116,6 +117,15 @@ class KernelStats:
     # that executed them — lets the status plane show which impl is live
     # AND what each impl actually cost when an autotune sweep mixes them.
     fold_wall_s: dict = dataclasses.field(default_factory=dict)
+    # the device sets' blocking reads of a device value on the host, by
+    # site (conflict/pipeline.py READ_SITES; they sum to the set's
+    # `host_syncs`), and the wall seconds the host spent in them
+    host_reads: dict = dataclasses.field(default_factory=dict)
+    host_wait_s: float = 0.0
+    # the least bytes the compactions moved: main's live rows before and
+    # after each, read once and written once, at 4 bytes a key lane and 4
+    # for the version (conflict/device.py::_fold_all)
+    compact_bytes: int = 0
 
     def __post_init__(self) -> None:
         # per-batch resolve-time reservoir for p50/p99 (deterministic
@@ -126,6 +136,13 @@ class KernelStats:
 
     def note_batch(self, n_txn: int, n_aborted: int, resolve_dt: float) -> None:
         self.batches += 1
+        self.note_answer(n_txn, n_aborted, resolve_dt)
+
+    def note_answer(self, n_txn: int, n_aborted: int, resolve_dt: float) -> None:
+        """A batch's verdicts answered: its transactions, its CONFLICTs and
+        its resolve time.  A pipelined batch counts in `batches` at its
+        dispatch (and at a recovery's replay) and is answered once, later
+        (conflict/pipeline.py), with its time from dispatch to answer."""
         self.txns += n_txn
         self.aborted += n_aborted
         self.resolve_s += resolve_dt
@@ -155,6 +172,9 @@ class KernelStats:
             "key_bytes": self.key_bytes,
             "widenings": self.widenings,
             "launches": dict(self.launches),
+            "host_reads": dict(self.host_reads),
+            "host_wait_ms": self.host_wait_s * 1e3,
+            "compact_bytes": self.compact_bytes,
             "fold_ms": {k: v * 1e3 for k, v in sorted(self.fold_wall_s.items())},
             "pack_ms": self.pack_s * 1e3,
             "encode_ms": self.encode_s * 1e3,
@@ -171,6 +191,23 @@ class KernelStats:
             "resolve_ms_p50": self.resolve_sample.percentile(0.5) * 1e3,
             "resolve_ms_p99": self.resolve_sample.percentile(0.99) * 1e3,
         }
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str, version: int | None = None):
+    """A span of the conflict set's own steps (`cs.*`, docs/OBSERVABILITY.md):
+    `torch.profiler.record_function(name)` while a torch profiler records,
+    else one shared no-op context.  The span lives in the profiler's trace,
+    on the clock of the kernels and copies it launches, nested in the span
+    it was entered in; `version` (a batch's commit version) goes in as the
+    record's argument."""
+    import torch
+
+    if not torch._C._autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name, None if version is None else str(version))
 
 
 class ResolveHandle:

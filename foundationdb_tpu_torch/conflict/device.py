@@ -73,7 +73,12 @@ sliced off; `.at[].min` becomes `scatter_reduce_(..., "amin")` and `.at[].add`
 card K2 runs the whole loop in one launch and hands back its iteration
 count as a device tensor, which the set sums on the device
 (`fixpoint_iterations()` reads the sum); on the CPU it is a Python loop.
-`host_syncs` counts every read of a device value on the host.
+`host_syncs` counts every read of a device value on the host, and
+`stats.host_reads` by site (conflict/pipeline.py).  Under a torch profiler
+the set's steps are spans (api.span): `cs.resolve` around each call, with
+`cs.stage`, `cs.search`, `cs.check`, `cs.append`, and `cs.compact` (K4's
+`cs.compact.step`, each `cs.compact.fold`, `cs.compact.index`) inside;
+`cs.gc` and each read's `cs.read.<site>`.
 """
 
 from __future__ import annotations
@@ -93,8 +98,8 @@ from ..ops.rmq import I32_MAX, _levels, build_sparse_table, query_sparse_table
 from ..ops.search import lex_less, lexsort
 from ..runtime.coverage import testcov
 from . import kernels
-from .api import ConflictSet, KernelStats, TxInfo, Verdict, validate_batch
-from .pipeline import PipelinedConflictMixin
+from .api import ConflictSet, KernelStats, TxInfo, Verdict, span, validate_batch
+from .pipeline import READ_SITES, PipelinedConflictMixin
 
 _SENT_WORD = np.uint32(0xFFFFFFFF)  # numpy (uint32) layout of the sentinel
 
@@ -448,18 +453,21 @@ def resolve_core_inc(ks, hist_base, bidx, count: int, runs_b, runs_e,
     (verdict int32[B], runs_b', runs_e', runs_ver', converged, fixpoint
     iterations int32[1]); converged is a device bool (None for the sort
     search)."""
-    g_lo, g_hi, conv = inc_search(
-        ks, bidx, count, rb, re_, r_tx,
-        search_iters=search_iters, search_impl=search_impl,
-    )
-    verdict, w_ins, n_iters = inc_check(
-        hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
-        runs_b, runs_e, runs_ver, n_txn=n_txn, from_table=from_table,
-    )
-    new_b, new_e, new_ver = inc_append(
-        runs_b, runs_e, runs_ver, slot, wb, we, w_ins, commit_off,
-        run_cap=run_cap,
-    )
+    with span("cs.search"):
+        g_lo, g_hi, conv = inc_search(
+            ks, bidx, count, rb, re_, r_tx,
+            search_iters=search_iters, search_impl=search_impl,
+        )
+    with span("cs.check"):
+        verdict, w_ins, n_iters = inc_check(
+            hist_base, g_lo, g_hi, rb, re_, r_tx, wb, we, w_tx, snap, active,
+            runs_b, runs_e, runs_ver, n_txn=n_txn, from_table=from_table,
+        )
+    with span("cs.append"):
+        new_b, new_e, new_ver = inc_append(
+            runs_b, runs_e, runs_ver, slot, wb, we, w_ins, commit_off,
+            run_cap=run_cap,
+        )
     return verdict, new_b, new_e, new_ver, conv, n_iters
 
 
@@ -1287,7 +1295,8 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self._last_commit = oldest_version
         self.stats = KernelStats(backend=self.device.type,
                                  key_bytes=max_key_bytes,
-                                 launches=dict.fromkeys(kernels.launches, 0))
+                                 launches=dict.fromkeys(kernels.launches, 0),
+                                 host_reads=dict.fromkeys(READ_SITES, 0))
         self.stats.merge_impl = merge_impl
         self.search_fallbacks = 0  # bucketed searches replayed at full depth
         self.host_syncs = 0        # reads of a device value on the host
@@ -1491,12 +1500,12 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
 
     def _host_count(self) -> int:
         if self._count is None:
-            self._count = self._host_int(self._dev_count)
+            self._count = self._host_int(self._dev_count, "count")
         return self._count
 
     def _host_rec_count(self) -> int:
         if self._rec_count is None:
-            self._rec_count = self._host_int(self._rec_dev_count)
+            self._rec_count = self._host_int(self._rec_dev_count, "count")
         return self._rec_count
 
     @property
@@ -1525,19 +1534,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     def fixpoint_iterations(self) -> int:
         """The intra fixpoint's iterations summed over every resolve so
         far (a replayed batch counts again): one read on the host."""
-        return self._host_int(self._intra_iters)
-
-    def _host_bool(self, t: torch.Tensor) -> bool:
-        self.host_syncs += 1
-        return bool(t)
-
-    def _host_int(self, t: torch.Tensor) -> int:
-        self.host_syncs += 1
-        return int(t)
-
-    def _host_numpy(self, t: torch.Tensor) -> np.ndarray:
-        self.host_syncs += 1
-        return t.cpu().numpy()
+        return self._host_int(self._intra_iters, "fixpoint")
 
     def _barrier(self) -> None:
         if self.device.type == "cuda":
@@ -1661,7 +1658,22 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         into a device flag; `check_pipelined()` reads it, and raises if a
         batch since the last check failed: its verdicts are wrong and the
         stream must be replayed through sync=True (resolve_deferred does
-        that itself)."""
+        that itself).
+
+        The whole call is the span `cs.resolve` (api.span).  Every call
+        counts in `stats.batches`.  A synchronous one notes its answer
+        (transactions, CONFLICTs, time) unless a recovery's replay runs it;
+        a pipelined one is answered, and noted, by whoever reads its
+        verdicts (resolve_deferred's drain, or the recovery)."""
+        with span("cs.resolve", commit_version):
+            return self._resolve_arrays(commit_version, rbv, rev, rtv, wbv, wev,
+                                        wtv, snap_p, active_p, sync)
+
+    def _resolve_arrays(self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv,
+                        snap_p, active_p, sync: bool, note: bool = True):
+        """resolve_arrays inside its span.  note=False: a synchronous
+        resolve that counts in `batches` and notes no answer (a pipelined
+        dispatch's, whose caller answers it)."""
         if sync and self._inflight:
             # a deferred window is open: settle it first so the sync
             # result (and any fallback replay) sees the final state
@@ -1690,11 +1702,13 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             # really is near capacity, go through sync (which regrows)
             self.check_pipelined()
             if self._count_ub + 2 * Wn > self._cap:
-                v = self.resolve_arrays(commit_version, rbv, rev, rtv, wbv,
-                                        wev, wtv, snap_p, active_p)
+                v = self._resolve_arrays(commit_version, rbv, rev, rtv, wbv,
+                                         wev, wtv, snap_p, active_p, True,
+                                         note=False)
                 return torch.from_numpy(v).to(self.device)
-        batch = self._fit_width(
-            self._stage(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p))
+        with span("cs.stage", commit_version):
+            batch = self._fit_width(
+                self._stage(rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p))
         if self._incremental:
             verdict, conv = self._resolve_inc(batch, commit_off, Wn, sync)
         elif self._lsm:
@@ -1705,22 +1719,17 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         if isinstance(rtv, np.ndarray):  # counting rows of a staged batch would sync
             self.stats.real_rows += int((rtv >= 0).sum()) + int((wtv >= 0).sum())
             self.stats.padded_rows += R + Wn
+        self.stats.batches += 1
         if not sync:
             if conv is not None:
                 # rebound, never updated in place: each deferred handle
                 # keeps the flag as it stood at its own dispatch
                 self._dev_ok = self._dev_ok & conv
             self._pipelined_since_check += 1
-            self.stats.note_batch(0, 0, time.perf_counter() - t0)  # dispatch only
-            return verdict
+            return verdict  # answered by whoever reads its verdicts
         v_np = self._host_numpy(verdict)
-        if isinstance(rtv, np.ndarray):
-            active_np = np.asarray(active_p)
-            n_txn = int(active_np.sum())
-            aborted = int(((v_np == int(Verdict.CONFLICT)) & active_np).sum())
-        else:
-            n_txn = aborted = 0
-        self.stats.note_batch(n_txn, aborted, time.perf_counter() - t0)
+        if note and not self._replaying:  # else the recovery or the caller answers
+            self._note_sync_answer(rtv, active_p, v_np, t0)
         return v_np
 
     def _fell_back(self, site: str) -> None:
@@ -1748,7 +1757,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                     run_cap=self._run_cap, search_iters=iters,
                     search_impl=self._search_impl,
                 )
-                if not sync or conv is None or self._host_bool(conv):
+                if not sync or conv is None or self._host_bool(conv, "search"):
                     break
                 # a bucket deeper than 2**iters (shared-prefix keys): replay
                 # at full search depth — nothing was written, so it is exact
@@ -1772,29 +1781,32 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         iters = min(FAST_SEARCH_ITERS, _levels(self._cap) + 1)
         while True:
             t = time.perf_counter()
-            g_lo, g_hi, conv = inc_search(
-                self._ks, self._bidx, self._count, rb, re_, r_tx,
-                search_iters=iters, search_impl=self._search_impl,
-            )
-            self._barrier()
+            with span("cs.search"):
+                g_lo, g_hi, conv = inc_search(
+                    self._ks, self._bidx, self._count, rb, re_, r_tx,
+                    search_iters=iters, search_impl=self._search_impl,
+                )
+                self._barrier()
             self.stats.sort_s += time.perf_counter() - t
-            if conv is None or self._host_bool(conv):
+            if conv is None or self._host_bool(conv, "search"):
                 break
             self._fell_back("kernel.search_fallback.inc_timed")
             iters = _levels(self._cap) + 1
         t = time.perf_counter()
-        verdict, w_ins, n_iters = inc_check(
-            self._tab if self._lsm else self._vs, g_lo, g_hi, rb, re_, r_tx,
-            wb, we, w_tx, snap, active, self._runs_b, self._runs_e,
-            self._runs_ver, n_txn=snap.shape[0], from_table=self._lsm,
-        )
-        self._barrier()
+        with span("cs.check"):
+            verdict, w_ins, n_iters = inc_check(
+                self._tab if self._lsm else self._vs, g_lo, g_hi, rb, re_, r_tx,
+                wb, we, w_tx, snap, active, self._runs_b, self._runs_e,
+                self._runs_ver, n_txn=snap.shape[0], from_table=self._lsm,
+            )
+            self._barrier()
         self.stats.scan_s += time.perf_counter() - t
         t = time.perf_counter()
-        nb, ne, nv = inc_append(self._runs_b, self._runs_e, self._runs_ver,
-                                self._n_runs, wb, we, w_ins, commit_off,
-                                run_cap=self._run_cap)
-        self._barrier()
+        with span("cs.append"):
+            nb, ne, nv = inc_append(self._runs_b, self._runs_e, self._runs_ver,
+                                    self._n_runs, wb, we, w_ins, commit_off,
+                                    run_cap=self._run_cap)
+            self._barrier()
         self.stats.append_s += time.perf_counter() - t
         return verdict, nb, ne, nv, n_iters
 
@@ -1824,11 +1836,11 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 iters = fast
                 while True:
                     verdict, nk, nv, nc, nb, conv, n_iters = dispatch(iters)
-                    if conv is None or self._host_bool(conv):
+                    if conv is None or self._host_bool(conv, "search"):
                         break
                     self._fell_back("kernel.search_fallback.flat")
                     iters = _levels(self._cap) + 1
-                nc_i = self._host_int(nc)
+                nc_i = self._host_int(nc, "count")
                 if nc_i <= self._cap:
                     break
                 # the merge dropped boundaries: regrow and replay
@@ -1867,12 +1879,12 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 break
             while True:
                 verdict, nrk, nrv, nrb, nrc, conv, n_iters = dispatch(iters, rec_iters)
-                if conv is None or self._host_bool(conv):
+                if conv is None or self._host_bool(conv, "search"):
                     break
                 self._fell_back("kernel.search_fallback.lsm")
                 iters = _levels(self._cap) + 1
                 rec_iters = _levels(self._rec_cap) + 1
-            nrc_i = self._host_int(nrc)
+            nrc_i = self._host_int(nrc, "count")
             if nrc_i <= self._rec_cap:
                 self._rec_count = self._rec_count_ub = nrc_i
                 self._rec_dev_count = None
@@ -1893,7 +1905,7 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             return
         n = self._pipelined_since_check
         self._pipelined_since_check = 0
-        if not self._host_bool(self._dev_ok):
+        if not self._host_bool(self._dev_ok, "window_flag"):
             raise RuntimeError(
                 f"a pipelined batch among the last {n} failed its deferred"
                 " search-convergence/capacity check; replay through sync=True"
@@ -1906,22 +1918,31 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             self._count_ub = self._host_count()
 
     def _fold_all(self, rec_pairs) -> int:
-        """Fold each (rows, vals) step function into main in turn,
-        regrowing main and folding again when a fold's union outgrows it;
-        then rebuild bidx and the LSM table.  Returns the new count."""
+        """Fold each (rows, vals) step function into main in turn (a
+        `cs.compact.fold` span each), regrowing main and folding again when
+        a fold's union outgrows it; then rebuild bidx and the LSM table
+        (`cs.compact.index`).  Adds the compaction's least bytes to
+        `stats.compact_bytes`: main's live rows before and after, each row
+        W int32 lanes and an int32 version, read once and written once.
+        Returns the new count."""
+        before = self._count
         for rows, vals in rec_pairs:
-            while True:
-                nk, nv, nc = compact_lsm(self._ks, self._vs, rows, vals,
-                                         cap=self._cap, merge_impl=self._merge_impl)
-                nc_i = self._host_int(nc)
-                if nc_i <= self._cap:
-                    break
-                self._grow_main(max(self._cap * 2, _bucket(nc_i)))
-            self._ks, self._vs = nk, nv
+            with span("cs.compact.fold"):
+                while True:
+                    nk, nv, nc = compact_lsm(self._ks, self._vs, rows, vals,
+                                             cap=self._cap,
+                                             merge_impl=self._merge_impl)
+                    nc_i = self._host_int(nc, "fold_count")
+                    if nc_i <= self._cap:
+                        break
+                    self._grow_main(max(self._cap * 2, _bucket(nc_i)))
+                self._ks, self._vs = nk, nv
         self._count = self._count_ub = nc_i
         self._dev_count = None
-        self._bidx = _rebuild_buckets(self._ks)
-        self._tab = self._history_table()
+        with span("cs.compact.index"):
+            self._bidx = _rebuild_buckets(self._ks)
+            self._tab = self._history_table()
+        self.stats.compact_bytes += (before + nc_i) * (4 * self._W + 4)
         return nc_i
 
     def _note_fold(self, t0: float, before: int, after: int, site: str) -> float:
@@ -1944,12 +1965,14 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         t0 = time.perf_counter()
         before = self._count + self._run_rows_ub
         n = self._n_runs
-        # every run as a step function (K4): its intervals at its version
-        rows, vals = kernels.run_to_step_runs(
-            self._runs_b[:n], self._runs_e[:n], self._runs_ver[:n]
-        )
-        nc_i = self._fold_all(list(zip(rows, vals)))
-        self._init_runs(self._run_cap)
+        with span("cs.compact"):
+            # every run as a step function (K4): its intervals at its version
+            with span("cs.compact.step"):
+                rows, vals = kernels.run_to_step_runs(
+                    self._runs_b[:n], self._runs_e[:n], self._runs_ver[:n]
+                )
+            nc_i = self._fold_all(list(zip(rows, vals)))
+            self._init_runs(self._run_cap)
         self.stats.compact_s += self._note_fold(t0, before, nc_i,
                                                 "kernel.run_compaction")
 
@@ -1958,8 +1981,9 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         main if the union does not fit) and start a fresh recent level."""
         t0 = time.perf_counter()
         before = self._count_ub + self._rec_count_ub
-        nc_i = self._fold_all([(self._rec_ks, self._rec_vs)])
-        self._init_recent(self._rec_cap)
+        with span("cs.compact"):
+            nc_i = self._fold_all([(self._rec_ks, self._rec_vs)])
+            self._init_recent(self._rec_cap)
         self._note_fold(t0, before, nc_i, "kernel.lsm_compaction")
 
     def remove_before(self, version: int) -> None:
@@ -1969,17 +1993,18 @@ class DeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         off = version - self._base
         if off > 0:
             t0 = time.perf_counter()
-            self._vs = torch.clamp(self._vs - off, min=0)
-            if self._lsm:
-                # range-max commutes with the monotone clamp: the cached
-                # table is clamped, not rebuilt
-                self._tab = torch.clamp(self._tab - off, min=0)
-                if not self._incremental:  # idle (all 0) on the incremental path
-                    self._rec_vs = torch.clamp(self._rec_vs - off, min=0)
-            if self._incremental:
-                # a run whose version falls out of the MVCC window clamps
-                # to 0 and can never conflict again (snapshots are >= 0)
-                self._runs_ver = torch.clamp(self._runs_ver - off, min=0)
+            with span("cs.gc", version):
+                self._vs = torch.clamp(self._vs - off, min=0)
+                if self._lsm:
+                    # range-max commutes with the monotone clamp: the cached
+                    # table is clamped, not rebuilt
+                    self._tab = torch.clamp(self._tab - off, min=0)
+                    if not self._incremental:  # idle (all 0) on the incremental path
+                        self._rec_vs = torch.clamp(self._rec_vs - off, min=0)
+                if self._incremental:
+                    # a run whose version falls out of the MVCC window clamps
+                    # to 0 and can never conflict again (snapshots are >= 0)
+                    self._runs_ver = torch.clamp(self._runs_ver - off, min=0)
             self._base = version
             self.stats.gc_calls += 1
             self.stats.merge_s += time.perf_counter() - t0

@@ -48,7 +48,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from ..runtime.coverage import testcov
-from .api import CompletedResolve, ResolveHandle, TxInfo, Verdict, validate_batch
+from .api import CompletedResolve, ResolveHandle, TxInfo, Verdict, span, validate_batch
 
 
 class _RowSlot:
@@ -119,16 +119,18 @@ class DeferredResolve(ResolveHandle):
 
     __slots__ = (
         "owner", "version", "n_txn", "txns", "verdict_dev", "ok_dev",
-        "gc_after", "_result",
+        "gc_after", "t0", "_result",
     )
 
-    def __init__(self, owner, version: int, txns, verdict_dev, ok_dev) -> None:
+    def __init__(self, owner, version: int, txns, verdict_dev, ok_dev,
+                 t0: float) -> None:
         self.owner = owner
         self.version = version
         self.n_txn = len(txns)
         self.txns = txns
         self.verdict_dev = verdict_dev
         self.ok_dev = ok_dev
+        self.t0 = t0                    # host clock at dispatch
         self.gc_after: list[int] = []   # remove_before calls after dispatch
         self._result: list[Verdict] | None = None
 
@@ -144,17 +146,30 @@ class DeferredResolve(ResolveHandle):
 # the replay window and the handles kept alive by a hot stream
 _REPLAY_WINDOW = 8
 
+# where a device-backed set reads a device value on the host (its
+# `stats.host_reads`): a batch's verdicts, a batch's folded flag as it
+# stood at its dispatch, the stream's flag (the window's check), the
+# bucketed search's convergence (synchronous resolves), a fold's merged
+# count (compactions), the fixpoint's iteration sum, and the legacy
+# layouts' live counts
+READ_SITES = ("verdicts", "batch_flag", "window_flag", "search", "fold_count",
+              "fixpoint", "count")
+
 
 class PipelinedConflictMixin:
     """resolve_deferred() for the device-backed conflict set.
 
     Host classes provide: `_oldest`, `_offset`, `_offset_array`,
-    `_max_key_bytes`, `_dev_ok`, `stats`, `resolve_arrays(...)`,
-    `resolve_batch(...)`, `remove_before(...)`, `check_pipelined()`,
-    `_host_numpy`/`_host_bool` (reads of a device value), and a class-level
-    `_PIPELINE_SNAPSHOT_ATTRS` naming every piece of state a dispatch, GC
-    or compaction can move — all of it rebound on update, never written in
-    place (module docstring)."""
+    `_max_key_bytes`, `_dev_ok`, `stats`, `host_syncs`,
+    `resolve_arrays(...)`, `resolve_batch(...)`, `remove_before(...)`,
+    `check_pipelined()`, and a class-level `_PIPELINE_SNAPSHOT_ATTRS`
+    naming every piece of state a dispatch, GC or compaction can move — all
+    of it rebound on update, never written in place (module docstring).
+    A deferred batch's answer is noted in `stats` here, once, when its
+    verdicts are answered; the host class's resolves note no answer while
+    `_replaying` (a recovery's replay).  Every read of a device value on
+    the host goes through `_host_bool`/`_host_int`/`_host_numpy`, named by
+    its site (READ_SITES)."""
 
     _PIPELINE_SNAPSHOT_ATTRS: tuple[str, ...] = ()
     _pipeline_depth = 2
@@ -163,10 +178,57 @@ class PipelinedConflictMixin:
         self._inflight: list[DeferredResolve] = []
         self._replayable: list[DeferredResolve] = []
         self._pipe_snapshot: dict | None = None
+        self._replaying = False
         # a slot is reused D packs later; with up to `depth` undrained
         # dispatches outstanding, D = depth + 1 keeps every in-flight
         # batch's arrays untouched
         self._arena = PackArena(depth=self._pipeline_depth + 1)
+
+    # -- reads of a device value on the host -----------------------------------
+    def _host_read(self, site: str, read, t):
+        """One blocking read: counted in `host_syncs` and, by site, in
+        `stats.host_reads`; its wall time added to `stats.host_wait_s`;
+        inside a `cs.read.<site>` span."""
+        self.host_syncs += 1
+        reads = self.stats.host_reads
+        reads[site] = reads.get(site, 0) + 1
+        t0 = time.perf_counter()
+        with span("cs.read." + site):
+            out = read(t)
+        self.stats.host_wait_s += time.perf_counter() - t0
+        return out
+
+    def _host_bool(self, t, site: str = "batch_flag") -> bool:
+        """A device flag read on the host.  With no site given it counts as
+        a batch's flag ("batch_flag"), whichever flag `t` is; the set's own
+        reads of the stream's flag pass "window_flag"."""
+        return self._host_read(site, bool, t)
+
+    def _host_int(self, t, site: str) -> int:
+        return self._host_read(site, int, t)
+
+    def _host_numpy(self, t, site: str = "verdicts") -> np.ndarray:
+        return self._host_read(site, _to_numpy, t)
+
+    def _note_sync_answer(self, rtv, active_p, v_np, t0: float) -> None:
+        """A synchronous resolve answered: its active transactions, their
+        CONFLICTs and its time since `t0` (0 transactions for a batch staged
+        on the device, which counting would read back)."""
+        if isinstance(rtv, np.ndarray):
+            active = np.asarray(active_p)
+            n_txn = int(active.sum())
+            aborted = int(((v_np == int(Verdict.CONFLICT)) & active).sum())
+        else:
+            n_txn = aborted = 0
+        self.stats.note_answer(n_txn, aborted, time.perf_counter() - t0)
+
+    def _note_answer(self, h: DeferredResolve, codes) -> None:
+        """A deferred batch answered: its transactions (those not TOO_OLD),
+        its CONFLICTs and its time from dispatch to answer."""
+        codes = np.asarray(codes[: h.n_txn])
+        self.stats.note_answer(int((codes != int(Verdict.TOO_OLD)).sum()),
+                               int((codes == int(Verdict.CONFLICT)).sum()),
+                               time.perf_counter() - h.t0)
 
     def _take_snapshot(self) -> dict:
         return {a: getattr(self, a) for a in self._PIPELINE_SNAPSHOT_ATTRS}
@@ -192,7 +254,7 @@ class PipelinedConflictMixin:
         if not self._inflight:
             self._pipe_snapshot = self._take_snapshot()
         verdict = self.resolve_arrays(commit_version, *packed, sync=False)
-        h = DeferredResolve(self, commit_version, list(txns), verdict, self._dev_ok)
+        h = DeferredResolve(self, commit_version, list(txns), verdict, self._dev_ok, t0)
         self._inflight.append(h)
         return h
 
@@ -209,22 +271,22 @@ class PipelinedConflictMixin:
                 return
             self._inflight.pop(0)
             h._result = [Verdict(int(c)) for c in v[: h.n_txn]]
+            self._note_answer(h, v)
             if self._inflight:
                 # later dispatches already ride on h's state: keep h
                 # replayable until the stream validates past it
                 self._replayable.append(h)
                 if len(self._replayable) >= _REPLAY_WINDOW and self._host_bool(
-                    self._dev_ok
+                    self._dev_ok, "window_flag"
                 ):
                     # the flag just read validated EVERY dispatched batch:
                     # drain the rest of the window in place and drop the
                     # recovery state (a mid-window snapshot would be
                     # unusable: the in-flight dispatches are baked into it)
                     for hh in self._inflight:
-                        hh._result = [
-                            Verdict(int(c))
-                            for c in self._host_numpy(hh.verdict_dev)[: hh.n_txn]
-                        ]
+                        vv = self._host_numpy(hh.verdict_dev)
+                        hh._result = [Verdict(int(c)) for c in vv[: hh.n_txn]]
+                        self._note_answer(hh, vv)
                     self._inflight.clear()
             if not self._inflight:
                 self._replayable.clear()
@@ -243,7 +305,8 @@ class PipelinedConflictMixin:
         calls between them) through the sync path, which replays a search
         that does not converge at full depth.  Results of already-drained
         (replayable) batches were valid; the replay reproduces them while
-        rebuilding the state."""
+        rebuilding the state.  The replay's resolves note no answer: each
+        batch is answered, and noted, once."""
         pending = self._inflight
         done = self._replayable
         snap = self._pipe_snapshot
@@ -252,12 +315,17 @@ class PipelinedConflictMixin:
         for a, val in snap.items():
             setattr(self, a, val)
         testcov("kernel.pipeline_recover")
-        for h in done + pending:
-            verdicts = self.resolve_batch(h.version, h.txns)
-            if h._result is None:
-                h._result = list(verdicts)
-            for gv in h.gc_after:
-                self.remove_before(gv)
+        self._replaying = True
+        try:
+            for h in done + pending:
+                verdicts = self.resolve_batch(h.version, h.txns)
+                if h._result is None:
+                    h._result = list(verdicts)
+                    self._note_answer(h, np.asarray(verdicts, dtype=np.int32))
+                for gv in h.gc_after:
+                    self.remove_before(gv)
+        finally:
+            self._replaying = False
 
     def abandon_inflight(self) -> None:
         """Drop every in-flight handle WITHOUT touching the device (for an
@@ -272,6 +340,10 @@ class PipelinedConflictMixin:
         newest dispatch so a recovery replays it at the right point."""
         if self._inflight:
             self._inflight[-1].gc_after.append(version)
+
+
+def _to_numpy(t) -> np.ndarray:
+    return t.cpu().numpy()
 
 
 class PipelinedPacker:

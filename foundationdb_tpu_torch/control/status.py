@@ -202,7 +202,7 @@ def _kernel_rollup(resolvers) -> dict[str, Any]:
         "recompiles", "search_fallbacks", "compactions", "gc_calls",
         "rows_reclaimed", "node_count", "pack_ms", "encode_ms", "pad_ms",
         "h2d_ms", "resolve_ms", "merge_ms",
-        "runs_appended", "full_merges",
+        "runs_appended", "full_merges", "host_wait_ms", "compact_bytes",
     ):
         out[k] = sum(p.get(k, 0) for p in per)
     out["phase"] = {
@@ -230,6 +230,13 @@ def _kernel_rollup(resolvers) -> dict[str, Any]:
         for k, v in p.get("launches", {}).items():
             launched[k] = launched.get(k, 0) + v
     out["launches"] = launched
+    # the device sets' blocking reads of a device value, by site
+    # (conflict/pipeline.py READ_SITES)
+    reads: dict[str, int] = {}
+    for p in per:
+        for k, v in p.get("host_reads", {}).items():
+            reads[k] = reads.get(k, 0) + v
+    out["host_reads"] = reads
     out["abort_rate"] = out["aborted"] / out["txns"] if out["txns"] else 0.0
     out["occupancy"] = (
         out["rows_real"] / out["rows_padded"] if out["rows_padded"] else 1.0
@@ -622,6 +629,9 @@ STATUS_SCHEMA: dict = {
         "key_bytes?": int,
         "widenings?": int,
         "launches?": dict,
+        "host_reads?": dict,
+        "host_wait_ms?": (int, float),
+        "compact_bytes?": int,
         "fold_ms": dict,
         "phase": dict,
         "resolve_ms_p50": (int, float),

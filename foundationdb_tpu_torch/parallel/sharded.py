@@ -45,7 +45,8 @@ from ..keys import SENT_LANE, from_lanes, to_lanes
 from ..ops.rmq import _levels, build_sparse_table
 from ..ops.search import lex_less
 from ..conflict import kernels
-from ..conflict.api import ConflictSet, KernelStats, TxInfo, Verdict, validate_batch
+from ..conflict.api import (
+    ConflictSet, KernelStats, TxInfo, Verdict, span, validate_batch)
 from ..conflict.device import (
     FAST_SEARCH_ITERS,
     MERGE_IMPLS,
@@ -63,7 +64,7 @@ from ..conflict.device import (
     resolve_device,
     stage_batch,
 )
-from ..conflict.pipeline import PipelinedConflictMixin
+from ..conflict.pipeline import READ_SITES, PipelinedConflictMixin
 
 
 def _lex_max(a, b):
@@ -155,7 +156,8 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         self.regrows = 0
         self.host_syncs = 0
         self.stats = KernelStats(backend=f"sharded-{self.device.type}",
-                                 launches=dict.fromkeys(kernels.launches, 0))
+                                 launches=dict.fromkeys(kernels.launches, 0),
+                                 host_reads=dict.fromkeys(READ_SITES, 0))
         self.stats.merge_impl = merge_impl
         self._intra_iters = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._dev_ok = torch.ones((), dtype=torch.bool, device=self.device)
@@ -337,27 +339,20 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             self._rec_counts_ub = self._rec_counts.copy()
             self._rec_dev_counts = None
 
-    # -- host reads ------------------------------------------------------------
-    def _host_bool(self, t: torch.Tensor) -> bool:
-        self.host_syncs += 1
-        return bool(t)
-
-    def _host_numpy(self, t: torch.Tensor) -> np.ndarray:
-        self.host_syncs += 1
-        return t.cpu().numpy()
-
+    # -- host reads (the mixin's _host_bool / _host_numpy, by site) ------------
     def _gather(self, parts) -> torch.Tensor:
         """Per-partition device scalars as one int64[n] on the first device."""
         return torch.stack([t.to(self.device, torch.int64).reshape(()) for t in parts])
 
     def _host_counts(self) -> np.ndarray:
         if self._counts is None:
-            self._counts = self._host_numpy(self._gather(self._dev_counts))
+            self._counts = self._host_numpy(self._gather(self._dev_counts), "count")
         return self._counts
 
     def _host_rec_counts(self) -> np.ndarray:
         if self._rec_counts is None:
-            self._rec_counts = self._host_numpy(self._gather(self._rec_dev_counts))
+            self._rec_counts = self._host_numpy(self._gather(self._rec_dev_counts),
+                                                "count")
         return self._rec_counts
 
     def _count(self, p: int):
@@ -382,8 +377,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
     def fixpoint_iterations(self) -> int:
         """The intra fixpoint's iterations summed over every partition and
         resolve so far: one read on the host."""
-        self.host_syncs += 1
-        return int(self._intra_iters)
+        return self._host_int(self._intra_iters, "fixpoint")
 
     def _offset(self, version: int) -> int:
         off = version - self._base
@@ -470,7 +464,21 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
 
         sync=False: PIPELINED — dispatches and returns the verdicts as a
         device tensor; the partitions' convergence (and, legacy, capacity)
-        folds into one device flag that check_pipelined() reads."""
+        folds into one device flag that check_pipelined() reads.
+
+        The whole call is the span `cs.resolve`.  Every call counts in
+        `stats.batches`; a synchronous one notes its answer unless a
+        recovery's replay runs it, and a pipelined one is answered by
+        whoever reads its verdicts, as in DeviceConflictSet."""
+        with span("cs.resolve", commit_version):
+            return self._resolve_arrays(commit_version, rbv, rev, rtv, wbv, wev,
+                                        wtv, snap_p, active_p, sync)
+
+    def _resolve_arrays(self, commit_version: int, rbv, rev, rtv, wbv, wev, wtv,
+                        snap_p, active_p, sync: bool, note: bool = True):
+        """resolve_arrays inside its span.  note=False: a synchronous
+        resolve that counts in `batches` and notes no answer (a pipelined
+        dispatch's, whose caller answers it)."""
         if sync and self._inflight:
             self._drain_all()
         if commit_version <= self._last_commit:
@@ -479,6 +487,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             )
         Wn = wbv.shape[0]
         commit_off = self._offset(commit_version)
+        t0 = time.perf_counter()
         if self._incremental:
             if 2 * Wn > self._run_cap:
                 # every partition sees the whole batch, clipped
@@ -496,20 +505,24 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
         elif not sync and self._counts_ub.max() + 2 * Wn > self._cap:
             self.check_pipelined()
             if self._counts_ub.max() + 2 * Wn > self._cap:
-                v = self.resolve_arrays(commit_version, rbv, rev, rtv, wbv, wev,
-                                        wtv, snap_p, active_p)
+                v = self._resolve_arrays(commit_version, rbv, rev, rtv, wbv, wev,
+                                         wtv, snap_p, active_p, True, note=False)
                 return torch.from_numpy(v).to(self.device)
         batches = self._stage((rbv, rev, rtv, wbv, wev, wtv, snap_p, active_p))
         resolve = (self._resolve_inc if self._incremental
                    else self._resolve_lsm if self._lsm else self._resolve_flat)
         verdict, ok = resolve(batches, commit_off, Wn, sync)
         self._last_commit = commit_version
+        self.stats.batches += 1
         if not sync:
             if ok is not None:
                 self._dev_ok = self._dev_ok & ok
             self._pipelined_since_check += 1
             return verdict
-        return self._host_numpy(verdict)
+        v_np = self._host_numpy(verdict)
+        if note and not self._replaying:  # else the recovery or the caller answers
+            self._note_sync_answer(rtv, active_p, v_np, t0)
+        return v_np
 
     def _resolve_inc(self, batches, commit_off: int, Wn: int, sync: bool):
         """Each partition appends its clipped committed union as run
@@ -525,7 +538,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                          search_iters=iters, search_impl=self._search_impl)
                     for p, b in enumerate(batches)]
             verdict, conv = self._fold(outs, 4, 5)
-            if not sync or conv is None or self._host_bool(conv):
+            if not sync or conv is None or self._host_bool(conv, "search"):
                 break
             self.search_fallbacks += 1
             iters = _levels(self._cap) + 1
@@ -559,11 +572,11 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 iters = fast
                 while True:
                     outs, verdict, conv = dispatch(iters)
-                    if conv is None or self._host_bool(conv):
+                    if conv is None or self._host_bool(conv, "search"):
                         break
                     self.search_fallbacks += 1
                     iters = _levels(self._cap) + 1
-                counts = self._host_numpy(self._gather([o[3] for o in outs]))
+                counts = self._host_numpy(self._gather([o[3] for o in outs]), "count")
                 if counts.max() <= self._cap:
                     break
                 self._grow_main(self._grown(self._cap, counts.max()))
@@ -600,12 +613,12 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 break
             while True:
                 outs, verdict, conv = dispatch(iters, rec_iters)
-                if conv is None or self._host_bool(conv):
+                if conv is None or self._host_bool(conv, "search"):
                     break
                 self.search_fallbacks += 1
                 iters = _levels(self._cap) + 1
                 rec_iters = _levels(self._rec_cap) + 1
-            counts = self._host_numpy(self._gather([o[4] for o in outs]))
+            counts = self._host_numpy(self._gather([o[4] for o in outs]), "count")
             if counts.max() <= self._rec_cap:
                 self._rec_counts, self._rec_counts_ub = counts, counts.copy()
                 self._rec_dev_counts = None
@@ -632,7 +645,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
             return
         n = self._pipelined_since_check
         self._pipelined_since_check = 0
-        if not self._host_bool(self._dev_ok):
+        if not self._host_bool(self._dev_ok, "window_flag"):
             raise RuntimeError(
                 f"a pipelined batch among the last {n} failed its deferred"
                 " search-convergence/capacity check; replay through sync=True"
@@ -660,7 +673,7 @@ class ShardedDeviceConflictSet(PipelinedConflictMixin, ConflictSet):
                 outs.append((ks, vs, counts[-1]))
                 worst.append(torch.stack(counts).max())
             seen = self._host_numpy(torch.stack([self._gather([o[2] for o in outs]),
-                                                 self._gather(worst)]))
+                                                 self._gather(worst)]), "fold_count")
             if seen[1].max() <= self._cap:
                 break
             self._grow_main(self._grown(self._cap, seen[1].max()))
