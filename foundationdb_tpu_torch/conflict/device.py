@@ -495,8 +495,12 @@ def compact_fold(ks, vs, rec_ks, rec_vs, *, cap: int):
     """The scatter fold (reference `_compact_fold_scatter`): kernel K3
     ranks the step function (rec_ks, rec_vs) into main, merge-path
     positions come from an arange + cumsum, the merged domain is built by
-    row scatters, values max-compose per-source forward fills, and
-    equal-valued neighbours coalesce.  Returns (new_ks, new_vs,
+    row scatters, values max-compose both step functions, and
+    equal-valued neighbours coalesce.  The reference forward-fills each
+    source over the merged domain; here each is evaluated in closed form
+    at the other's rows: main row i follows the live recent rows
+    0..c[i]-1, live recent row j follows main rows 0..ub[j]-1, and a step
+    function reads 0 before its first row.  Returns (new_ks, new_vs,
     new_count); new_count > cap means rows were dropped and the caller
     must regrow main and fold again."""
     rec_cap, W = rec_ks.shape
@@ -508,18 +512,19 @@ def compact_fold(ks, vs, rec_ks, rec_vs, *, cap: int):
     cnt = torch.zeros(cap + 1, dtype=torch.int32, device=ks.device)
     cnt.index_add_(0, torch.where(rec_live, ub, cap).long(),
                    torch.ones_like(ub))
-    pos_main = _arange(cap, ks) + _cumsum32(cnt[:cap])
+    c = _cumsum32(cnt[:cap])
+    pos_main = _arange(cap, ks) + c
     pos_rec = torch.where(rec_live, _arange(rec_cap, ks) + ub, M)
     merged = _spare(M, SENT_LANE, ks)
     _put(merged, pos_main, ks)
     merged = _put(merged, pos_rec, rec_ks)[:M]
-    true_c = torch.ones(cap, dtype=torch.bool, device=ks.device)
-    true_r = torch.ones(rec_cap, dtype=torch.bool, device=ks.device)
-    main_def = _set_rows(M, False, pos_main, true_c)
-    rec_def = _set_rows(M, False, pos_rec, true_r)
-    mval = _set_rows(M, 0, pos_main, vs)
-    rval = _set_rows(M, 0, pos_rec, rec_vs)
-    val = torch.maximum(_ffill(main_def, mval), _ffill(rec_def, rval))
+    rec_at_main = torch.where(c > 0, rec_vs[torch.clamp(c - 1, min=0).long()], 0)
+    main_at_rec = torch.where(ub > 0, vs[torch.clamp(ub - 1, min=0).long()], 0)
+    # merged rows that no row lands on (past the live end) stay sentinels,
+    # never kept: their 0, where the fills held a last value, is not read
+    val = _spare(M, 0, vs)
+    _put(val, pos_main, torch.maximum(vs, rec_at_main))
+    val = _put(val, pos_rec, torch.maximum(rec_vs, main_at_rec))[:M]
 
     keep = ~_is_sentinel(merged)
     keep[1:] &= val[1:] != val[:-1]

@@ -440,6 +440,55 @@ def test_k4_run_to_step_matches_plain(cuda):
         assert _same(rows, p_rows) and _same(vals, p_vals)
 
 
+def _id_rows(ids, n):
+    """Sorted unique 40-bit ids as W = 5 key rows (two data lanes, a
+    16-byte length lane), sentinel-padded to n rows."""
+    out = np.full((n, 5), 0xFFFFFFFF, np.uint32)
+    out[: len(ids), 0] = ids >> 32
+    out[: len(ids), 1] = ids & 0xFFFFFFFF
+    out[: len(ids), 2:4] = 0
+    out[: len(ids), 4] = 16
+    return out
+
+
+def _fold_levels(rng, device, cap, rec_cap, main_live):
+    """Main: `main_live` random sorted keys of `cap` rows, values with no
+    equal neighbours bar chance; recent: one run's step function of
+    `rec_cap` rows as K4 gives it (a begin at the run's version, the next
+    key at 0), 100 rows of sentinels, 250 begins on main's own keys."""
+    ids = np.unique(rng.integers(0, 1 << 40, main_live + main_live // 8))
+    main_ids = np.sort(rng.choice(ids, main_live, replace=False))
+    n_pairs = (rec_cap - 100) // 2
+    on_main = rng.choice(main_ids[main_ids % 2 == 0], 250, replace=False)
+    begins = np.unique(np.concatenate([2 * rng.integers(0, 1 << 39, n_pairs), on_main]))
+    begins = np.sort(rng.choice(begins, n_pairs, replace=False))
+    rec_ids = np.stack([begins, begins + 1], axis=1).reshape(-1)
+    vs = np.zeros(cap, np.int32)
+    vs[:main_live] = rng.integers(1, 1 << 20, main_live)
+    rvs = np.zeros(rec_cap, np.int32)
+    rvs[: len(rec_ids): 2] = 1 << 21
+    return (keys.to_lanes(_id_rows(main_ids, cap), device),
+            torch.from_numpy(vs).to(device),
+            keys.to_lanes(_id_rows(rec_ids, rec_cap), device),
+            torch.from_numpy(rvs).to(device))
+
+
+@pytest.mark.parametrize("main_live", [3_000_000, (1 << 22) - 1000],
+                         ids=["fits", "overflow"])
+def test_compact_fold_matches_the_sort_referee_at_the_cells_scale(cuda, main_live):
+    """compact_fold (closed-form values, no scan) equals `_compact_fold_sort`
+    (forward fills) on the card, bit for bit: main at 2^22 rows of W = 5,
+    one run's step function of 2 x 16384 rows, and a fold that overflows
+    main (no recent row coalesces, so main_live + 32668 rows come out)."""
+    cap, rec_cap = 1 << 22, 2 * 16384
+    args = _fold_levels(np.random.default_rng(main_live), cuda, cap, rec_cap, main_live)
+    got = tdev.compact_fold(*args, cap=cap)
+    want = tdev._compact_fold_sort(*args, cap=cap)
+    assert _same(got[0], want[0]) and _same(got[1], want[1])
+    assert int(got[2]) == int(want[2])
+    assert (int(got[2]) > cap) == (main_live > cap - rec_cap)
+
+
 def test_wrapper_rejects_bad_cuda_inputs(cuda):
     ks = torch.zeros((8, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
