@@ -1,7 +1,7 @@
 """The controls of the comparison that decides `correct`: the plain
-reference put in the program's place with one guarantee of the
-configuration broken, read by the same comparison a run makes.  Each has
-to come out as not correct.
+reference (the cell generator's `reference`) put in the program's place
+with one guarantee of the configuration broken, read by the same
+comparison a run makes.  Each has to come out as not correct.
 
     python3 -m resolverbench.control --workload rw16.b8k --seeds 1,2,3 --batches 400
 
@@ -23,10 +23,7 @@ import argparse
 import json
 import sys
 
-import numpy as np
-
 from .harness import Batch, compare, load_cell
-from .reference import Keys, Reference
 from .registry import Registry
 
 CONTROLS = {
@@ -38,19 +35,8 @@ CONTROLS = {
 
 def control_verdicts(gen, last: int, write_only_below: int, broken: dict) -> list[Batch]:
     """Batches 0..last as the broken reference answers them."""
-    ids = np.unique(np.concatenate([
-        np.concatenate([b["reads"].ravel(), b["writes"].ravel()])
-        for b in (gen.batch(i, i < write_only_below) for i in range(last + 1))]))
-    keys = Keys(ids, gen.key_bytes)
-    ref = Reference(keys.count, **broken)
-    recs = []
-    for i in range(last + 1):
-        b = gen.batch(i, i < write_only_below)
-        rec = Batch(i, b["version"], b["snaps"].shape[0])
-        rec.verdicts = ref.resolve(b["version"], b["oldest"], keys(b["reads"]),
-                                   keys(b["writes"]), b["snaps"])
-        recs.append(rec)
-    return recs
+    return [Batch(i, gen.version(i), v.shape[0], verdicts=v)
+            for i, v in enumerate(gen.reference(last, write_only_below, **broken))]
 
 
 def run_control(registry, workload: str, seed: int, batches: int, control: str) -> dict:

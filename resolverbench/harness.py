@@ -6,7 +6,9 @@ the order the resolver role's pipelined path gives it
 (`roles/resolver.py::_resolve_pipelined`, `conflict/pipeline.py`'s
 `resolve_deferred` and `_drain_deferred`), on packed arrays in place of
 TxInfo lists.  For batch i, in a closed loop:
-  1. the batch's packed host arrays are made from the seed (layout.py);
+  1. the cell's generator (`traffic/<generator>.py`) makes the batch from
+     the seed and packs it into host arrays (`gen.pack`, in layout.py's
+     layout);
   2. where no batch is in flight, the set's recovery snapshot is taken;
      ``cs.resolve_arrays(v_i, *arrays, sync=False)``, keeping the verdicts
      and the set's folded validity flag as they stand at this dispatch;
@@ -46,8 +48,7 @@ from pathlib import Path
 
 import numpy as np
 
-from . import layout, trace
-from .reference import Keys, Reference
+from . import trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "foundationdb_tpu")
 
@@ -98,10 +99,6 @@ class Stream:
         self.inflight: list[Batch] = []    # dispatched, not drained
         self.replayable: list[Batch] = []  # drained, the window still open
         self.snap: dict | None = None
-
-    def lanes_of(self, ids: np.ndarray) -> np.ndarray:
-        rows, lens = self.gen.key_bytes(ids)
-        return layout.key_lanes(rows, lens, self.gen.max_key_bytes)
 
     def span(self, name: str):
         if self.spans:
@@ -185,8 +182,7 @@ class Stream:
                 until is None or time.perf_counter() < until):
             with self.span("rb.generate"):
                 b = self.gen.batch(i, write_only)
-                arrays = layout.pack(b["reads"], b["writes"], b["snaps"], b["oldest"],
-                                     self.lanes_of, self.width)
+                arrays = self.gen.pack(b, self.width)
             if self.cs.oldest_version != b["oldest"]:
                 raise RuntimeError(f"the set's oldest version {self.cs.oldest_version}"
                                    f" is not the stream's {b['oldest']}")
@@ -354,27 +350,13 @@ def load_cell(registry, workload: str) -> tuple[dict, dict]:
 
 
 def compare(gen, recs: list[Batch], write_only_below: int) -> tuple[dict, dict]:
-    """Every batch's verdicts against the reference's, worked out again
-    from the seed.  Returns the checks (each number with its limit) and a
-    tally of the reference's verdicts."""
-    last = max(r.index for r in recs)
+    """Every batch's verdicts against the reference's, which the cell's
+    generator works out again from the seed.  Returns the checks (each
+    number with its limit) and a tally of the reference's verdicts."""
     by_index = {r.index: r for r in recs}
-    seen = np.zeros(0, dtype=np.int64)
-    chunk = []
-    for i in range(last + 1):
-        b = gen.batch(i, i < write_only_below)
-        chunk.append(np.unique(np.concatenate([b["reads"].ravel(), b["writes"].ravel()])))
-        if len(chunk) == 64 or i == last:
-            seen = np.unique(np.concatenate([seen] + chunk))
-            chunk = []
-    keys = Keys(seen, gen.key_bytes)
-    ref = Reference(keys.count)
     mismatched = unanswered = 0
     tally = np.zeros(3, dtype=np.int64)
-    for i in range(last + 1):
-        b = gen.batch(i, i < write_only_below)
-        want = ref.resolve(b["version"], b["oldest"], keys(b["reads"]),
-                           keys(b["writes"]), b["snaps"])
+    for i, want in enumerate(gen.reference(max(by_index), write_only_below)):
         tally += np.bincount(want, minlength=3)
         rec = by_index.get(i)
         if rec is None or rec.verdicts is None:

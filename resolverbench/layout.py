@@ -17,6 +17,10 @@ the oldest version is TOO_OLD: it is not live and contributes no rows.
 The arithmetic is that of the program's vectorised bench packer and of its
 TxInfo packer (snapshot offsets, TOO_OLD at add time); the tests hold this
 copy against both.
+
+`pack_ranges` is the same layout for ranges of any keys, any number a
+transaction: the TxInfo packer's (`pack_batch`), which drops an empty
+range (begin >= end) as well.  `pack` stays for point keys.
 """
 
 from __future__ import annotations
@@ -81,6 +85,56 @@ def pack(reads: np.ndarray, writes: np.ndarray, snaps: np.ndarray, oldest: int,
     lanes = lanes_of(ids)[where]  # each distinct key encoded once
     rbv, rev, rtv = _rows(lanes[:r_ids.size], np.repeat(live, reads.shape[1]), width)
     wbv, wev, wtv = _rows(lanes[r_ids.size:], np.repeat(live, writes.shape[1]), width)
+    Bp = bucket(B)
+    snap = np.zeros(Bp, dtype=np.int32)
+    snap[live] = snaps[live] - oldest
+    act = np.zeros(Bp, dtype=bool)
+    act[:B] = active
+    return rbv, rev, rtv, wbv, wev, wtv, snap, act
+
+
+def _rows_less(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Rowwise a < b over uint32 lane rows: byte order of their keys."""
+    neq = a != b
+    first = neq.argmax(axis=1)
+    rows = np.arange(a.shape[0])
+    return neq.any(axis=1) & (a[rows, first] < b[rows, first])
+
+
+def _range_rows(begin: np.ndarray, end: np.ndarray, tx: np.ndarray, active: np.ndarray,
+                width: int):
+    """The rows of the ranges of live transactions that are not empty,
+    in the order given, padded to a power of two."""
+    if begin.shape != end.shape or begin.shape != (tx.shape[0], width):
+        raise ValueError(f"range rows must be [n, {width}] lanes, one id each")
+    if (np.diff(tx) < 0).any() or (tx.size and (tx[0] < 0 or tx[-1] >= active.shape[0])):
+        raise ValueError("ranges must come in transaction order, of the batch's transactions")
+    keep = active[tx] & _rows_less(begin, end)
+    n = int(keep.sum())
+    m = bucket(n)
+    b = np.full((m, width), SENTINEL_WORD, dtype=np.uint32)
+    e = np.full((m, width), SENTINEL_WORD, dtype=np.uint32)
+    t = np.full(m, -1, dtype=np.int32)
+    b[:n] = begin[keep]
+    e[:n] = end[keep]
+    t[:n] = tx[keep]
+    return b, e, t
+
+
+def pack_ranges(r_begin: np.ndarray, r_end: np.ndarray, r_tx: np.ndarray,
+                w_begin: np.ndarray, w_end: np.ndarray, w_tx: np.ndarray,
+                snaps: np.ndarray, oldest: int, width: int) -> tuple:
+    """One batch of key ranges as resolve_arrays' arrays.  Read ranges
+    [r_begin, r_end) as uint32[n, width] key lanes (key_lanes) with their
+    transactions' indices `r_tx`, in transaction order, and the same for
+    writes; `snaps` [B] read versions.  A transaction may carry any number
+    of ranges, none included.  Returns (rbv, rev, rtv, wbv, wev, wtv,
+    snap, active)."""
+    B = snaps.shape[0]
+    active = snaps >= oldest
+    rbv, rev, rtv = _range_rows(r_begin, r_end, r_tx, active, width)
+    wbv, wev, wtv = _range_rows(w_begin, w_end, w_tx, active, width)
+    live = np.flatnonzero(active)
     Bp = bucket(B)
     snap = np.zeros(Bp, dtype=np.int32)
     snap[live] = snaps[live] - oldest

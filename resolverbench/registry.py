@@ -2,7 +2,24 @@
 configuration's file, the traffic mix (`workloads/<traffic>.json`), the
 generator it names (`traffic/<generator>.py`) and one reader a metric
 (`metrics/<metric>.py`).  Adding a configuration, a mix or a metric is
-adding files and entries; nothing here changes."""
+adding files and entries; nothing here changes.
+
+A generator module holds a class `Generator(config, traffic, seed)` with
+`max_key_bytes`, the MVCC `window` and the versions a batch (`step`),
+`version(i)`, and three duties the harness calls on it:
+  batch(i, write_only)  batch i as a dict with at least `version`,
+                        `oldest` and the read versions `snaps`;
+  pack(b, width)        batch b as resolve_arrays' eight arrays, in the
+                        layout of layout.py (`pack` for point keys,
+                        `pack_ranges` for key ranges);
+  reference(last, write_only_below, **guarantees)
+                        the plain reference's verdicts of batches 0..last
+                        in order (reference.py's `Reference` for point
+                        keys, `RangeReference` for ranges), the guarantees
+                        (`intra`, `history`, `too_old`) for the controls.
+So a cell whose transactions carry another kind of key or range adds its
+generator; the harness, the comparison and the controls stay as they
+are."""
 
 from __future__ import annotations
 

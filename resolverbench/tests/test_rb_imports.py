@@ -34,10 +34,29 @@ def test_no_benchmark_file_imports_jax_or_the_jax_package(path):
     assert not _imports(BENCH / path) & set(FORBIDDEN)
 
 
+# Every traffic generator is yardstick: it names the reference that decides
+# `correct`.  So is the range generator the tests write into a tree's traffic/.
+GENERATORS = sorted(p.relative_to(BENCH).as_posix() for p in BENCH.glob("traffic/*.py")) + [
+    "tests/range_txns.py"]
+READERS = sorted(p.relative_to(BENCH).as_posix() for p in BENCH.glob("metrics/*.py"))
+
+
 @pytest.mark.parametrize("path", ["reference.py", "layout.py", "trace.py", "registry.py",
-                                  "traffic/point_txns.py", "control.py"])
+                                  "control.py"] + GENERATORS + READERS)
 def test_the_yardstick_imports_nothing_of_the_program(path):
     assert PROGRAM not in _imports(BENCH / path)
+
+
+@pytest.mark.parametrize("path", GENERATORS)
+def test_loading_a_generator_loads_nothing_of_the_program(path):
+    """What a generator imports by way of another module shows only when it is
+    loaded: load it as the registry does and look at sys.modules."""
+    code = ("import json, pathlib, sys\n"
+            "from resolverbench.registry import _load\n"
+            f"_load(pathlib.Path({str(BENCH / path)!r}))\n"
+            "print(json.dumps(sorted({m.split('.')[0] for m in sys.modules})))\n")
+    tops = set(_run(code))
+    assert PROGRAM not in tops and not tops & set(FORBIDDEN)
 
 
 def _run(code: str) -> dict:

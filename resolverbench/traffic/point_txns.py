@@ -1,5 +1,5 @@
-"""The benchmark's one traffic generator: batches of point-key transactions
-that a commit proxy sends one resolver, made from the seed.
+"""A traffic generator: batches of point-key transactions that a commit
+proxy sends one resolver, made from the seed.
 
 What it reads:
   the configuration (`configs/<name>.json`): the number of keys
@@ -18,11 +18,20 @@ of a seed, whatever the run's speed, and every seed makes batches of the
 same sizes.  The oldest version batch i is checked against is the MVCC
 floor the resolver set after batch i - 1: version(i - 1) - window, once
 that is positive.
+
+Besides its batches a generator owns two duties of the harness: `pack`
+lays a batch out as the program takes it, and `reference` answers the
+batches again with the plain reference.  Here a read or a write is a key
+id; `pack` writes it as the point range [k, k + b"\\x00") (layout.pack)
+and `reference` checks key equality (reference.Reference).
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from resolverbench import layout
+from resolverbench.reference import Keys, Reference
 
 FNV_OFFSET_64 = 0xCBF29CE484222325
 FNV_PRIME_64 = 1099511628211
@@ -115,6 +124,10 @@ class Generator:
             return rows, np.full(ids.shape[0], rows.shape[1], dtype=np.int64)
         return ycsb_key_bytes(fnv_hash64(ids), self.max_key_bytes)
 
+    def lanes_of(self, ids: np.ndarray) -> np.ndarray:
+        rows, lens = self.key_bytes(ids)
+        return layout.key_lanes(rows, lens, self.max_key_bytes)
+
     def _draw(self, rng, n: int) -> np.ndarray:
         if self.dist == "uniform":
             return rng.integers(0, self.n_keys, size=n)
@@ -156,3 +169,28 @@ class Generator:
             snaps = np.where(stale, np.maximum(oldest - 1 - back, 0), snaps)
         return dict(version=version, oldest=oldest, reads=reads, writes=writes,
                     snaps=snaps.astype(np.int64))
+
+    # -- the harness's two duties ----------------------------------------------
+    def pack(self, b: dict, width: int) -> tuple:
+        """Batch b as resolve_arrays' eight arrays, `width` lanes a row."""
+        return layout.pack(b["reads"], b["writes"], b["snaps"], b["oldest"], self.lanes_of,
+                           width)
+
+    def reference(self, last: int, write_only_below: int, **guarantees):
+        """The plain reference's verdicts of batches 0..last, in order, as
+        int8 arrays; batches below `write_only_below` are write-only.
+        `guarantees` are Reference's switches (a control turns one off)."""
+        seen = np.zeros(0, dtype=np.int64)
+        chunk = []
+        for i in range(last + 1):
+            b = self.batch(i, i < write_only_below)
+            chunk.append(np.unique(np.concatenate([b["reads"].ravel(), b["writes"].ravel()])))
+            if len(chunk) == 64 or i == last:
+                seen = np.unique(np.concatenate([seen] + chunk))
+                chunk = []
+        keys = Keys(seen, self.key_bytes)
+        ref = Reference(keys.count, **guarantees)
+        for i in range(last + 1):
+            b = self.batch(i, i < write_only_below)
+            yield ref.resolve(b["version"], b["oldest"], keys(b["reads"]), keys(b["writes"]),
+                              b["snaps"])
